@@ -1,0 +1,58 @@
+"""Serving step functions.  Counterpart of the serving part of
+`repro.launch.steps` (`_last_valid_logits`, `make_serve_step`,
+`make_guarded_serve_step`).  The steps update the cache's K/V in place."""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models import transformer
+from repro_torch.models.config import ModelConfig
+
+
+def _last_valid_logits(logits: torch.Tensor, active, s: int) -> torch.Tensor:
+    """Final-position logits per slot.  With a (B, S) chunked-prefill
+    ``active`` each slot's final position is the last one it wrote;
+    everywhere else it is the last column."""
+    if active is not None and active.ndim == 2:
+        idx = torch.clamp(active.sum(dim=1) - 1, 0, s - 1)
+        return logits[torch.arange(logits.shape[0], device=logits.device),
+                      idx]
+    return logits[:, -1]
+
+
+def make_serve_step(cfg: ModelConfig, compute_dtype=torch.bfloat16):
+    """One step: tokens (B, S) in, ``(next_token (B, 1) int32, cache)``
+    out.  ``active`` ((B,) or (B, S) bool, optional) is the ragged
+    continuous-batching mask; ``None`` advances every slot."""
+
+    def serve_step(params, cache, tokens, active=None):
+        logits, new_cache = transformer.forward(
+            cfg, params, {"tokens": tokens}, cache=cache,
+            compute_dtype=compute_dtype, active=active)
+        last = _last_valid_logits(logits, active, tokens.shape[1])
+        return last.argmax(dim=-1).to(torch.int32)[:, None], new_cache
+
+    return serve_step
+
+
+def make_guarded_serve_step(cfg: ModelConfig, compute_dtype=torch.bfloat16):
+    """`make_serve_step` plus the per-slot NaN/Inf logits guard.
+
+    Returns ``(next_token, ok, cache)``; ``ok`` (B,) bool is True iff the
+    slot's final-position logits are all finite.  ``poison`` ((B,) bool)
+    overwrites a slot's logits with NaN after the forward, to exercise the
+    guard without corrupting model state."""
+
+    def serve_step(params, cache, tokens, active=None, poison=None):
+        logits, new_cache = transformer.forward(
+            cfg, params, {"tokens": tokens}, cache=cache,
+            compute_dtype=compute_dtype, active=active)
+        last = _last_valid_logits(logits, active, tokens.shape[1])
+        if poison is not None:
+            last = torch.where(poison[:, None], float("nan"), last)
+        ok = torch.isfinite(last).all(dim=-1)
+        nxt = last.argmax(dim=-1).to(torch.int32)
+        return nxt[:, None], ok, new_cache
+
+    return serve_step

@@ -1,0 +1,301 @@
+"""Shared layers on plain tensors: norms, RoPE, GQA attention, SwiGLU,
+embeddings.  Counterpart of `repro.models.layers` (dense family,
+contiguous KV cache).
+
+Parameters are plain dicts of tensors with the JAX package's keys; a
+layer stack holds stacked leaves with a leading layer axis, and the model
+indexes one layer's views out of them.  Matrices are consumed through
+``.to(x.dtype)`` exactly where the JAX code writes ``.astype(x.dtype)``.
+
+Not ported yet, and raising `NotImplementedError` rather than being
+replaced by something else: sliding-window attention (ROADMAP A12), the
+paged cache (A6) and the int8 cache (A7).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.attention.decode import gqa_decode_attention
+
+Params = dict
+DEFAULT_INIT_SCALE = 0.02
+NEG_INF = -1e30
+
+
+def _not_ported(what: str, item: str):
+    return NotImplementedError(f"{what} is not ported to repro_torch yet "
+                               f"(ROADMAP {item})")
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def rmsnorm_init(d: int, dtype=torch.float32, device=None) -> Params:
+    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+
+
+def rmsnorm(params: Params, x: torch.Tensor, eps: float = 1e-5
+            ) -> torch.Tensor:
+    """Computed in f32, cast back to x's dtype."""
+    x32 = x.float()
+    var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * params["scale"].float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embedding
+# ---------------------------------------------------------------------------
+
+def rope_frequencies(head_dim: int, theta: float, device=None
+                     ) -> torch.Tensor:
+    half = head_dim // 2
+    exps = torch.arange(0, half, dtype=torch.float32, device=device) / half
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+               ) -> torch.Tensor:
+    """x: (..., seq, heads, head_dim); positions: (..., seq) int.
+
+    Rotate-half: the two halves of head_dim are the pair coordinates and
+    are concatenated back, not interleaved."""
+    half = x.shape[-1] // 2
+    freqs = rope_frequencies(x.shape[-1], theta, x.device)       # (half,)
+    angles = positions[..., :, None].float() * freqs             # (.., s, half)
+    cos = torch.cos(angles)[..., :, None, :]                     # (.., s, 1, half)
+    sin = torch.sin(angles)[..., :, None, :]
+    x1f, x2f = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([x1f * cos - x2f * sin, x2f * cos + x1f * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# GQA attention
+# ---------------------------------------------------------------------------
+
+def attention_init(generator: torch.Generator, cfg, dtype=torch.float32
+                   ) -> Params:
+    """One layer's attention weights, drawn from ``generator`` (on its
+    device) as N(0, 0.02^2) in f32 and cast to ``dtype``."""
+    p = {
+        "wq": _dense_init(generator, (cfg.d_model, cfg.q_dim), dtype),
+        "wk": _dense_init(generator, (cfg.d_model, cfg.kv_dim), dtype),
+        "wv": _dense_init(generator, (cfg.d_model, cfg.kv_dim), dtype),
+        "wo": _dense_init(generator, (cfg.q_dim, cfg.d_model), dtype),
+    }
+    dev = generator.device
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros((cfg.q_dim,), dtype=dtype, device=dev)
+        p["bk"] = torch.zeros((cfg.kv_dim,), dtype=dtype, device=dev)
+        p["bv"] = torch.zeros((cfg.kv_dim,), dtype=dtype, device=dev)
+    if cfg.qk_norm:
+        p["q_norm"] = rmsnorm_init(cfg.head_dim, dtype, dev)
+        p["k_norm"] = rmsnorm_init(cfg.head_dim, dtype, dev)
+    return p
+
+
+def _dense_init(generator, shape, dtype):
+    w = torch.randn(shape, generator=generator, dtype=torch.float32,
+                    device=generator.device)
+    return (w * DEFAULT_INIT_SCALE).to(dtype)
+
+
+def _mask_block(q_pos, k_pos, causal: bool, k_valid=None) -> torch.Tensor:
+    """Boolean mask from position vectors: ``(Sq, Sk)`` when every operand
+    is shared across the batch (1-D), ``(B, Sq, Sk)`` when any carries a
+    leading batch axis (ragged continuous batching)."""
+    diff = q_pos[..., :, None] - k_pos[..., None, :]
+    ok = torch.ones(diff.shape, dtype=torch.bool, device=diff.device)
+    if causal:
+        ok = ok & (diff >= 0)
+    if k_valid is not None:
+        ok = ok & k_valid[..., None, :]
+    return ok
+
+
+def attention_core(q, k, v, q_pos, k_pos, *, causal: bool, scale: float,
+                   k_valid=None, chunk_q: int | None = None) -> torch.Tensor:
+    """Masked multi-head attention with GQA grouping (no cache repeat).
+
+    q: (B, Sq, Hq, dh); k, v: (B, Sk, Hkv, dh); ``q_pos`` (Sq,) or (B, Sq),
+    ``k_pos`` (Sk,) or (B, Sk), ``k_valid`` (Sk,) or (B, Sk).  Operands
+    enter the products in f32, which is the JAX code's "operands in their
+    dtype, f32 accumulation" (a product of two bf16 values is exact in
+    f32); probabilities are rounded to v's dtype first, as there.  Masked
+    logits are filled with -1e30.  When ``chunk_q`` divides Sq the query
+    blocks run one after another, so the (Sq, Sk) logits never exist at
+    once.  Returns f32 (B, Sq, Hq, dh).
+    """
+    b, sq, hq, dh = q.shape
+    hkv = k.shape[2]
+    g = hq // hkv
+    qr = q.reshape(b, sq, hkv, g, dh).float()
+    kf = k.float()
+
+    def blk(q_blk, qp_blk):
+        logits = torch.einsum("bqhgd,bkhd->bhgqk", q_blk, kf) * scale
+        mask = _mask_block(qp_blk, k_pos, causal, k_valid)
+        mask = (mask[None, None, None] if mask.ndim == 2
+                else mask[:, None, None])
+        logits = torch.where(mask, logits, NEG_INF)
+        probs = torch.softmax(logits, dim=-1)
+        return torch.einsum("bhgqk,bkhd->bqhgd",
+                            probs.to(v.dtype).float(), v.float())
+
+    if chunk_q and sq > chunk_q and sq % chunk_q == 0:
+        outs = []
+        for i in range(0, sq, chunk_q):
+            qp = q_pos[..., i:i + chunk_q]
+            outs.append(blk(qr[:, i:i + chunk_q], qp))
+        out = torch.cat(outs, dim=1)
+    else:
+        out = blk(qr, q_pos)
+    return out.reshape(b, sq, hq, dh)
+
+
+def _write_cache(c: torch.Tensor, new: torch.Tensor, t_abs: torch.Tensor,
+                 ok: torch.Tensor) -> None:
+    """In place: ``c[b, t_abs[b, j]] = new[b, j]`` where ``ok[b, j]``.
+
+    Rows that must not be written (inactive, or past the cache) are aimed
+    at ``t_abs % L`` and rewritten with the value already there; with
+    S <= L the targets of one slot are distinct, so the scatter has no
+    duplicate indices and needs no host synchronisation."""
+    b, s = t_abs.shape
+    idx = t_abs % c.shape[1]
+    b_idx = torch.arange(b, device=c.device)[:, None].expand(b, s)
+    cur = c[b_idx, idx]
+    c[b_idx, idx] = torch.where(ok[..., None, None], new.to(c.dtype), cur)
+
+
+def attention_apply(params: Params, x: torch.Tensor, cfg,
+                    positions: torch.Tensor, cache: Params | None = None,
+                    lengths: torch.Tensor | None = None,
+                    active: torch.Tensor | None = None,
+                    chunk_q: int | None = None):
+    """GQA self-attention of x (B, S, D) at ``positions`` ((S,) or (B, S)).
+
+    Without a cache: causal attention over the sequence itself.  With a
+    contiguous cache ``{"k", "v": (B, L, Hkv, dh)}``: each slot writes its
+    new K/V rows at ``lengths[b] + j`` — **in place**, where the JAX code
+    builds a new array — for the columns ``active`` allows (``(B,)`` or
+    ``(B, S)``), then attends over its own valid prefix.  A single-token
+    step (S == 1) goes through `gqa_decode_attention` (the CUDA kernel on
+    a card); longer chunks through `attention_core`.  Returns
+    ``(y, cache)`` where ``cache`` holds the same (updated) tensors.
+    """
+    if cfg.sliding_window:
+        raise _not_ported("sliding-window attention", "A12")
+    b, s, _ = x.shape
+    q = x @ params["wq"].to(x.dtype)
+    k = x @ params["wk"].to(x.dtype)
+    v = x @ params["wv"].to(x.dtype)
+    if cfg.qkv_bias:
+        q = q + params["bq"].to(x.dtype)
+        k = k + params["bk"].to(x.dtype)
+        v = v + params["bv"].to(x.dtype)
+    q = q.reshape(b, s, cfg.num_heads, cfg.head_dim)
+    k = k.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+    v = v.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        q = rmsnorm(params["q_norm"], q, cfg.norm_eps)
+        k = rmsnorm(params["k_norm"], k, cfg.norm_eps)
+    pos_b = positions if positions.ndim == 2 else positions[None]
+    q = apply_rope(q, pos_b, cfg.rope_theta)
+    k = apply_rope(k, pos_b, cfg.rope_theta)
+    scale = 1.0 / math.sqrt(cfg.head_dim)
+    if chunk_q is None:
+        if cfg.attn_chunk > 0:
+            chunk_q = cfg.attn_chunk
+        elif cfg.attn_chunk < 0 and s > 2048:
+            chunk_q = 512
+
+    if cache is None:
+        out = attention_core(q, k, v, positions, positions, causal=cfg.causal,
+                             scale=scale, chunk_q=chunk_q)
+    else:
+        if set(cache) != {"k", "v"}:
+            raise _not_ported("the int8 KV cache", "A7")
+        ck, cv = cache["k"], cache["v"]
+        cache_len = ck.shape[1]
+        if s > cache_len:
+            raise ValueError(f"{s} new tokens do not fit a cache of "
+                             f"{cache_len} rows")
+        if lengths is None:
+            lengths = torch.zeros((b,), dtype=torch.int32, device=x.device)
+        if active is None:
+            act2d = torch.ones((b, s), dtype=torch.bool, device=x.device)
+        else:
+            act = active.to(torch.bool)
+            act2d = act if act.ndim == 2 else act[:, None].expand(b, s)
+        t_abs = lengths[:, None] + torch.arange(s, dtype=torch.int32,
+                                                device=x.device)
+        new_len = lengths + act2d.sum(dim=1, dtype=torch.int32)
+        ok = act2d & (t_abs < cache_len)
+        _write_cache(ck, k, t_abs, ok)
+        _write_cache(cv, v, t_abs, ok)
+        if s == 1 and cfg.causal:
+            out = gqa_decode_attention(q[:, 0], ck, cv, length=new_len,
+                                       scale=scale)[:, None]
+        else:
+            k_slots = torch.arange(cache_len, dtype=torch.int32,
+                                   device=x.device)
+            k_valid = k_slots[None, :] < new_len[:, None]
+            out = attention_core(q, ck, cv, pos_b, k_slots, causal=cfg.causal,
+                                 scale=scale, k_valid=k_valid)
+    out = out.reshape(b, s, cfg.q_dim).to(x.dtype)
+    return out @ params["wo"].to(x.dtype), cache
+
+
+def attention_cache_init(cfg, batch: int, cache_len: int,
+                         dtype=torch.bfloat16, device=None) -> Params:
+    if dtype == torch.int8:
+        raise _not_ported("the int8 KV cache", "A7")
+    if cfg.sliding_window:
+        raise _not_ported("the sliding-window ring-buffer cache", "A12")
+    shape = (batch, cache_len, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+def swiglu_init(generator: torch.Generator, d_model: int, d_ff: int,
+                dtype=torch.float32) -> Params:
+    return {
+        "w_gate": _dense_init(generator, (d_model, d_ff), dtype),
+        "w_up": _dense_init(generator, (d_model, d_ff), dtype),
+        "w_down": _dense_init(generator, (d_ff, d_model), dtype),
+    }
+
+
+def swiglu_apply(params: Params, x: torch.Tensor) -> torch.Tensor:
+    h = F.silu(x @ params["w_gate"].to(x.dtype)) * (
+        x @ params["w_up"].to(x.dtype))
+    return h @ params["w_down"].to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Embeddings / heads
+# ---------------------------------------------------------------------------
+
+def embedding_init(generator: torch.Generator, vocab: int, d_model: int,
+                   dtype=torch.float32) -> Params:
+    return {"table": _dense_init(generator, (vocab, d_model), dtype)}
+
+
+def embedding_lookup(params: Params, tokens: torch.Tensor) -> torch.Tensor:
+    return params["table"][tokens.long()]
+
+
+def unembed(params: Params, x: torch.Tensor) -> torch.Tensor:
+    """Logits in x's dtype."""
+    return x @ params["table"].T.to(x.dtype)

@@ -1,0 +1,271 @@
+"""The port's `Server` and serve CLI against the JAX serving stack.
+
+Greedy token streams must be equal, not close: both servers decode in
+bf16 with an f32 cache from the same (converted) parameters, and a
+differing stream is a fault of the port.
+"""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import ast  # noqa: E402
+import io  # noqa: E402
+import os  # noqa: E402
+import pathlib  # noqa: E402
+import subprocess  # noqa: E402
+import sys  # noqa: E402
+from contextlib import redirect_stdout  # noqa: E402
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.launch import serve as jserve  # noqa: E402
+from repro.models import transformer as jtf  # noqa: E402
+from repro.models.config import ModelConfig as JConfig  # noqa: E402
+from repro.runtime.lifecycle import Lifecycle as JLifecycle  # noqa: E402
+from repro_torch.convert import disable_tf32, params_from_numpy  # noqa: E402
+from repro_torch.launch import serve as tserve  # noqa: E402
+from repro_torch.models.config import ModelConfig as TConfig  # noqa: E402
+from repro_torch.runtime.lifecycle import Lifecycle as TLifecycle  # noqa: E402
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(REPO / "tools"))
+import check_serve  # noqa: E402
+
+
+@pytest.fixture(autouse=True)
+def _full_f32():
+    disable_tf32()
+
+
+def _cfgs(**kw):
+    base = dict(name="tiny-serve", family="dense", num_layers=2, d_model=32,
+                d_ff=64, vocab_size=101, num_heads=4, num_kv_heads=2)
+    base.update(kw)
+    return JConfig(**base), TConfig(**base)
+
+
+def _requests(vocab, spec):
+    """spec: [(prompt_len, gen_len)] -> [(rid, prompt, gen)], the prompts
+    of tests/test_serving.py."""
+    return [(rid, np.asarray(jax.random.randint(
+                jax.random.PRNGKey(100 + rid), (plen,), 0, vocab), np.int32),
+             gen) for rid, (plen, gen) in enumerate(spec)]
+
+
+def _serve_all(server, batch, requests):
+    """Prefill/decode/refill loop of tests/test_serving.py, for either
+    server: {rid: [first token, decode tokens...]}."""
+    queue = list(requests)
+    tokens = {rid: [] for rid, _, _ in requests}
+    slot_rid = {}
+
+    def fill(slot):
+        rid, prompt, gen = queue.pop(0)
+        server.prefill(slot, rid, prompt, gen)
+        slot_rid[slot] = rid
+        tokens[rid].append(int(server.last_tok[slot, 0]))
+
+    for slot in range(min(batch, len(queue))):
+        fill(slot)
+    completed = 0
+    for _ in range(200):
+        if completed == len(requests):
+            return tokens
+        nxt, done, _ = server.decode_step()
+        for slot, rid in slot_rid.items():
+            if server.slot_req[slot] == rid:
+                tokens[rid].append(int(nxt[slot, 0]))
+        for slot in done:
+            completed += 1
+            server.slot_req[slot] = -1
+            if queue:
+                fill(slot)
+    raise AssertionError("serve loop failed to drain the queue")
+
+
+def _servers(jcfg, tcfg, batch, max_len):
+    js = jserve.Server(jcfg, batch, max_len, autotune_kernels=False)
+    ts = tserve.Server(tcfg, batch, max_len, device="cpu",
+                       params=params_from_numpy(
+                           jax.tree.map(np.asarray, js.params)))
+    return js, ts
+
+
+@pytest.mark.parametrize("jax_kernel", ["interpret", "off"])
+def test_token_streams_match_jax_server(jax_kernel, monkeypatch, tmp_path):
+    """Ragged batch of 2 with a refill (tests/test_serving.py's spec): the
+    JAX server decodes through its Pallas kernel in interpret mode or
+    through its jnp path; the port through `gqa_decode_attention`."""
+    monkeypatch.setenv("REPRO_DECODE_KERNEL", jax_kernel)
+    monkeypatch.setenv("REPRO_AUTOTUNE_CACHE",
+                       str(tmp_path / "autotune.json"))
+    jcfg, tcfg = _cfgs()
+    spec = [(5, 7), (9, 4), (3, 6)]
+    reqs = _requests(jcfg.vocab_size, spec)
+    max_len = max(p + g for p, g in spec) + 4
+    js, ts = _servers(jcfg, tcfg, 2, max_len)
+    want = _serve_all(js, 2, reqs)
+    got = _serve_all(ts, 2, reqs)
+    assert got == want
+    assert all(len(got[rid]) == gen + 1 for rid, _, gen in reqs)
+    assert ts.decode_forwards > 0
+
+
+def test_serve_step_active_none_advances_everyone():
+    """`make_serve_step` with ``active=None`` advances every slot, and its
+    greedy tokens equal the JAX step's over a few teacher-free steps."""
+    from repro.launch import steps as jsteps
+    from repro.models import transformer as jtf_
+    from repro_torch.convert import cache_from_numpy
+    from repro_torch.launch import steps as tsteps
+    jcfg, tcfg = _cfgs()
+    jparams = jtf_.init(jcfg, jax.random.PRNGKey(3))
+    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams))
+    jstep = jax.jit(jsteps.make_serve_step(jcfg))
+    tstep = tsteps.make_serve_step(tcfg)
+    jcache = jtf_.cache_init(jcfg, 2, 8, dtype=jnp.float32)
+    tcache = cache_from_numpy(jax.tree.map(np.asarray, jcache))
+    jtok = jnp.asarray([[1], [7]], jnp.int32)
+    ttok = torch.tensor([[1], [7]], dtype=torch.int32)
+    for _ in range(4):
+        jtok, jcache = jstep(jparams, jcache, jtok)
+        ttok, tcache = tstep(tparams, tcache, ttok)
+        assert ttok.tolist() == np.asarray(jtok).tolist()
+    assert tcache["lengths"].tolist() == [4, 4] and int(tcache["index"]) == 4
+
+
+# The port's bf16 logits agree with JAX's to within this share of the
+# largest logit (tests/test_torch_model.py states why).
+BF16_LOGIT_REL = 3e-2
+
+
+def _jax_solo_gaps(jcfg, params, prompt, gen):
+    """Replay one request alone on a JAX server and return, for each of
+    its tokens, the top-2 gap of the logits it was drawn from and the
+    bound the port's logits are held to there."""
+    server = jserve.Server(jcfg, 1, len(prompt) + gen + 4,
+                           autotune_kernels=False)
+    fwd = jax.jit(lambda p, c, t, a: jtf.forward(
+        jcfg, p, {"tokens": t}, cache=c, active=a)[0][:, -1])
+    out = []
+
+    def record(tokens):
+        last = np.asarray(fwd(params, server.cache, jnp.asarray(tokens),
+                              jnp.ones((1,), bool)), np.float32)[0]
+        top2 = np.sort(last)[-2:]
+        out.append((int(last.argmax()), float(top2[1] - top2[0]),
+                    BF16_LOGIT_REL * float(np.abs(last).max())))
+    record(np.asarray(prompt, np.int32)[None])
+    server.prefill(0, 0, prompt, gen)
+    for _ in range(gen):
+        record(np.asarray(server.last_tok))
+        server.decode_step()
+    return out
+
+
+def test_serve_loop_chunked_prefill_matches_jax():
+    """The whole loop, with chunked prefill and riding decode slots: the
+    outcomes equal the JAX loop's, every request equals the port's own solo
+    decode (the JAX package's invariant), and every token equals JAX's up
+    to a bf16 near-tie: where a stream first differs, JAX's own top-2
+    logit gap there is below the bf16 logit bound (ROADMAP queue C)."""
+    jcfg, tcfg = _cfgs()
+    spec = [(5, 6), (3, 4), (7, 5), (4, 6)]
+    reqs = _requests(jcfg.vocab_size, spec)
+    max_len = max(p + g for p, g in spec) + 4
+    js, ts = _servers(jcfg, tcfg, 2, max_len)
+    jlc, tlc = JLifecycle(clock=lambda: 0.0), TLifecycle(clock=lambda: 0.0)
+    for rid, prompt, gen in reqs:
+        jlc.submit(rid, prompt, gen)
+        tlc.submit(rid, prompt, gen)
+    jstats = jserve.serve_loop(js, jlc, max_steps=400)
+    tstats = tserve.serve_loop(ts, tlc, max_steps=400)
+    assert tstats["chunked_prefills"] == jstats["chunked_prefills"] >= 1
+    assert tstats["generated"] == jstats["generated"]
+    assert tlc.outcome_trace() == jlc.outcome_trace()
+    for rid, prompt, gen in reqs:
+        got, want = tlc.requests[rid].tokens, jlc.requests[rid].tokens
+        _, solo_port = _servers(jcfg, tcfg, 1, max_len)
+        assert got == _serve_all(solo_port, 1, [(rid, prompt, gen)])[rid]
+        if got == want:
+            continue
+        m = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+        tok, gap, bound = _jax_solo_gaps(jcfg, js.params, prompt, gen)[m]
+        assert tok == want[m], "solo JAX replay left the batched stream"
+        assert gap < bound, (
+            f"request {rid} token {m}: port {got[m]} != JAX {want[m]} with "
+            f"a JAX top-2 gap {gap} above the bf16 bound {bound}")
+
+
+def _run_main(argv):
+    out = io.StringIO()
+    with redirect_stdout(out):
+        rc = tserve.main(argv)
+    return rc, out.getvalue()
+
+
+def test_cli_log_passes_check_serve():
+    rc, log = _run_main(["--smoke", "--batch", "2", "--requests", "3",
+                         "--prompt-len", "6", "--gen", "4",
+                         "--device", "cpu"])
+    assert rc == 0
+    assert check_serve.check(log, requests=3, min_tokens=12) == []
+    assert '{"serving_plan": {"batch": 2, "source": "flag"}}' in log
+    summary = check_serve._json_lines(log)[-1]
+    assert summary["kernel_plan"] == [] and summary["kv_dtype"] == "float32"
+    assert summary["decode_forwards"] > 0
+
+
+@pytest.mark.parametrize("flags, item", [
+    (["--batch", "0"], "A8"), (["--paged"], "A6"),
+    (["--sched", "spf"], "A5"), (["--kv-dtype", "int8"], "A7"),
+    (["--chaos"], "A9"), (["--state-dir", "x"], "A9"),
+    (["--load-trace", "x"], "A10"), (["--arch", "rwkv6_7b"], "A12"),
+])
+def test_cli_refuses_unported_options(flags, item, capsys):
+    with pytest.raises(SystemExit) as exc:
+        tserve.main(["--smoke", "--device", "cpu", *flags])
+    assert exc.value.code == 2
+    assert f"ROADMAP {item}" in capsys.readouterr().err
+
+
+def test_default_device_raises_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card")
+    _, tcfg = _cfgs()
+    with pytest.raises(RuntimeError, match="cuda"):
+        tserve.Server(tcfg, 1, 8)
+
+
+def _port_files():
+    return sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
+        REPO / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_port_imports_neither_jax_nor_repro(path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        roots = {n.split(".")[0] for n in names}
+        assert not roots & {"jax", "jaxlib", "repro"}, (path, names)
+
+
+def test_importing_the_port_loads_no_jax():
+    code = ("import sys, repro_torch.launch.serve; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]; print(bad); "
+            "raise SystemExit(1 if bad else 0)")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          env={**os.environ,
+                               "PYTHONPATH": str(REPO / "src")},
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
