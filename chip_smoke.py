@@ -11,21 +11,35 @@ Phases, each printed as one JSON line:
    the torch and CUDA versions.
 2. ``build``: every kernel under ``src/repro_torch/csrc`` compiled with
    ``nvcc`` for ``sm_90a``, and its seconds.
-3. ``kernel_cases``: the CUDA decode-attention kernel against its plain
-   PyTorch version ``decode_ref`` on the card at Qwen3-14B decode shapes
-   (Hq 40, Hkv 8, dh 128), with kernel, plain, library (PyTorch SDPA,
-   timed only) and bound times.
-4. ``decode_vs_teacher_forcing``: a small model decoded token by token
-   through the kernel agrees with its own full-sequence forward.
-5. ``serve``: `repro_torch.launch.serve` at Qwen3-14B's full published
-   width (random bf16 weights from a seeded generator) serves 6 requests;
-   the summary must conserve all 6, pass ``tools/check_serve.py``, and the
-   kernel must have launched 40 times (once per layer) per decode forward.
-6. ``decode_step``: where one decode step of that serve shape goes (batch
-   4, depth 600): host-clock time of untraced steps, then device time by
-   kernel from `torch.profiler` over traced steps.
-7. ``kernels``: one entry per ported kernel, with its TPU counterpart,
-   launches on the serve run, error and times.
+3. ``kernel_cases``: each CUDA decode-attention kernel against its plain
+   PyTorch version on the card at Qwen3-14B decode shapes (Hq 40, Hkv 8,
+   dh 128): contiguous (``decode_ref``, with PyTorch SDPA timed as the
+   library yardstick), paged (``paged_decode_ref``; its output must also
+   equal the contiguous kernel's bit for bit over the same rows), int8
+   and paged int8 (``quantized_decode_ref``, ``paged_quantized_decode_ref``;
+   no single PyTorch call computes attention through a page table or over
+   int8 codes, so they have no library time).  Paged tables are a
+   shuffled permutation of the pool, at page sizes 16 and 48.
+4. ``decode_vs_teacher_forcing`` and ``decode_vs_teacher_forcing_paged``:
+   a small model decoded token by token through the contiguous and the
+   paged kernel agrees with its own full-sequence forward.
+5. ``serve``, ``serve_paged``, ``serve_int8``, ``serve_paged_int8``:
+   `repro_torch.launch.serve` at Qwen3-14B's full published width (random
+   bf16 weights from a seeded generator) serves 6 requests through each
+   cache layout (``--paged --sched spf``, ``--kv-dtype int8``, and both in
+   a pool of 100 pages under ``--sched paged-aware``, where at most two
+   requests fit at once).  Each summary must conserve all 6, pass
+   ``tools/check_serve.py``, and its layout's kernel must have launched
+   40 times (once per layer) per decode forward, the other kernels never;
+   a paged run must end with no page allocated and no pool overflow.
+6. ``paged_vs_contiguous``: one set of full-width weights serves the same
+   4 requests through a contiguous and a paged f32 cache; the greedy
+   token streams must be equal.
+7. ``decode_step``: where one decode step of the contiguous serve shape
+   goes (batch 4, depth 600): host-clock time of untraced steps, then
+   device time by kernel from `torch.profiler` over traced steps.
+8. ``kernels``: one entry per ported kernel, with its TPU counterpart,
+   launches on its serve run, error and times.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed phase
 exits non-zero without it; so does a host without a CUDA card.
@@ -48,9 +62,41 @@ sys.path.insert(0, str(ROOT / "tools"))
 
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM data sheet
 PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}
-SERVE_ARGV = ["--arch", "qwen3_14b", "--batch", "4", "--requests", "6",
-              "--prompt-len", "600", "--gen", "16", "--kv-dtype", "f32"]
+SERVE_BASE = ["--arch", "qwen3_14b", "--batch", "4", "--requests", "6",
+              "--prompt-len", "600", "--gen", "16"]
+SERVE_ARGV = SERVE_BASE + ["--kv-dtype", "f32"]
 SERVE_LEN = 600 + 16 + 8             # the serve run's cache rows
+SERVE_LENGTHS = [601, 608, 612, 616]
+# (phase, argv, the kernel its decode steps run, most requests at once)
+SERVE_PHASES = [
+    ("serve", SERVE_ARGV, "decode_attention", None),
+    ("serve_paged", SERVE_ARGV + ["--paged", "--page-size", "16",
+                                  "--sched", "spf"],
+     "paged_decode_attention", None),
+    ("serve_int8", SERVE_BASE + ["--kv-dtype", "int8"],
+     "quantized_decode_attention", None),
+    ("serve_paged_int8", SERVE_BASE + ["--paged", "--page-size", "16",
+                                       "--pool-pages", "100", "--kv-dtype",
+                                       "int8", "--sched", "paged-aware"],
+     "paged_quantized_decode_attention", 2),
+]
+# Where each kernel's source is and which Pallas kernel it replaces.
+KERNELS = {
+    "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
+                         "src/repro/kernels/attention/decode.py:144"),
+    "paged_decode_attention": (
+        "src/repro_torch/csrc/paged_decode_attention.cu",
+        "src/repro/kernels/attention/decode.py:296"),
+    "quantized_decode_attention": (
+        "src/repro_torch/csrc/quantized_decode_attention.cu",
+        "src/repro/kernels/attention/decode_int8.py:130"),
+    "paged_quantized_decode_attention": (
+        "src/repro_torch/csrc/paged_quantized_decode_attention.cu",
+        "src/repro/kernels/attention/decode_int8.py:282"),
+}
+NO_LIBRARY = ("none: no single PyTorch call computes attention through a "
+              "page table or over int8 codes")
+MIXED = [0, 1, 511, 512, 513, 2048, 3000, 4096]
 STEP_BATCH, STEP_DEPTH = 4, 600      # decode_step: the serve run's shape
 STEP_WARMUP, STEP_COUNT = 2, 8       # untraced steps, then as many traced
 TOP_KERNELS = 12
@@ -161,6 +207,141 @@ def kernel_case(torch, decode, flush, *, name, lengths, q_dtype, kv_dtype,
             "bytes": nbytes, "operations": ops}
 
 
+def shuffled_pool(torch, lengths, rows, page_size, hkv, dh, seed):
+    """A pool with room for every slot's ``rows`` and a page table filled
+    from a shuffled permutation of its pages, -1 past each slot's last
+    page; the pool's values are N(0, 1) f32."""
+    dev = torch.device("cuda")
+    max_pages = -(-rows // page_size)
+    num_pages = len(lengths) * max_pages
+    cpu = torch.Generator().manual_seed(seed)
+    perm = torch.randperm(num_pages, generator=cpu)
+    table = torch.full((len(lengths), max_pages), -1, dtype=torch.int32)
+    used = 0
+    for b, n in enumerate(lengths):
+        need = -(-n // page_size)
+        table[b, :need] = perm[used:used + need]
+        used += need
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    shape = (num_pages, page_size, hkv, dh)
+    k = torch.randn(shape, generator=gen, device=dev)
+    v = torch.randn(shape, generator=gen, device=dev)
+    return k, v, table.to(dev), used
+
+
+def new_kernel_case(torch, mods, flush, *, kernel, name, lengths, q_dtype,
+                    kv_dtype, rows, page_size=None, hq=40, hkv=8, dh=128,
+                    seed=0):
+    """One shape of the paged, int8 or paged int8 kernel: its error against
+    its plain version, times and bound.  The paged kernel's output must
+    also be bitwise that of the contiguous kernel over the same rows."""
+    decode, decode_int8, quantize = mods
+    dev = torch.device("cuda")
+    b = len(lengths)
+    q = torch.randn((b, hq, dh), generator=torch.Generator(
+        device=dev).manual_seed(seed + 1), device=dev).to(q_dtype)
+    lv = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    scale = dh ** -0.5
+    paged = page_size is not None
+    table_pages = 0
+    if paged:
+        k, v, pages, table_pages = shuffled_pool(torch, lengths, rows,
+                                                 page_size, hkv, dh, seed)
+    else:
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        k = torch.randn((b, rows, hkv, dh), generator=gen, device=dev)
+        v = torch.randn((b, rows, hkv, dh), generator=gen, device=dev)
+    if kv_dtype == torch.int8:
+        (kq, ks), (vq, vs) = quantize.quantize_rows(k), quantize.quantize_rows(v)
+        cache = (kq, ks, vq, vs)
+    else:
+        cache = (k.to(kv_dtype), v.to(kv_dtype))
+    del k, v
+    args = cache + ((pages,) if paged else ())
+    fn, ref_fn = {
+        "paged_decode_attention": (decode.paged_gqa_decode_attention,
+                                   decode.paged_decode_ref),
+        "quantized_decode_attention": (
+            decode_int8.quantized_gqa_decode_attention,
+            decode_int8.quantized_decode_ref),
+        "paged_quantized_decode_attention": (
+            decode_int8.paged_quantized_gqa_decode_attention,
+            decode_int8.paged_quantized_decode_ref),
+    }[kernel]
+
+    out = fn(q, *args, length=lv, scale=scale)
+    ref = ref_fn(q, *args, length=lv, scale=scale)
+    torch.cuda.synchronize()
+    err, err_over_tol = row_errors(torch, out, ref, q_dtype == torch.float32)
+    zeros_ok = all(not out[i].any() for i, n in enumerate(lengths) if n == 0)
+    bitwise = None
+    if kernel == "paged_decode_attention":
+        contiguous = decode.gqa_decode_attention(
+            q, decode.gather_pages(cache[0], pages).contiguous(),
+            decode.gather_pages(cache[1], pages).contiguous(), length=lv,
+            scale=scale)
+        torch.cuda.synchronize()
+        bitwise = bool(torch.equal(out, contiguous))
+    ms = median_ms(torch, lambda: fn(q, *args, length=lv, scale=scale), 21,
+                   flush)
+    plain_ms = median_ms(torch, lambda: ref_fn(q, *args, length=lv,
+                                               scale=scale), 5, flush)
+
+    valid = sum(min(max(n, 0), rows) for n in lengths)
+    row_bytes = dh + 4 if kv_dtype == torch.int8 else dh * cache[0].element_size()
+    nbytes = (2 * valid * hkv * row_bytes + q.numel() * q.element_size()
+              + out.numel() * out.element_size() + lv.numel() * 4
+              + table_pages * 4)
+    ops = 4 * valid * hq * dh          # q.k and p.v multiply-adds
+    kv_name = str(kv_dtype).removeprefix("torch.")
+    # the int8 kernels dequantize and multiply in f32
+    peak = PEAK_OPS_PER_S["float32" if kv_dtype == torch.int8 else kv_name]
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / peak * 1e3
+    ok = err_over_tol <= 1 and zeros_ok and bitwise is not False
+    return {"kernel": kernel, "name": name, "batch": b, "rows": rows,
+            "page_size": page_size, "lengths": list(lengths),
+            "q_dtype": str(q_dtype).removeprefix("torch."),
+            "kv_dtype": kv_name, "max_abs_err": err,
+            "tolerance": ("1e-4" if q_dtype == torch.float32
+                          else "2^-7 x the row's max |ref|"),
+            "max_err_over_tol": err_over_tol, "zero_rows_ok": zeros_ok,
+            "bitwise_contiguous": bitwise, "ok": ok,
+            "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "operations": ops}
+
+
+def new_kernel_cases(torch, mods, flush):
+    """B2-B4 at the serve shape, at batch 1 and 4096 rows, and at the mixed
+    lengths and 4096 rows: B2 with bf16 q and an f32 or bf16 pool, B3 and
+    B4 with bf16 and f32 q, the paged ones at page sizes 16 and 48."""
+    bf16, f32, i8 = torch.bfloat16, torch.float32, torch.int8
+    shapes = [("serve_shape", SERVE_LENGTHS, SERVE_LEN),
+              ("b1_l4096", [4096], 4096), ("b8_l4096", MIXED, 4096)]
+    cases = []
+    for name, lengths, rows in shapes:
+        for page_size in (16, 48):
+            for kv_dtype in (f32, bf16):
+                cases.append(new_kernel_case(
+                    torch, mods, flush, kernel="paged_decode_attention",
+                    name=name, lengths=lengths, q_dtype=bf16,
+                    kv_dtype=kv_dtype, rows=rows, page_size=page_size))
+        for q_dtype in (bf16, f32):
+            cases.append(new_kernel_case(
+                torch, mods, flush, kernel="quantized_decode_attention",
+                name=name, lengths=lengths, q_dtype=q_dtype, kv_dtype=i8,
+                rows=rows))
+            for page_size in (16, 48):
+                cases.append(new_kernel_case(
+                    torch, mods, flush,
+                    kernel="paged_quantized_decode_attention", name=name,
+                    lengths=lengths, q_dtype=q_dtype, kv_dtype=i8, rows=rows,
+                    page_size=page_size))
+    return cases
+
+
 def decode_vs_teacher_forcing(torch, configs, transformer):
     """Qwen3-14B's SMOKE config on the card, f32: per-token decode through
     the cache (the CUDA kernel) against the full-sequence forward
@@ -186,6 +367,154 @@ def decode_vs_teacher_forcing(torch, configs, transformer):
     finite = bool(torch.isfinite(dec).all())
     return {"shape": list(dec.shape), "max_abs_err": err, "tolerance": 1e-3,
             "finite": finite, "ok": finite and err <= 1e-3}
+
+
+def decode_vs_teacher_forcing_paged(torch, configs, transformer, paging,
+                                    decode):
+    """The same check through a paged f32 cache of 4-token pages: before
+    each step every slot's table grows by the host allocator, so the
+    slots' pages interleave in the pool; decode goes through the paged
+    kernel (launched once per layer per step).  f32, TF32 off: 1e-3."""
+    dev = torch.device("cuda")
+    cfg = configs.get_smoke("qwen3_14b")
+    params = transformer.init(cfg, torch.Generator(device=dev).manual_seed(1))
+    toks = torch.randint(0, cfg.vocab_size, (3, 20), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(2))
+    full, _ = transformer.forward(cfg, params, {"tokens": toks},
+                                  compute_dtype=torch.float32)
+    spec = paging.PageSpec.build(3, 24, 4)
+    alloc = paging.PageAllocator(spec, 3)
+    cache = transformer.cache_init(cfg, 3, 24, dtype=torch.float32,
+                                   device=dev, paged=spec)
+    decode.paged_launches = 0
+    steps = []
+    for t in range(toks.shape[1]):
+        for b in range(3):
+            alloc.ensure(b, t + 1)
+        cache["pages"].copy_(torch.from_numpy(alloc.table))
+        lg, cache = transformer.forward(cfg, params,
+                                        {"tokens": toks[:, t:t + 1]},
+                                        cache=cache,
+                                        compute_dtype=torch.float32,
+                                        paged=spec)
+        steps.append(lg[:, 0])
+    launches = decode.paged_launches
+    dec = torch.stack(steps, 1)
+    err = float((dec - full).abs().max())
+    finite = bool(torch.isfinite(dec).all())
+    want = toks.shape[1] * cfg.num_layers
+    return {"shape": list(dec.shape), "page_size": spec.page_size,
+            "pages": alloc.table.tolist(), "max_abs_err": err,
+            "tolerance": 1e-3, "finite": finite,
+            "paged_launches": launches, "ok": (finite and err <= 1e-3
+                                               and launches == want)}
+
+
+def launch_counts(mods) -> dict:
+    decode, decode_int8, _ = mods
+    return {"decode_attention": decode.launches,
+            "paged_decode_attention": decode.paged_launches,
+            "quantized_decode_attention": decode_int8.launches,
+            "paged_quantized_decode_attention": decode_int8.paged_launches}
+
+
+def reset_launch_counts(mods) -> None:
+    decode, decode_int8, _ = mods
+    decode.launches = decode.paged_launches = 0
+    decode_int8.launches = decode_int8.paged_launches = 0
+
+
+def serve_phase(torch, serve, check_serve, mods, *, phase, argv, kernel,
+                most_at_once, layers) -> int:
+    """One serve run through `serve.main`, with every kernel's launch count
+    set to 0 just before it and read just after.  Returns the launches of
+    the layout's kernel."""
+    reset_launch_counts(mods)
+    torch.cuda.reset_peak_memory_stats()
+    buf = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf):
+        rc = serve.main(argv)
+    seconds = time.time() - t0
+    counts = launch_counts(mods)
+    log = buf.getvalue()
+    print(log, end="", flush=True)
+    summary = check_serve._json_lines(log)[-1]
+    problems = check_serve.check(log, requests=6, min_tokens=6 * 16)
+    launches = counts.pop(kernel)
+    emit(phase, argv=argv, rc=rc, seconds=round(seconds, 3),
+         decode_forwards=summary.get("decode_forwards"), kernel=kernel,
+         kernel_launches=launches, other_kernel_launches=counts,
+         layers=layers, check_serve_problems=problems,
+         tok_per_s=summary.get("tok_per_s"),
+         per_token_ms=summary.get("per_token_ms"),
+         max_concurrent=summary.get("max_concurrent"),
+         kv=summary.get("kv"), sched=summary.get("sched"),
+         peak_memory_gb=round(torch.cuda.max_memory_allocated() / 1e9, 3))
+    check(rc == 0 and not problems, f"{phase} run failed: {problems}")
+    outcomes = summary["outcomes"]
+    check(summary["submitted"] == 6 and outcomes["completed"] == 6
+          and outcomes["evicted"] == 0,
+          f"{phase} did not complete all 6 requests cleanly: {outcomes}")
+    check(summary["decode_forwards"] > 0
+          and launches == summary["decode_forwards"] * layers,
+          f"{phase}: {launches} {kernel} launches for "
+          f"{summary['decode_forwards']} decode forwards x {layers} layers")
+    check(not any(counts.values()),
+          f"{phase}: other decode kernels launched: {counts}")
+    if "--paged" in argv:
+        kv = summary["kv"]
+        check(kv["kv_ooms"] == 0 and kv["pages_allocated"] == 0,
+              f"{phase}: pool overflowed or leaked pages: {kv}")
+    if most_at_once is not None:
+        check(summary["max_concurrent"] <= most_at_once,
+              f"{phase}: {summary['max_concurrent']} requests at once in a "
+              f"pool that holds {most_at_once}")
+    gc.collect()                      # the run's weights and cache
+    torch.cuda.empty_cache()
+    return launches
+
+
+def paged_vs_contiguous(torch, configs, serve, paging, lifecycle):
+    """One set of full-width weights, the same 4 requests of 600 + 16
+    tokens through a contiguous and a paged (16-token pages) f32 cache:
+    the greedy token streams must be equal, since the paged kernel reads
+    the same keys in the same order as the contiguous one."""
+    import numpy as np
+    cfg = configs.get("qwen3_14b")
+    rng = np.random.default_rng(1)
+    reqs = [(rid, rng.integers(0, cfg.vocab_size, 600), 16)
+            for rid in range(4)]
+    contiguous = serve.Server(cfg, 4, SERVE_LEN)
+    spec = paging.PageSpec.build(4, SERVE_LEN, 16)
+    paged = serve.Server(cfg, 4, SERVE_LEN, params=contiguous.params,
+                         paged=spec)
+    shared = all(a is b for a, b in zip(
+        _leaves(contiguous.params), _leaves(paged.params)))
+    streams = []
+    for server in (contiguous, paged):
+        lc = lifecycle.Lifecycle()
+        for rid, prompt, gen in reqs:
+            lc.submit(rid, prompt, gen)
+        serve.serve_loop(server, lc)
+        streams.append({rid: lc.requests[rid].tokens for rid, _, _ in reqs})
+        server.cache = None
+    del contiguous, paged
+    gc.collect()
+    torch.cuda.empty_cache()
+    equal = streams[0] == streams[1]
+    return {"requests": len(reqs), "prompt_len": 600, "gen": 16,
+            "page_size": spec.page_size, "weights_shared": shared,
+            "tokens": sum(len(t) for t in streams[0].values()),
+            "equal": equal, "ok": equal and shared}
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
 
 
 def _device_us(evt) -> float:
@@ -230,8 +559,8 @@ def decode_step_breakdown(torch, configs, serve):
                if e.device_type == torch.autograd.DeviceType.CUDA]
     kernels = sorted((k for k in kernels if k[2] > 0), key=lambda k: -k[2])
     busy_ms = sum(k[2] for k in kernels) / 1e3 / STEP_COUNT
-    attn_ms = sum(k[2] for k in kernels
-                  if "decode_attention" in k[0]) / 1e3 / STEP_COUNT
+    attn_ms = sum(k[2] for k in kernels          # the kernels' shared body
+                  if "decode_kernel" in k[0]) / 1e3 / STEP_COUNT
     return {"batch": STEP_BATCH, "depth": STEP_DEPTH,
             "host_ms": host_ms, "host_median_ms": median,
             "device_time_measured": bool(kernels),
@@ -255,9 +584,11 @@ def main() -> int:
     import repro_torch.configs as configs
     from repro_torch.convert import disable_tf32
     from repro_torch.kernels import _build
-    from repro_torch.kernels.attention import decode
+    from repro_torch.kernels.attention import decode, decode_int8
     from repro_torch.launch import serve
     from repro_torch.models import transformer
+    from repro_torch.runtime import lifecycle, paging, quantize
+    mods = (decode, decode_int8, quantize)
 
     disable_tf32()
     smi = subprocess.run(
@@ -279,68 +610,64 @@ def main() -> int:
 
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
     bf16, f32 = torch.bfloat16, torch.float32
-    mixed = [0, 1, 511, 512, 513, 2048, 3000, 4096]
     cases = [kernel_case(torch, decode, flush, name="serve_shape",
-                         lengths=[601, 608, 612, 616], q_dtype=bf16,
+                         lengths=SERVE_LENGTHS, q_dtype=bf16,
                          kv_dtype=f32, cache_len=SERVE_LEN)]
     for q_dtype, kv_dtype in ((bf16, f32), (bf16, bf16), (f32, f32)):
-        for lengths in ([4096], mixed):
+        for lengths in ([4096], MIXED):
             cases.append(kernel_case(
                 torch, decode, flush, name=f"b{len(lengths)}_l4096",
                 lengths=lengths, q_dtype=q_dtype, kv_dtype=kv_dtype,
                 cache_len=4096))
+    for c in cases:
+        c["kernel"] = "decode_attention"
+    cases += new_kernel_cases(torch, mods, flush)
     del flush
     torch.cuda.empty_cache()
     emit("kernel_cases", cases=cases)
     check(all(c["ok"] for c in cases),
-          "decode_attention disagrees with decode_ref: "
+          "a kernel disagrees with its plain version: "
           + json.dumps([c for c in cases if not c["ok"]]))
 
     tf = decode_vs_teacher_forcing(torch, configs, transformer)
     emit("decode_vs_teacher_forcing", **tf)
     check(tf["ok"], f"decode through the kernel != teacher forcing: {tf}")
+    tf = decode_vs_teacher_forcing_paged(torch, configs, transformer, paging,
+                                         decode)
+    emit("decode_vs_teacher_forcing_paged", **tf)
+    check(tf["ok"], f"decode through the paged kernel != teacher forcing: "
+                    f"{tf}")
 
-    decode.launches = 0
-    buf = io.StringIO()
-    t0 = time.time()
-    with contextlib.redirect_stdout(buf):
-        rc = serve.main(SERVE_ARGV)
-    seconds = time.time() - t0
-    launches = decode.launches
-    log = buf.getvalue()
-    print(log, end="", flush=True)
-    summary = check_serve._json_lines(log)[-1]
-    problems = check_serve.check(log, requests=6, min_tokens=6 * 16)
     layers = configs.get("qwen3_14b").num_layers
-    emit("serve", argv=SERVE_ARGV, rc=rc, seconds=round(seconds, 3),
-         decode_forwards=summary.get("decode_forwards"),
-         kernel_launches=launches, layers=layers,
-         check_serve_problems=problems,
-         peak_memory_gb=round(torch.cuda.max_memory_allocated() / 1e9, 3))
-    check(rc == 0 and not problems, f"serve run failed: {problems}")
-    outcomes = summary["outcomes"]
-    check(summary["submitted"] == 6 and outcomes["completed"] == 6
-          and outcomes["evicted"] == 0,
-          f"serve did not complete all 6 requests cleanly: {outcomes}")
-    check(summary["decode_forwards"] > 0
-          and launches == summary["decode_forwards"] * layers,
-          f"{launches} kernel launches for {summary['decode_forwards']} "
-          f"decode forwards x {layers} layers")
+    launches = {}
+    for phase, argv, kernel, most_at_once in SERVE_PHASES:
+        launches[kernel] = serve_phase(
+            torch, serve, check_serve, mods, phase=phase, argv=argv,
+            kernel=kernel, most_at_once=most_at_once, layers=layers)
 
-    gc.collect()                      # the serve run's weights and cache
-    torch.cuda.empty_cache()
+    pvc = paged_vs_contiguous(torch, configs, serve, paging, lifecycle)
+    emit("paged_vs_contiguous", **pvc)
+    check(pvc["ok"], f"paged and contiguous token streams differ: {pvc}")
+
     emit("decode_step", **decode_step_breakdown(torch, configs, serve))
 
-    serve_case = cases[0]
-    entry = {"name": "decode_attention", "route": "cuda",
-             "source": "src/repro_torch/csrc/decode_attention.cu",
-             "replaces": "src/repro/kernels/attention/decode.py:144",
-             "launches": launches,
-             "max_abs_err": max(c["max_abs_err"] for c in cases),
-             "ok": True}
-    entry.update({k: serve_case[k] for k in (
-        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
-    print(json.dumps({"kernels": [entry]}), flush=True)
+    entries = []
+    for name, (source, replaces) in KERNELS.items():
+        mine = [c for c in cases if c["kernel"] == name]
+        serve_case = next(c for c in mine if c["name"] == "serve_shape"
+                          and c["q_dtype"] == "bfloat16"
+                          and c["kv_dtype"] in ("float32", "int8")
+                          and c.get("page_size") in (None, 16))
+        entry = {"name": name, "route": "cuda", "source": source,
+                 "replaces": replaces, "launches": launches[name],
+                 "max_abs_err": max(c["max_abs_err"] for c in mine),
+                 "ok": True}
+        entry.update({k: serve_case[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+        if entry["library_ms"] is None:
+            entry["library"] = NO_LIBRARY
+        entries.append(entry)
+    print(json.dumps({"kernels": entries}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)

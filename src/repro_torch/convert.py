@@ -12,6 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.models.layers import pool_zeros
+
 
 def _to_torch(a, device) -> torch.Tensor:
     a = np.array(a)                      # a writable, contiguous copy
@@ -32,9 +34,20 @@ def params_from_numpy(tree: dict, device="cpu") -> dict:
     return _tree(tree, lambda a: _to_torch(a, device))
 
 
-# A JAX KV-cache tree (``blocks``/``index``/``lengths``) converts the same
-# way; the 0-d ``index`` stays a 0-d int32 tensor.
-cache_from_numpy = params_from_numpy
+def cache_from_numpy(tree: dict, device="cpu") -> dict:
+    """A JAX KV-cache tree (``blocks``/``index``/``lengths``, and
+    ``pages`` when paged) -> the same tree of tensors, every leaf in its
+    own dtype: int8 codes stay int8, scales f32, the page table int32, the
+    0-d ``index`` a 0-d int32 tensor.  The page pools of a paged cache are
+    re-allocated with the port's trash page (`layers.pool_zeros`), values
+    unchanged, so the port's layers can write through them."""
+    cache = params_from_numpy(tree, device)
+    if "pages" in cache:
+        for name, a in cache["blocks"].items():
+            pool = pool_zeros(a.shape, a.dtype, a.device, axis=1)
+            pool.copy_(a)
+            cache["blocks"][name] = pool
+    return cache
 
 
 def to_numpy(tree: dict) -> dict:

@@ -1,6 +1,5 @@
 """Batched greedy serving: ragged continuous batching with a request
-lifecycle.  Counterpart of `repro.launch.serve`, contiguous KV cache and
-first-come-first-served admission.
+lifecycle.  Counterpart of `repro.launch.serve`.
 
 Requests enter a bounded admission queue (`runtime.lifecycle`) and move
 through its state machine.  The server packs up to ``--batch`` sequences;
@@ -8,19 +7,28 @@ a burst of arrivals is prefilled as one chunked forward (every admitted
 prompt plus each in-flight slot's next token, under a (B, S) ``active``
 mask), a single arrival by a masked one-slot prefill.  Each decode step
 then runs every occupied slot at its own cache depth; the single-token
-attention goes through the CUDA decode kernel on a card.  Finished slots
-are zeroed and refilled.  The summary line conserves every submitted
-request: ``submitted == completed + timed_out + failed + rejected``.
+attention goes through the CUDA decode kernel of the cache's layout on a
+card.  Finished slots are zeroed and refilled.  The summary line conserves
+every submitted request: ``submitted == completed + timed_out + failed +
+rejected``.
+
+The KV cache is contiguous (f32, bf16 or int8 with per-row scales,
+``--kv-dtype``) or paged (``--paged --page-size --pool-pages``): a pool of
+pages shared by every slot, handed out by a host `PageAllocator` whose
+table the server copies to the device after every change.  ``--sched
+fcfs|spf|paged-aware`` picks the admission policy (`launch.scheduler`);
+with a paged cache a request is admitted only when the pool can cover its
+predicted footprint, and the summary carries ``sched`` and ``kv`` blocks.
 
 A kernel failure raises.  The JAX server's degradation step (rerunning a
 failed step on the reference path) is deliberately not ported: it is the
 fallback that would hide the kernel.  Not ported yet, and refused by name:
-``--batch 0`` (ROADMAP A8), ``--paged`` (A6), ``--sched`` other than fcfs
-(A5), ``--kv-dtype int8`` (A7), ``--chaos`` / ``--state-dir`` (A9) and
+``--batch 0`` (ROADMAP A8), ``--chaos`` / ``--state-dir`` (A9) and
 ``--load-trace`` (A10).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3_14b \\
-      --smoke --batch 2 --requests 6 --prompt-len 16 --gen 12 [--device cpu]
+      --smoke --batch 2 --requests 6 --prompt-len 16 --gen 12 \\
+      [--paged] [--sched spf] [--kv-dtype int8] [--device cpu]
 """
 
 from __future__ import annotations
@@ -35,13 +43,16 @@ import torch
 import repro_torch.configs as configs
 from repro_torch import resolve_device
 from repro_torch.launch import steps
+from repro_torch.launch.scheduler import POLICIES, Scheduler
 from repro_torch.models import transformer
+from repro_torch.runtime import paging
 from repro_torch.runtime.fault_tolerance import DecodeWatchdog
 from repro_torch.runtime.lifecycle import Lifecycle, State
 
 # The JAX server's forward runs at transformer.forward's default, bf16.
 COMPUTE_DTYPE = torch.bfloat16
-KV_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+KV_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16,
+             "int8": torch.int8}
 
 
 def _cast_weights(params: dict, dtype, device) -> dict:
@@ -65,23 +76,31 @@ class Server:
     the JAX server's); when it is None, random weights are drawn on the
     device from a ``torch.Generator`` seeded with 0.  Either way the
     matrices are held in the compute dtype (bf16).  ``device`` defaults to
-    ``cuda`` and raises without a card."""
+    ``cuda`` and raises without a card.  ``kv_dtype`` is the cache's
+    storage type (f32, bf16 or int8).  ``paged`` (a
+    `runtime.paging.PageSpec`, or None for the contiguous cache) switches
+    the cache to the page-pool layout; the host `PageAllocator` is the
+    truth and `_sync_pages` copies its table to the device cache."""
 
     def __init__(self, cfg, batch: int, max_len: int, *, params=None,
-                 kv_dtype=torch.float32, device="cuda"):
+                 kv_dtype=torch.float32, device="cuda", paged=None):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.batch = batch
         self.max_len = max_len
         self.kv_dtype = kv_dtype
+        self.paged = paged
+        self.allocator = (paging.PageAllocator(paged, batch)
+                          if paged is not None else None)
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(0)
             params = transformer.init(cfg, gen, dtype=COMPUTE_DTYPE)
         self.params = _cast_weights(params, COMPUTE_DTYPE, self.device)
-        self.serve_step = steps.make_guarded_serve_step(cfg, COMPUTE_DTYPE)
+        self.serve_step = steps.make_guarded_serve_step(cfg, COMPUTE_DTYPE,
+                                                        paged=paged)
         self.cache = transformer.cache_init(cfg, batch, max_len,
                                             dtype=kv_dtype,
-                                            device=self.device)
+                                            device=self.device, paged=paged)
         self.slot_len = np.zeros(batch, np.int32)      # tokens generated
         self.slot_target = np.zeros(batch, np.int32)   # stop length
         self.slot_req = -np.ones(batch, np.int32)      # request id
@@ -101,9 +120,13 @@ class Server:
     def prefill(self, slot: int, req_id: int, prompt, gen_len: int) -> bool:
         """Masked batched prefill of one slot: the whole prompt in one
         forward whose ``active`` mask is the slot's one-hot, after zeroing
-        the slot.  Returns True iff its first-token logits were finite."""
+        the slot (and, paged, covering the prompt with pages).  Returns
+        True iff its first-token logits were finite; raises
+        `paging.PageOOM` when the pool cannot cover the prompt."""
         prompt = np.asarray(prompt, np.int32)
-        transformer.cache_reset_slot(self.cache, slot)
+        self._fresh_slot(slot, req_id, prompt.size)
+        if self.allocator is not None:
+            self._sync_pages()
         toks = np.zeros((self.batch, prompt.size), np.int32)
         toks[slot] = prompt
         active = np.zeros((self.batch,), bool)
@@ -130,8 +153,11 @@ class Server:
         riding slots that finished / went non-finite this step."""
         width = max(int(np.asarray(p).size) for _, _, p, _ in admits)
         rode = [s for s in range(self.batch) if self.slot_req[s] >= 0]
-        for slot, _, _, _ in admits:
-            transformer.cache_reset_slot(self.cache, slot)
+        for slot, rid, prompt, _ in admits:
+            self._fresh_slot(slot, rid, np.asarray(prompt).size)
+        if self.allocator is not None:
+            self._grow(rode)                   # riding slots write one row
+            self._sync_pages()
         tokens = np.zeros((self.batch, width), np.int32)
         act = np.zeros((self.batch, width), bool)
         for s in rode:
@@ -158,16 +184,49 @@ class Server:
         return ok_admit, nxt, rode, done, bad
 
     def release_slot(self, slot: int) -> None:
-        """Free a slot and zero its cache rows."""
+        """Free a slot and zero its cache rows; paged, its pages return to
+        the pool and its outstanding reservation is dropped."""
+        rid = int(self.slot_req[slot])
         self.slot_req[slot] = -1
-        transformer.cache_reset_slot(self.cache, slot)
+        transformer.cache_reset_slot(self.cache, slot, paged=self.paged)
+        if self.allocator is not None:
+            self.allocator.free_slot(slot, rid=rid)
+            self._sync_pages()
+
+    def _fresh_slot(self, slot: int, rid: int, n_tokens: int) -> None:
+        """Zero ``slot`` for request ``rid``; paged, drop the pages a
+        previous occupant left and cover ``n_tokens`` rows (consuming the
+        scheduler's reservation).  May raise `paging.PageOOM`."""
+        transformer.cache_reset_slot(self.cache, slot, paged=self.paged)
+        if self.allocator is not None:
+            self.allocator.free_slot(slot, rid=int(self.slot_req[slot]))
+            self.allocator.ensure(slot, n_tokens, rid=rid)
+
+    def _grow(self, slots) -> bool:
+        """Grow each slot's pages to cover the row it writes next; True if
+        any page was added.  May raise `paging.PageOOM`."""
+        depths = self.cache["lengths"].cpu().numpy()
+        grew = False
+        for s in slots:
+            grew |= self.allocator.ensure(s, int(depths[s]) + 1,
+                                          rid=int(self.slot_req[s]))
+        return grew
+
+    def _sync_pages(self) -> None:
+        """Copy the host allocator's page table into the device table, in
+        place (the allocator is the truth; the kernels read the copy)."""
+        self.cache["pages"].copy_(torch.from_numpy(self.allocator.table))
 
     def decode_step(self):
         """One ragged decode step over the occupied slots; idle slots
         neither write nor advance.  Returns ``(next_tokens, done, bad)``:
         ``bad`` slots produced non-finite logits, did not advance, and must
-        be quarantined by the caller."""
+        be quarantined by the caller.  Paged: every occupied slot's table
+        first grows to cover the row it writes; an overcommitted pool
+        raises `paging.PageOOM`."""
         active = self.slot_req >= 0
+        if self.allocator is not None and self._grow(np.flatnonzero(active)):
+            self._sync_pages()
         nxt, ok = self._step(self.last_tok, active)
         adv = active & ok
         self.last_tok = np.where(adv[:, None], nxt, self.last_tok)
@@ -179,18 +238,32 @@ class Server:
 
 
 def serve_loop(server: Server, lc: Lifecycle, *, watchdog=None,
-               max_steps: int = 100_000) -> dict:
+               max_steps: int = 100_000, scheduler=None) -> dict:
     """Drain every admitted request to a terminal state.
 
     Each iteration fills idle slots (chunked when more than one request is
     admitted), sweeps deadlines, and decodes one step, or jumps the step
     counter to the next retry-backoff eligibility; it raises with the
     lifecycle table instead of spinning when no progress is possible.
+    ``scheduler`` (a `launch.scheduler.Scheduler`) replaces the
+    lifecycle's FCFS pop; with a paged server it admits a request only
+    when the pool can cover it.  A `paging.PageOOM` (an overcommitted
+    pool) evicts a request instead of failing the run.
     """
     step = 0
     generated = 0
     max_concurrent = 0
     chunked_prefills = 0
+    kv_pages_peak = 0
+    kv_peak = None           # allocator utilization at the peak
+    kv_ooms = 0
+
+    def note_kv() -> None:
+        nonlocal kv_pages_peak, kv_peak
+        a = server.allocator
+        if a is not None and a.allocated_pages >= kv_pages_peak:
+            kv_pages_peak = a.allocated_pages
+            kv_peak = a.utilization()
 
     def start_decoding(req, slot) -> None:
         req.tokens.append(int(server.last_tok[slot, 0]))
@@ -206,7 +279,8 @@ def serve_loop(server: Server, lc: Lifecycle, *, watchdog=None,
         for slot in range(server.batch):
             if server.slot_req[slot] >= 0:
                 continue
-            req = lc.pop_ready(step)
+            req = (scheduler.pop_ready(lc, step) if scheduler is not None
+                   else lc.pop_ready(step))
             if req is None:
                 break
             admits.append((slot, req))
@@ -228,14 +302,25 @@ def serve_loop(server: Server, lc: Lifecycle, *, watchdog=None,
         else:
             for slot, req in admits:
                 lc.transition(req, State.PREFILLING, step)
-                if not server.prefill(slot, req.rid, req.prompt,
-                                      req.gen_len):
+                try:
+                    ok = server.prefill(slot, req.rid, req.prompt,
+                                        req.gen_len)
+                except paging.PageOOM:
+                    # admission reservations normally cover the prompt; an
+                    # overcommitted pool requeues the request instead
+                    kv_ooms += 1
+                    server.release_slot(slot)
+                    server.allocator.release_reservation(req.rid)
+                    lc.evict(req, step, reason="kv_oom")
+                    continue
+                if not ok:
                     server.release_slot(slot)
                     lc.evict(req, step, reason="nan_prefill")
                     continue
                 start_decoding(req, slot)
         max_concurrent = max(max_concurrent,
                              int((server.slot_req >= 0).sum()))
+        note_kv()
         for req in lc.check_deadlines(step):
             tslot = np.nonzero(server.slot_req == req.rid)[0]
             if tslot.size:
@@ -257,11 +342,25 @@ def serve_loop(server: Server, lc: Lifecycle, *, watchdog=None,
             advanced = [s for s in rode if s not in bad]
         else:
             t0 = time.monotonic()
-            nxt, done, bad = server.decode_step()
+            try:
+                nxt, done, bad = server.decode_step()
+            except paging.PageOOM:
+                # pool overcommitted mid-decode: evict the slot with the
+                # fewest generated tokens (lowest slot on a tie) and retry
+                kv_ooms += 1
+                victim = min((s for s in range(server.batch)
+                              if server.slot_req[s] >= 0),
+                             key=lambda s: (int(server.slot_len[s]), s))
+                vreq = lc.requests[int(server.slot_req[victim])]
+                server.release_slot(victim)
+                lc.evict(vreq, step, reason="kv_oom")
+                step += 1
+                continue
             if watchdog is not None:
                 watchdog.observe(step, time.monotonic() - t0)
             advanced = [s for s in range(server.batch)
                         if server.slot_req[s] >= 0 and s not in bad]
+        note_kv()
         for slot in advanced:
             lc.requests[int(server.slot_req[slot])].tokens.append(
                 int(nxt[slot, 0]))
@@ -282,14 +381,17 @@ def serve_loop(server: Server, lc: Lifecycle, *, watchdog=None,
             f"table:\n{lc.table()}")
     return {"generated": generated, "steps": step,
             "max_concurrent": max_concurrent,
+            "kv_pages_peak": kv_pages_peak, "kv_peak": kv_peak,
+            "kv_ooms": kv_ooms,
             "chunked_prefills": chunked_prefills}
 
 
 def _summary(server: Server, lc: Lifecycle, stats: dict, wall: float, *,
-             batch: int, batch_source: str, watchdog) -> dict:
+             batch: int, batch_source: str, watchdog, scheduler=None) -> dict:
     """The conservation-bearing summary line, with the JAX server's keys
-    (no kernel plan: the port has no tuner yet, ROADMAP A8)."""
-    return {
+    (no kernel plan: the port has no tuner yet, ROADMAP A8), and its
+    ``sched`` and paged ``kv`` blocks."""
+    out = {
         "arch": server.cfg.name,
         "requests": lc.counters()["completed"],
         "submitted": lc.submitted,
@@ -314,6 +416,18 @@ def _summary(server: Server, lc: Lifecycle, stats: dict, wall: float, *,
         "device": (torch.cuda.get_device_name(server.device)
                    if server.device.type == "cuda" else "cpu"),
     }
+    if scheduler is not None:
+        out["sched"] = {"policy": scheduler.policy,
+                        "rejected_oversize": scheduler.rejected_oversize}
+    if server.allocator is not None:
+        # pages allocated vs tokens resident in them at drain, and the peak
+        resident = int(server.cache["lengths"].cpu().numpy()[
+            server.slot_req >= 0].sum())
+        out["kv"] = {**server.allocator.utilization(resident),
+                     "pages_peak": stats.get("kv_pages_peak", 0),
+                     "peak": stats.get("kv_peak"),
+                     "kv_ooms": stats.get("kv_ooms", 0)}
+    return out
 
 
 def main(argv=None) -> int:
@@ -327,9 +441,22 @@ def main(argv=None) -> int:
                          "ported yet: ROADMAP A8)")
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--gen", type=int, default=12)
-    ap.add_argument("--kv-dtype", default="f32",
-                    choices=["f32", "bf16", "int8"],
-                    help="KV-cache storage dtype (int8: ROADMAP A7)")
+    ap.add_argument("--kv-dtype", default="f32", choices=list(KV_DTYPES),
+                    help="KV-cache storage dtype: int8 stores codes and one "
+                         "f32 scale per token row and KV head")
+    ap.add_argument("--paged", action="store_true",
+                    help="paged KV cache: a pool of page-size-token pages "
+                         "shared by every slot through per-slot page tables")
+    ap.add_argument("--page-size", type=int, default=16,
+                    help="tokens per KV page (with --paged)")
+    ap.add_argument("--pool-pages", type=int, default=0,
+                    help="pages in the pool (with --paged); 0 = the "
+                         "contiguous equivalent, batch * ceil(max_len / "
+                         "page_size)")
+    ap.add_argument("--sched", default="fcfs", choices=list(POLICIES),
+                    help="admission policy; with --paged admission also "
+                         "waits for the pool to cover the request's "
+                         "predicted KV footprint")
     ap.add_argument("--queue-limit", type=int, default=0,
                     help="admission-queue bound; submits past it are "
                          "REJECTED (0 = unbounded)")
@@ -341,10 +468,6 @@ def main(argv=None) -> int:
                     help="total deadline per request")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     # Flags of the JAX server that are refused by name until ported.
-    ap.add_argument("--paged", action="store_true", help="ROADMAP A6")
-    ap.add_argument("--sched", default="fcfs",
-                    choices=["fcfs", "spf", "paged-aware"],
-                    help="only fcfs is ported (ROADMAP A5)")
     ap.add_argument("--chaos", action="store_true", help="ROADMAP A9")
     ap.add_argument("--state-dir", default=None, help="ROADMAP A9")
     ap.add_argument("--load-trace", default=None, help="ROADMAP A10")
@@ -352,9 +475,6 @@ def main(argv=None) -> int:
 
     refused = [
         (args.batch == 0, "--batch 0 (the autotuned batch sweep)", "A8"),
-        (args.paged, "--paged (the paged KV cache)", "A6"),
-        (args.sched != "fcfs", f"--sched {args.sched}", "A5"),
-        (args.kv_dtype == "int8", "--kv-dtype int8", "A7"),
         (args.chaos, "--chaos (fault injection)", "A9"),
         (args.state_dir is not None, "--state-dir (crash tolerance)", "A9"),
         (args.load_trace is not None, "--load-trace (trace replay)", "A10"),
@@ -373,6 +493,13 @@ def main(argv=None) -> int:
     batch = args.batch
     max_len = args.prompt_len + args.gen + 8
     print(json.dumps({"serving_plan": {"batch": batch, "source": "flag"}}))
+    paged = None
+    if args.paged:
+        paged = paging.PageSpec.build(batch, max_len, args.page_size,
+                                      pool_pages=args.pool_pages)
+        print(json.dumps({"paging": {"page_size": paged.page_size,
+                                     "num_pages": paged.num_pages,
+                                     "max_pages": paged.max_pages}}))
 
     rng = np.random.default_rng(0)
     lc = Lifecycle(queue_limit=args.queue_limit, max_retries=args.max_retries)
@@ -385,13 +512,16 @@ def main(argv=None) -> int:
                               if args.deadline_ms else None))
 
     server = Server(cfg, batch, max_len, kv_dtype=KV_DTYPES[args.kv_dtype],
-                    device=args.device)
+                    device=args.device, paged=paged)
+    scheduler = (Scheduler(args.sched, allocator=server.allocator)
+                 if (paged is not None or args.sched != "fcfs") else None)
     watchdog = DecodeWatchdog(None)
     t0 = time.time()
-    stats = serve_loop(server, lc, watchdog=watchdog)
+    stats = serve_loop(server, lc, watchdog=watchdog, scheduler=scheduler)
     wall = time.time() - t0
     print(json.dumps(_summary(server, lc, stats, wall, batch=batch,
-                              batch_source="flag", watchdog=watchdog)))
+                              batch_source="flag", watchdog=watchdog,
+                              scheduler=scheduler)))
     return 0
 
 

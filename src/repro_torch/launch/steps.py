@@ -21,33 +21,37 @@ def _last_valid_logits(logits: torch.Tensor, active, s: int) -> torch.Tensor:
     return logits[:, -1]
 
 
-def make_serve_step(cfg: ModelConfig, compute_dtype=torch.bfloat16):
+def make_serve_step(cfg: ModelConfig, compute_dtype=torch.bfloat16,
+                    paged=None):
     """One step: tokens (B, S) in, ``(next_token (B, 1) int32, cache)``
     out.  ``active`` ((B,) or (B, S) bool, optional) is the ragged
-    continuous-batching mask; ``None`` advances every slot."""
+    continuous-batching mask; ``None`` advances every slot.  ``paged`` (a
+    `runtime.paging.PageSpec`) switches the cache to the paged layout."""
 
     def serve_step(params, cache, tokens, active=None):
         logits, new_cache = transformer.forward(
             cfg, params, {"tokens": tokens}, cache=cache,
-            compute_dtype=compute_dtype, active=active)
+            compute_dtype=compute_dtype, active=active, paged=paged)
         last = _last_valid_logits(logits, active, tokens.shape[1])
         return last.argmax(dim=-1).to(torch.int32)[:, None], new_cache
 
     return serve_step
 
 
-def make_guarded_serve_step(cfg: ModelConfig, compute_dtype=torch.bfloat16):
+def make_guarded_serve_step(cfg: ModelConfig, compute_dtype=torch.bfloat16,
+                            paged=None):
     """`make_serve_step` plus the per-slot NaN/Inf logits guard.
 
     Returns ``(next_token, ok, cache)``; ``ok`` (B,) bool is True iff the
     slot's final-position logits are all finite.  ``poison`` ((B,) bool)
     overwrites a slot's logits with NaN after the forward, to exercise the
-    guard without corrupting model state."""
+    guard without corrupting model state.  ``paged`` as in
+    `make_serve_step`."""
 
     def serve_step(params, cache, tokens, active=None, poison=None):
         logits, new_cache = transformer.forward(
             cfg, params, {"tokens": tokens}, cache=cache,
-            compute_dtype=compute_dtype, active=active)
+            compute_dtype=compute_dtype, active=active, paged=paged)
         last = _last_valid_logits(logits, active, tokens.shape[1])
         if poison is not None:
             last = torch.where(poison[:, None], float("nan"), last)

@@ -1,15 +1,18 @@
 """Shared layers on plain tensors: norms, RoPE, GQA attention, SwiGLU,
-embeddings.  Counterpart of `repro.models.layers` (dense family,
-contiguous KV cache).
+embeddings.  Counterpart of `repro.models.layers` (dense family).
 
 Parameters are plain dicts of tensors with the JAX package's keys; a
 layer stack holds stacked leaves with a leading layer axis, and the model
 indexes one layer's views out of them.  Matrices are consumed through
 ``.to(x.dtype)`` exactly where the JAX code writes ``.astype(x.dtype)``.
 
+The KV cache of a layer is contiguous, ``{"k", "v": (B, L, Hkv, dh)}``,
+or paged, ``{"k", "v": (num_pages, page_size, Hkv, dh)}`` pools shared by
+every slot through a page table; either may be int8, with codes in "k"
+and "v" and one f32 scale per (token, KV head) in "k_scale" and "v_scale".
+
 Not ported yet, and raising `NotImplementedError` rather than being
-replaced by something else: sliding-window attention (ROADMAP A12), the
-paged cache (A6) and the int8 cache (A7).
+replaced by something else: sliding-window attention (ROADMAP A12).
 """
 
 from __future__ import annotations
@@ -19,7 +22,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.attention.decode import gqa_decode_attention
+from repro_torch.kernels.attention import decode, decode_int8
+from repro_torch.runtime import quantize
 
 Params = dict
 DEFAULT_INIT_SCALE = 0.02
@@ -171,24 +175,65 @@ def _write_cache(c: torch.Tensor, new: torch.Tensor, t_abs: torch.Tensor,
     idx = t_abs % c.shape[1]
     b_idx = torch.arange(b, device=c.device)[:, None].expand(b, s)
     cur = c[b_idx, idx]
-    c[b_idx, idx] = torch.where(ok[..., None, None], new.to(c.dtype), cur)
+    keep = ok.reshape(ok.shape + (1,) * (new.ndim - 2))
+    c[b_idx, idx] = torch.where(keep, new.to(c.dtype), cur)
+
+
+def pool_zeros(shape, dtype, device, axis: int = 0) -> torch.Tensor:
+    """A zeroed page pool of ``shape`` (pages along ``axis``), allocated
+    with one more page past its end: the trash page, which the page table
+    never names and the kernels never read.  The returned tensor is the
+    view of the first ``shape[axis]`` pages; `with_trash_page` reaches the
+    whole allocation."""
+    full = list(shape)
+    full[axis] += 1
+    return torch.zeros(full, dtype=dtype, device=device).narrow(
+        axis, 0, shape[axis])
+
+
+def with_trash_page(pool: torch.Tensor, axis: int = 0) -> torch.Tensor:
+    """``pool`` (a view made by `pool_zeros`, or a slice of one along
+    another axis) widened by its trash page along ``axis``.  Torch checks
+    the view against its storage, so a pool allocated without the trash
+    page raises instead of reaching past it."""
+    size = list(pool.shape)
+    size[axis] += 1
+    return pool.as_strided(size, pool.stride())
+
+
+def _write_pages(pool: torch.Tensor, new: torch.Tensor, page_w: torch.Tensor,
+                 row: torch.Tensor) -> None:
+    """In place: ``pool[page_w[b, j], row[b, j]] = new[b, j]``.  Rows that
+    must not be written are aimed at the trash page (``page_w`` =
+    num_pages), where duplicate targets do no harm; live rows of the same
+    scatter never share a target, since each pool page belongs to one
+    slot."""
+    with_trash_page(pool)[page_w, row] = new.to(pool.dtype)
 
 
 def attention_apply(params: Params, x: torch.Tensor, cfg,
                     positions: torch.Tensor, cache: Params | None = None,
                     lengths: torch.Tensor | None = None,
                     active: torch.Tensor | None = None,
-                    chunk_q: int | None = None):
+                    chunk_q: int | None = None,
+                    pages: torch.Tensor | None = None, paged=None):
     """GQA self-attention of x (B, S, D) at ``positions`` ((S,) or (B, S)).
 
     Without a cache: causal attention over the sequence itself.  With a
-    contiguous cache ``{"k", "v": (B, L, Hkv, dh)}``: each slot writes its
-    new K/V rows at ``lengths[b] + j`` — **in place**, where the JAX code
-    builds a new array — for the columns ``active`` allows (``(B,)`` or
-    ``(B, S)``), then attends over its own valid prefix.  A single-token
-    step (S == 1) goes through `gqa_decode_attention` (the CUDA kernel on
-    a card); longer chunks through `attention_core`.  Returns
-    ``(y, cache)`` where ``cache`` holds the same (updated) tensors.
+    cache, each slot writes its new K/V rows at ``lengths[b] + j`` for the
+    columns ``active`` allows (``(B,)`` or ``(B, S)``) — **in place**,
+    where the JAX code builds a new array — then attends over its own
+    valid prefix.  An int8 cache (``"k_scale"`` in it) stores
+    `quantize.quantize_rows` of the new rows.  With ``paged`` (a
+    `runtime.paging.PageSpec`) the cache leaves are page pools and the
+    (B, max_pages) ``pages`` table maps each slot's logical page to its
+    pool page; rows are scattered through the table, and masked rows go to
+    the pool's trash page (`pool_zeros`) where JAX drops them, so the write
+    needs no host synchronisation.  A single-token step (S == 1) goes
+    through the decode kernel of its layout (`decode`, `decode_int8`: CUDA
+    on a card); longer chunks gather and dequantize the cache and run
+    `attention_core`.  Returns ``(y, cache)`` where ``cache`` holds the same
+    (updated) tensors.
     """
     if cfg.sliding_window:
         raise _not_ported("sliding-window attention", "A12")
@@ -219,49 +264,96 @@ def attention_apply(params: Params, x: torch.Tensor, cfg,
     if cache is None:
         out = attention_core(q, k, v, positions, positions, causal=cfg.causal,
                              scale=scale, chunk_q=chunk_q)
+        out = out.reshape(b, s, cfg.q_dim).to(x.dtype)
+        return out @ params["wo"].to(x.dtype), cache
+
+    quantized = "k_scale" in cache
+    paged_cache = paged is not None and pages is not None
+    new = {"k": k, "v": v}                   # the rows to write, per leaf
+    if quantized:
+        new["k"], new["k_scale"] = quantize.quantize_rows(k)
+        new["v"], new["v_scale"] = quantize.quantize_rows(v)
+    if lengths is None:
+        lengths = torch.zeros((b,), dtype=torch.int32, device=x.device)
+    if active is None:
+        act2d = torch.ones((b, s), dtype=torch.bool, device=x.device)
     else:
-        if set(cache) != {"k", "v"}:
-            raise _not_ported("the int8 KV cache", "A7")
-        ck, cv = cache["k"], cache["v"]
-        cache_len = ck.shape[1]
-        if s > cache_len:
+        act = active.to(torch.bool)
+        act2d = act if act.ndim == 2 else act[:, None].expand(b, s)
+    t_abs = lengths[:, None] + torch.arange(s, dtype=torch.int32,
+                                            device=x.device)
+    new_len = lengths + act2d.sum(dim=1, dtype=torch.int32)
+
+    if paged_cache:
+        psz, mp, npg = paged.page_size, paged.max_pages, paged.num_pages
+        page_idx = t_abs // psz
+        row = (t_abs % psz).long()
+        page_id = torch.gather(pages, 1, page_idx.clamp(0, mp - 1).long())
+        ok = act2d & (page_idx < mp) & (page_id >= 0) & (page_id < npg)
+        page_w = torch.where(ok, page_id, npg).long()
+        for name, c in cache.items():
+            _write_pages(c, new[name], page_w, row)
+    else:
+        if s > cache["k"].shape[1]:
             raise ValueError(f"{s} new tokens do not fit a cache of "
-                             f"{cache_len} rows")
-        if lengths is None:
-            lengths = torch.zeros((b,), dtype=torch.int32, device=x.device)
-        if active is None:
-            act2d = torch.ones((b, s), dtype=torch.bool, device=x.device)
-        else:
-            act = active.to(torch.bool)
-            act2d = act if act.ndim == 2 else act[:, None].expand(b, s)
-        t_abs = lengths[:, None] + torch.arange(s, dtype=torch.int32,
-                                                device=x.device)
-        new_len = lengths + act2d.sum(dim=1, dtype=torch.int32)
-        ok = act2d & (t_abs < cache_len)
-        _write_cache(ck, k, t_abs, ok)
-        _write_cache(cv, v, t_abs, ok)
-        if s == 1 and cfg.causal:
-            out = gqa_decode_attention(q[:, 0], ck, cv, length=new_len,
-                                       scale=scale)[:, None]
-        else:
-            k_slots = torch.arange(cache_len, dtype=torch.int32,
-                                   device=x.device)
-            k_valid = k_slots[None, :] < new_len[:, None]
-            out = attention_core(q, ck, cv, pos_b, k_slots, causal=cfg.causal,
-                                 scale=scale, k_valid=k_valid)
+                             f"{cache['k'].shape[1]} rows")
+        ok = act2d & (t_abs < cache["k"].shape[1])
+        for name, c in cache.items():
+            _write_cache(c, new[name], t_abs, ok)
+
+    if s == 1 and cfg.causal:
+        kernel = {(False, False): decode.gqa_decode_attention,
+                  (True, False): decode.paged_gqa_decode_attention,
+                  (False, True): decode_int8.quantized_gqa_decode_attention,
+                  (True, True):
+                      decode_int8.paged_quantized_gqa_decode_attention,
+                  }[paged_cache, quantized]
+        names = ("k", "k_scale", "v", "v_scale") if quantized else ("k", "v")
+        tables = (pages,) if paged_cache else ()
+        out = kernel(q[:, 0], *(cache[n] for n in names), *tables,
+                     length=new_len, scale=scale)[:, None]
+    else:
+        rows = ({n: decode.gather_pages(c, pages) for n, c in cache.items()}
+                if paged_cache else cache)
+        kr, vr = rows["k"], rows["v"]
+        if quantized:
+            kr = quantize.dequantize_rows(kr, rows["k_scale"])
+            vr = quantize.dequantize_rows(vr, rows["v_scale"])
+        k_pos = torch.arange(kr.shape[1], dtype=torch.int32, device=x.device)
+        out = attention_core(q, kr, vr, pos_b, k_pos, causal=cfg.causal,
+                             scale=scale,
+                             k_valid=k_pos[None, :] < new_len[:, None])
     out = out.reshape(b, s, cfg.q_dim).to(x.dtype)
     return out @ params["wo"].to(x.dtype), cache
 
 
 def attention_cache_init(cfg, batch: int, cache_len: int,
-                         dtype=torch.bfloat16, device=None) -> Params:
-    if dtype == torch.int8:
-        raise _not_ported("the int8 KV cache", "A7")
+                         dtype=torch.bfloat16, device=None,
+                         paged=None) -> Params:
+    """One layer's zeroed KV cache: contiguous ``(batch, cache_len, Hkv,
+    dh)`` leaves, or with ``paged`` page pools ``(num_pages, page_size,
+    Hkv, dh)`` made by `pool_zeros` (each with its trash page).  An int8
+    ``dtype`` gives codes ``"k"``, ``"v"`` and f32 scales ``"k_scale"``,
+    ``"v_scale"`` of one scale per (token row, KV head)."""
     if cfg.sliding_window:
         raise _not_ported("the sliding-window ring-buffer cache", "A12")
-    shape = (batch, cache_len, cfg.num_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if paged is not None:
+        shape = (paged.num_pages, paged.page_size, cfg.num_kv_heads,
+                 cfg.head_dim)
+    else:
+        shape = (batch, cache_len, cfg.num_kv_heads, cfg.head_dim)
+
+    def make(shp, dt):
+        if paged is not None:
+            return pool_zeros(shp, dt, device)
+        return torch.zeros(shp, dtype=dt, device=device)
+
+    if dtype == torch.int8:
+        return {"k": make(shape, torch.int8),
+                "k_scale": make(shape[:-1], torch.float32),
+                "v": make(shape, torch.int8),
+                "v_scale": make(shape[:-1], torch.float32)}
+    return {"k": make(shape, dtype), "v": make(shape, dtype)}
 
 
 # ---------------------------------------------------------------------------

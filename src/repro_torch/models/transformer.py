@@ -6,7 +6,10 @@ The parameter tree is the JAX package's: ``{"embed": {"table"},
 "final_norm": {"scale"}, "head": {"table"}}``.  `lax.scan` over the layer
 axis becomes a Python loop over views of the stacked leaves (no copies).
 The decode state is ``{"blocks": {"k", "v": (layers, B, L, Hkv, dh)},
-"index": 0-d int32, "lengths": (B,) int32}``.
+"index": 0-d int32, "lengths": (B,) int32}``; a paged cache holds page
+pools ``(layers, num_pages, page_size, Hkv, dh)`` instead and one
+``"pages"`` table ``(B, max_pages)`` int32 for the whole stack, and an
+int8 cache adds the f32 scale leaves ``"k_scale"``, ``"v_scale"``.
 
 Only the dense family is ported; the others raise `NotImplementedError`
 naming ROADMAP A12.
@@ -84,38 +87,67 @@ def _copy_layer(stacked: dict, layer: dict, l: int) -> None:
 
 
 def cache_init(cfg: ModelConfig, batch: int, cache_len: int,
-               dtype=torch.bfloat16, index: int = 0, device="cuda") -> Params:
-    """A zeroed contiguous cache on ``device`` (``cuda`` unless the caller
-    asks for ``cpu``; raises without a card)."""
+               dtype=torch.bfloat16, index: int = 0, device="cuda",
+               paged=None) -> Params:
+    """A zeroed cache on ``device`` (``cuda`` unless the caller asks for
+    ``cpu``; raises without a card).  With ``paged`` (a
+    `runtime.paging.PageSpec`) the leaves are page pools, each allocated
+    with the trash page of `layers.pool_zeros`, and ``cache["pages"]`` is
+    the (B, max_pages) page table, all -1: logical page j of slot b is the
+    same pool page in every layer's K and V pool."""
     _check_family(cfg)
     device = resolve_device(device)
-    layer = layers.attention_cache_init(cfg, batch, cache_len, dtype, "meta")
-    blocks = {k: torch.zeros((cfg.num_layers, *a.shape), dtype=a.dtype,
-                             device=device) for k, a in layer.items()}
-    return {"blocks": blocks,
-            "index": torch.full((), index, dtype=torch.int32, device=device),
-            "lengths": torch.full((batch,), index, dtype=torch.int32,
-                                  device=device)}
+    layer = layers.attention_cache_init(cfg, batch, cache_len, dtype, "meta",
+                                        paged=paged)
+    if paged is not None:
+        blocks = {k: layers.pool_zeros((cfg.num_layers, *a.shape), a.dtype,
+                                       device, axis=1)
+                  for k, a in layer.items()}
+    else:
+        blocks = {k: torch.zeros((cfg.num_layers, *a.shape), dtype=a.dtype,
+                                 device=device) for k, a in layer.items()}
+    cache = {"blocks": blocks,
+             "index": torch.full((), index, dtype=torch.int32, device=device),
+             "lengths": torch.full((batch,), index, dtype=torch.int32,
+                                   device=device)}
+    if paged is not None:
+        cache["pages"] = torch.full((batch, paged.max_pages), -1,
+                                    dtype=torch.int32, device=device)
+    return cache
 
 
-def cache_reset_slot(cache: Params, slot: int) -> Params:
-    """Zero one slot's rows in every layer's K/V and reset its length to 0,
-    **in place** (the JAX version returns a new tree); returns ``cache``.
+def cache_reset_slot(cache: Params, slot: int, paged=None) -> Params:
+    """Zero one slot's rows in every layer's cache leaves and reset its
+    length to 0, **in place** (the JAX version returns a new tree);
+    returns ``cache``.
 
     A recycled slot must start from a state identical to a fresh one: the
     length masks already hide the stale prefix, the zeroing makes a
-    refilled slot reproduce single-sequence decode bitwise."""
-    for a in cache["blocks"].values():
-        a[:, slot] = 0
+    refilled slot reproduce single-sequence decode bitwise.  Paged: the
+    slot's rows are the pool pages its row of ``cache["pages"]`` names;
+    they are zeroed (entries of -1 aim at the trash page, so the device
+    table is read with no host synchronisation) and the row is set to -1.
+    The host allocator frees the pages separately."""
+    if paged is not None:
+        row = cache["pages"][slot]
+        idx = torch.where(row >= 0, row.clamp(max=paged.num_pages - 1),
+                          paged.num_pages).long()
+        for a in cache["blocks"].values():
+            layers.with_trash_page(a, axis=1)[:, idx] = 0
+        cache["pages"][slot] = -1
+    else:
+        for a in cache["blocks"].values():
+            a[:, slot] = 0
     cache["lengths"][slot] = 0
     return cache
 
 
 def _layer_apply(p: Params, x, cfg: ModelConfig, positions, cache, lengths,
-                 active):
+                 active, pages, paged):
     h = layers.rmsnorm(p["ln1"], x, cfg.norm_eps)
     h, _ = layers.attention_apply(p["mixer"], h, cfg, positions, cache=cache,
-                                  lengths=lengths, active=active)
+                                  lengths=lengths, active=active,
+                                  pages=pages, paged=paged)
     x = x + h
     h2 = layers.rmsnorm(p["ln2"], x, cfg.norm_eps)
     return x + layers.swiglu_apply(p["mlp"], h2)
@@ -123,7 +155,8 @@ def _layer_apply(p: Params, x, cfg: ModelConfig, positions, cache, lengths,
 
 def forward(cfg: ModelConfig, params: Params, inputs: dict,
             cache: Params | None = None, compute_dtype=torch.bfloat16,
-            last_only: bool = False, active: torch.Tensor | None = None):
+            last_only: bool = False, active: torch.Tensor | None = None,
+            paged=None):
     """Returns ``(logits, new_cache)``.
 
     ``inputs["tokens"]`` is (B, S).  With a ``cache``, each slot continues
@@ -132,6 +165,8 @@ def forward(cfg: ModelConfig, params: Params, inputs: dict,
     cache rows and advance.  The cache's K/V tensors are updated **in
     place**; ``new_cache`` holds them with the new ``index`` and
     ``lengths``.  ``last_only`` unembeds only the final position.
+    ``paged`` (a `runtime.paging.PageSpec`) marks the cache as paged; its
+    ``cache["pages"]`` table is threaded to every layer.
     """
     _check_family(cfg)
     tokens = inputs["tokens"]
@@ -139,6 +174,8 @@ def forward(cfg: ModelConfig, params: Params, inputs: dict,
     b, s, _ = x.shape
     ar = torch.arange(s, dtype=torch.int32, device=x.device)
     lengths = act = None
+    pages = cache.get("pages") if (cache is not None and paged is not None) \
+        else None
     if cache is not None:
         lengths = cache["lengths"]
         positions = lengths[:, None] + ar[None]
@@ -152,7 +189,8 @@ def forward(cfg: ModelConfig, params: Params, inputs: dict,
         gp = _tree_map(lambda a: a[l], blocks)
         gc = (None if cache is None
               else {k: a[l] for k, a in cache["blocks"].items()})
-        x = _layer_apply(gp, x, cfg, positions, gc, lengths, act)
+        x = _layer_apply(gp, x, cfg, positions, gc, lengths, act, pages,
+                         paged)
 
     x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     new_cache = None
@@ -165,6 +203,8 @@ def forward(cfg: ModelConfig, params: Params, inputs: dict,
             adv = s * act.to(torch.int32)
         new_cache = {"blocks": cache["blocks"], "index": cache["index"] + s,
                      "lengths": lengths + adv}
+        if "pages" in cache:
+            new_cache["pages"] = cache["pages"]
     head = params["embed"] if cfg.tie_embeddings else params["head"]
     if last_only:
         x = x[:, -1:]

@@ -1,7 +1,9 @@
-"""The CUDA decode-attention kernel on the card, against its plain
-PyTorch version.  Every test here is marked ``cuda`` and skips on a host
-without a card; this file imports no JAX, so it also runs where only the
-port is installed:
+"""The CUDA decode-attention kernels on the card, against their plain
+PyTorch versions: contiguous (`decode_attention`), paged
+(`paged_decode_attention`), int8 (`quantized_decode_attention`) and paged
+int8 (`paged_quantized_decode_attention`).  Every test here is marked
+``cuda`` and skips on a host without a card; this file imports no JAX, so
+it also runs where only the port is installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
@@ -11,7 +13,10 @@ rounds its f32 result to bf16 once, so an element may land one bf16 ulp
 away, at most 2^-7 of its own size.  The bound is taken per (sequence,
 query head) row, 2^-7 of that row's largest |ref|, so an error in a long
 row or at a tile boundary cannot hide under the scale of another row; a
-row of length 0 must be exactly zero.
+row of length 0 must be exactly zero.  The int8 kernels and their plain
+versions dequantize the same codes in f32, so f32 output differs in
+summation order only: 1e-5.  Paged tables are a shuffled permutation of
+the pool's pages, -1 past each slot's last page.
 """
 
 import pytest
@@ -22,6 +27,8 @@ import numpy as np  # noqa: E402
 
 from repro_torch.convert import disable_tf32  # noqa: E402
 from repro_torch.kernels.attention import decode  # noqa: E402
+from repro_torch.kernels.attention import decode_int8  # noqa: E402
+from repro_torch.runtime import quantize  # noqa: E402
 
 TILE = 64                     # keys per tile of the CUDA kernel
 L = 160
@@ -89,3 +96,135 @@ def test_cuda_tensor_launches_the_kernel(cuda):
         decode.gqa_decode_attention(q[..., :12], k[..., :12], v[..., :12],
                                     length=32)
     assert decode.launches == before + 1
+
+
+def _assert_rows_close(out, ref, f32: bool):
+    out, ref = out.float().cpu(), ref.float().cpu()
+    err = (out - ref).abs()
+    tol = (torch.full_like(ref[..., :1], 1e-5) if f32
+           else 2.0 ** -7 * ref.abs().amax(-1, keepdim=True))
+    bad = (err > tol).any(-1).nonzero().tolist()
+    assert not bad, (f"(sequence, head) rows {bad} exceed their tolerance; "
+                     f"worst err/tol {float((err / tol).nan_to_num().max())}")
+
+
+def _pool(seed, lengths, page_size, hkv, dh, device, spare=3):
+    """A pool holding each slot's rows in shuffled pages, its table (-1
+    past each slot's last page) and the slot rows laid out contiguously."""
+    rng = np.random.default_rng(seed)
+    max_pages = -(-max(lengths) // page_size) + 1
+    num_pages = len(lengths) * max_pages + spare
+    perm = rng.permutation(num_pages)
+    table = -np.ones((len(lengths), max_pages), np.int32)
+    i = 0
+    for b, n in enumerate(lengths):
+        need = -(-n // page_size)
+        table[b, :need] = perm[i:i + need]
+        i += need
+    shape = (num_pages, page_size, hkv, dh)
+    k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+            .to(device) for _ in range(2))
+    return k, v, torch.from_numpy(table).to(device)
+
+
+PAGED_CASES = [(16, 128, 5, "f32", "f32"), (16, 128, 5, "bf16", "f32"),
+               (16, 128, 5, "bf16", "bf16"), (3, 16, 2, "f32", "f32"),
+               (48, 128, 5, "bf16", "f32"), (7, 80, 4, "bf16", "bf16")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("page_size, dh, g, q_dt, kv_dt", PAGED_CASES)
+def test_paged_kernel_matches_paged_decode_ref(cuda, page_size, dh, g, q_dt,
+                                               kv_dt):
+    hkv = 2
+    k, v, pages = _pool(3, LENGTHS, page_size, hkv, dh, cuda)
+    k, v = k.to(DTYPES[kv_dt]), v.to(DTYPES[kv_dt])
+    q = torch.randn((len(LENGTHS), g * hkv, dh), device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(4)
+                    ).to(DTYPES[q_dt])
+    lengths = torch.tensor(LENGTHS, dtype=torch.int32, device=cuda)
+    before = decode.paged_launches
+    out = decode.paged_gqa_decode_attention(q, k, v, pages, length=lengths)
+    ref = decode.paged_decode_ref(q, k, v, pages, length=lengths)
+    torch.cuda.synchronize()
+    assert decode.paged_launches == before + 1
+    _assert_rows_close(out, ref, q_dt == "f32")
+    assert not out[0].any(), "length 0 must give zeros"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dt", list(DTYPES))
+def test_paged_kernel_is_bitwise_the_contiguous_kernel(cuda, kv_dt):
+    """The page walk reads the keys of the contiguous kernel in its order,
+    so over the same rows the two kernels agree bit for bit."""
+    k, v, pages = _pool(5, LENGTHS, 16, 8, 128, cuda)
+    k, v = k.to(DTYPES[kv_dt]), v.to(DTYPES[kv_dt])
+    q = torch.randn((len(LENGTHS), 40, 128), device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(6))
+    lengths = torch.tensor(LENGTHS, dtype=torch.int32, device=cuda)
+    paged = decode.paged_gqa_decode_attention(q, k, v, pages, length=lengths)
+    contiguous = decode.gqa_decode_attention(
+        q, decode.gather_pages(k, pages).contiguous(),
+        decode.gather_pages(v, pages).contiguous(), length=lengths)
+    torch.testing.assert_close(paged, contiguous, rtol=0, atol=0)
+
+
+def _int8(k, v):
+    (kq, ks), (vq, vs) = quantize.quantize_rows(k), quantize.quantize_rows(v)
+    return kq, ks, vq, vs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dt", list(DTYPES))
+@pytest.mark.parametrize("dh, g", [(16, 5), (128, 5), (128, 16), (96, 1)])
+def test_quantized_kernel_matches_quantized_decode_ref(cuda, dh, g, q_dt):
+    hkv = 2
+    q, k, v = _inputs(7, len(LENGTHS), g * hkv, hkv, dh, L, "f32", cuda)
+    kq, ks, vq, vs = _int8(k, v)
+    q = q.to(DTYPES[q_dt])
+    lengths = torch.tensor(LENGTHS, dtype=torch.int32, device=cuda)
+    before = decode_int8.launches
+    out = decode_int8.quantized_gqa_decode_attention(q, kq, ks, vq, vs,
+                                                     length=lengths)
+    ref = decode_int8.quantized_decode_ref(q, kq, ks, vq, vs, length=lengths)
+    torch.cuda.synchronize()
+    assert decode_int8.launches == before + 1
+    assert out.dtype == q.dtype
+    _assert_rows_close(out, ref, q_dt == "f32")
+    assert not out[0].any(), "length 0 must give zeros"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dt", list(DTYPES))
+@pytest.mark.parametrize("page_size, dh, g", [(16, 128, 5), (48, 128, 5),
+                                              (3, 16, 2)])
+def test_paged_quantized_kernel_matches_its_ref(cuda, page_size, dh, g,
+                                                q_dt):
+    hkv = 2
+    k, v, pages = _pool(8, LENGTHS, page_size, hkv, dh, cuda)
+    kq, ks, vq, vs = _int8(k, v)
+    q = torch.randn((len(LENGTHS), g * hkv, dh), device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(9)
+                    ).to(DTYPES[q_dt])
+    lengths = torch.tensor(LENGTHS, dtype=torch.int32, device=cuda)
+    before = decode_int8.paged_launches
+    out = decode_int8.paged_quantized_gqa_decode_attention(
+        q, kq, ks, vq, vs, pages, length=lengths)
+    ref = decode_int8.paged_quantized_decode_ref(q, kq, ks, vq, vs, pages,
+                                                 length=lengths)
+    torch.cuda.synchronize()
+    assert decode_int8.paged_launches == before + 1
+    _assert_rows_close(out, ref, q_dt == "f32")
+    assert not out[0].any(), "length 0 must give zeros"
+
+
+@pytest.mark.cuda
+def test_int8_kernels_refuse_rows_of_8_bytes(cuda):
+    """16-byte copies of int8 rows need head_dim % 16 == 0."""
+    q, k, v = _inputs(10, 2, 4, 2, 8, 32, "f32", cuda)
+    kq, ks, vq, vs = _int8(k, v)
+    before = decode_int8.launches
+    with pytest.raises(ValueError, match="16 bytes"):
+        decode_int8.quantized_gqa_decode_attention(q, kq, ks, vq, vs,
+                                                   length=32)
+    assert decode_int8.launches == before

@@ -112,3 +112,84 @@ def test_scalar_length_is_clamped_to_cache():
     torch.testing.assert_close(over, full, rtol=0, atol=0)
     with pytest.raises(ValueError, match="per-sequence"):
         tdecode.gqa_decode_attention(*args, length=torch.tensor([1, 2, 3]))
+
+
+# -- paged cache (kernel B2) -------------------------------------------------
+
+def _paged(seed, lengths, page_size, hq, hkv, dh):
+    """q, K/V pools and a page table filled from a shuffled permutation of
+    the pool, -1 past each slot's last page (and a spare page never
+    named)."""
+    rng = np.random.default_rng(seed)
+    b = len(lengths)
+    max_pages = -(-max(lengths) // page_size) + 1
+    num_pages = b * max_pages + 2
+    perm = rng.permutation(num_pages)
+    table = -np.ones((b, max_pages), np.int32)
+    used = 0
+    for i, n in enumerate(lengths):
+        need = -(-n // page_size)
+        table[i, :need] = perm[used:used + need]
+        used += need
+    q = rng.standard_normal((b, hq, dh)).astype(np.float32)
+    pool = (num_pages, page_size, hkv, dh)
+    k = rng.standard_normal(pool).astype(np.float32)
+    v = rng.standard_normal(pool).astype(np.float32)
+    return q, k, v, table
+
+
+def _paged_lengths(ps):
+    """Length 0 and lengths on both sides of page boundaries."""
+    return np.array([0, 1, ps - 1, ps, ps + 1, 3 * ps + 2], np.int32)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("page_size", [16, 3])
+def test_paged_matches_pallas_kernel_interpret(page_size, dt):
+    lengths = _paged_lengths(page_size)
+    hkv, g, dh = 2, 5, 16
+    q, k, v, table = _paged(4, lengths, page_size, g * hkv, hkv, dh)
+    out_t = tdecode.paged_gqa_decode_attention(
+        _t(q, dt), _t(k, dt), _t(v, dt), torch.from_numpy(table),
+        length=torch.from_numpy(lengths))
+    out_j = jdecode.paged_gqa_decode_attention(
+        jnp.asarray(q, JDT[dt]), jnp.asarray(k, JDT[dt]),
+        jnp.asarray(v, JDT[dt]), jnp.asarray(table),
+        length=jnp.asarray(lengths), interpret=True)
+    assert out_t.shape == q.shape and out_t.dtype == TDT[dt]
+    np.testing.assert_allclose(_np(out_t), _np(out_j), rtol=TOL[dt],
+                               atol=TOL[dt])
+    assert not _np(out_t)[0].any(), "length 0 must give zeros"
+
+
+@pytest.mark.parametrize("g", [1, 5])
+def test_paged_decode_ref_matches_jax_paged_decode_ref(g):
+    lengths = _paged_lengths(4)
+    hkv, dh = 2, 8
+    q, k, v, table = _paged(5, lengths, 4, g * hkv, hkv, dh)
+    out_t = tdecode.paged_decode_ref(
+        *(torch.from_numpy(a) for a in (q, k, v, table)),
+        length=torch.from_numpy(lengths))
+    out_j = jdecode.paged_decode_ref(
+        *(jnp.asarray(a) for a in (q, k, v, table)),
+        length=jnp.asarray(lengths))
+    np.testing.assert_allclose(_np(out_t), _np(out_j), rtol=1e-5, atol=1e-5)
+
+
+def test_paged_equals_contiguous_over_the_same_rows():
+    """Gathering each slot's pages gives the contiguous cache the paged
+    wrapper reads: the plain versions agree exactly, and a clamped
+    out-of-range table entry reads the last pool page, as in JAX."""
+    lengths = _paged_lengths(16)
+    q, k, v, table = (torch.from_numpy(a) for a in
+                      _paged(6, lengths, 16, 10, 2, 16))
+    lv = torch.from_numpy(lengths)
+    paged = tdecode.paged_gqa_decode_attention(q, k, v, table, length=lv)
+    contiguous = tdecode.gqa_decode_attention(
+        q, tdecode.gather_pages(k, table), tdecode.gather_pages(v, table),
+        length=lv)
+    torch.testing.assert_close(paged, contiguous, rtol=0, atol=0)
+    wild = table.clone()
+    wild[5, 0] = 10 ** 6
+    np.testing.assert_array_equal(
+        tdecode.gather_pages(k, wild)[5, :16].numpy(), k[-1].numpy())
