@@ -10,7 +10,7 @@ Phases, each printed as one JSON line:
 1. ``device``: the card as ``nvidia-smi`` reports it (also printed raw),
    the torch and CUDA versions.
 2. ``build``: every kernel under ``src/repro_torch/csrc`` compiled with
-   ``nvcc`` for ``sm_90a``, and its seconds.
+   ``nvcc`` for ``sm_90a`` (five: B1-B5), and its seconds.
 3. ``kernel_cases``: each CUDA decode-attention kernel against its plain
    PyTorch version on the card at Qwen3-14B decode shapes (Hq 40, Hkv 8,
    dh 128): contiguous (``decode_ref``, with PyTorch SDPA timed as the
@@ -23,7 +23,29 @@ Phases, each printed as one JSON line:
 4. ``decode_vs_teacher_forcing`` and ``decode_vs_teacher_forcing_paged``:
    a small model decoded token by token through the contiguous and the
    paged kernel agrees with its own full-sequence forward.
-5. ``serve``, ``serve_paged``, ``serve_int8``, ``serve_paged_int8``:
+5. ``flash_cases``: the prefill flash-attention kernel against
+   ``ref.attention_ref`` on the card (the per-row tolerance of
+   `row_errors`; rows with no key exactly 0) at Qwen3-14B's prefill shape
+   (causal, Hq 40, Hkv 8, dh 128) at 32,768 and 4,096 tokens, Danube's
+   (window 4096, Hq 32, Hkv 8, dh 80) at 32,768, a non-causal ragged case,
+   a window case with Sq > Sk and an f32 case; each with its time, its
+   bound from the pairs the mask keeps, the plain version's time and
+   PyTorch SDPA's.
+6. ``prefill`` and ``prefill_danube``: `steps.make_prefill_step` at the
+   full published width and depth of Qwen3-14B and H2O-Danube-1.8B
+   (random bf16 weights from a seeded generator) on 1 x 32,768 tokens,
+   ``prefill_32k``'s length (its global batch of 32 is cut to 1): host ms
+   per forward, prompt tokens/s, flash launches (one per layer per
+   forward, no decode kernel), peak memory and device time by kernel
+   from `torch.profiler` over one traced forward.
+   ``prefill_vs_forward``: with the same weights at 4,096 (Qwen3) and
+   6,144 (Danube, past its window) tokens, the last-position logits of
+   the prefill path (flash kernel) and of the full forward
+   (`attention_core`) agree within 1e-4 in f32; in bf16 the prefill path
+   is no farther from the f32 logits than the full forward plus the bf16
+   logit bound, within that bound on the first 2 layers, and the greedy
+   tokens agree (or the top-2 gap is below the bound).
+7. ``serve``, ``serve_paged``, ``serve_int8``, ``serve_paged_int8``:
    `repro_torch.launch.serve` at Qwen3-14B's full published width (random
    bf16 weights from a seeded generator) serves 6 requests through each
    cache layout (``--paged --sched spf``, ``--kv-dtype int8``, and both in
@@ -31,15 +53,18 @@ Phases, each printed as one JSON line:
    requests fit at once).  Each summary must conserve all 6, pass
    ``tools/check_serve.py``, and its layout's kernel must have launched
    40 times (once per layer) per decode forward, the other kernels never;
-   a paged run must end with no page allocated and no pool overflow.
-6. ``paged_vs_contiguous``: one set of full-width weights serves the same
+   a paged run must end with no page allocated and no pool overflow; the
+   flash kernel must not launch (serving prefill with a cache runs
+   `attention_core`).
+8. ``paged_vs_contiguous``: one set of full-width weights serves the same
    4 requests through a contiguous and a paged f32 cache; the greedy
    token streams must be equal.
-7. ``decode_step``: where one decode step of the contiguous serve shape
+9. ``decode_step``: where one decode step of the contiguous serve shape
    goes (batch 4, depth 600): host-clock time of untraced steps, then
    device time by kernel from `torch.profiler` over traced steps.
-8. ``kernels``: one entry per ported kernel, with its TPU counterpart,
-   launches on its serve run, error and times.
+10. ``kernels``: one entry per ported kernel, with its TPU counterpart,
+   launches on its main-path run (a serve run; B5: the ``prefill``
+   phase), error and times.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed phase
 exits non-zero without it; so does a host without a CUDA card.
@@ -48,6 +73,7 @@ exits non-zero without it; so does a host without a CUDA card.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import io
 import json
@@ -93,6 +119,8 @@ KERNELS = {
     "paged_quantized_decode_attention": (
         "src/repro_torch/csrc/paged_quantized_decode_attention.cu",
         "src/repro/kernels/attention/decode_int8.py:282"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/attention/kernel.py:177"),
 }
 NO_LIBRARY = ("none: no single PyTorch call computes attention through a "
               "page table or over int8 codes")
@@ -100,6 +128,22 @@ MIXED = [0, 1, 511, 512, 513, 2048, 3000, 4096]
 STEP_BATCH, STEP_DEPTH = 4, 600      # decode_step: the serve run's shape
 STEP_WARMUP, STEP_COUNT = 2, 8       # untraced steps, then as many traced
 TOP_KERNELS = 12
+# flash_cases: (name, batch, Sq, Sk, Hq, Hkv, dh, causal, window, dtype)
+FLASH_CASES = [
+    ("qwen3_prefill_32k", 1, 32768, 32768, 40, 8, 128, True, None, "bf16"),
+    ("qwen3_prefill_4k", 1, 4096, 4096, 40, 8, 128, True, None, "bf16"),
+    ("danube_prefill_32k", 1, 32768, 32768, 32, 8, 80, True, 4096, "bf16"),
+    ("non_causal_ragged", 2, 1000, 1000, 40, 8, 128, False, None, "bf16"),
+    ("window_sq_gt_sk", 1, 700, 500, 32, 8, 80, True, 64, "bf16"),
+    ("qwen3_4k_f32", 1, 4096, 4096, 40, 8, 128, True, None, "f32"),
+]
+# (phase, arch, prefill_vs_forward's length: past Danube's 4096 window)
+PREFILL_PHASES = [("prefill", "qwen3_14b", 4096),
+                  ("prefill_danube", "h2o_danube_1_8b", 6144)]
+PREFILL_TIMED = 2                    # untraced forwards after a warm-up
+BF16_LOGIT_REL = 3e-2                # ROADMAP queue C's bf16 logit bound
+SHALLOW = 2                          # the SMOKE depth that bound was set at
+MATMUL_MARKS = ("nvjet", "gemm", "xmma", "cutlass")
 
 
 def emit(phase: str, **fields) -> None:
@@ -235,7 +279,7 @@ def new_kernel_case(torch, mods, flush, *, kernel, name, lengths, q_dtype,
     """One shape of the paged, int8 or paged int8 kernel: its error against
     its plain version, times and bound.  The paged kernel's output must
     also be bitwise that of the contiguous kernel over the same rows."""
-    decode, decode_int8, quantize = mods
+    decode, decode_int8, quantize, _ = mods
     dev = torch.device("cuda")
     b = len(lengths)
     q = torch.randn((b, hq, dh), generator=torch.Generator(
@@ -411,17 +455,19 @@ def decode_vs_teacher_forcing_paged(torch, configs, transformer, paging,
 
 
 def launch_counts(mods) -> dict:
-    decode, decode_int8, _ = mods
+    decode, decode_int8, _, flash = mods
     return {"decode_attention": decode.launches,
             "paged_decode_attention": decode.paged_launches,
             "quantized_decode_attention": decode_int8.launches,
-            "paged_quantized_decode_attention": decode_int8.paged_launches}
+            "paged_quantized_decode_attention": decode_int8.paged_launches,
+            "flash_attention": flash.launches}
 
 
 def reset_launch_counts(mods) -> None:
-    decode, decode_int8, _ = mods
+    decode, decode_int8, _, flash = mods
     decode.launches = decode.paged_launches = 0
     decode_int8.launches = decode_int8.paged_launches = 0
+    flash.launches = 0
 
 
 def serve_phase(torch, serve, check_serve, mods, *, phase, argv, kernel,
@@ -461,7 +507,7 @@ def serve_phase(torch, serve, check_serve, mods, *, phase, argv, kernel,
           f"{phase}: {launches} {kernel} launches for "
           f"{summary['decode_forwards']} decode forwards x {layers} layers")
     check(not any(counts.values()),
-          f"{phase}: other decode kernels launched: {counts}")
+          f"{phase}: other kernels launched: {counts}")
     if "--paged" in argv:
         kv = summary["kv"]
         check(kv["kv_ooms"] == 0 and kv["pages_allocated"] == 0,
@@ -574,6 +620,307 @@ def decode_step_breakdown(torch, configs, serve):
                             for n, c, us in kernels[:TOP_KERNELS]]}
 
 
+def keys_per_row(sq: int, sk: int, causal: bool, window):
+    """The number of keys each query row sees, as a numpy vector: row i
+    sees keys [max(0, i - window + 1), min(i, Sk - 1)] (causal) or up to
+    Sk - 1.  Its sum is the (query, key) pairs the mask keeps."""
+    import numpy as np
+    i = np.arange(sq, dtype=np.int64)
+    hi = np.minimum(i, sk - 1) if causal else np.full(sq, sk - 1)
+    lo = np.maximum(0, i - window + 1) if window else np.zeros(sq, np.int64)
+    return np.maximum(0, hi - lo + 1)
+
+
+def _sdpa(torch, q, k, v, *, causal, window, scale):
+    """PyTorch SDPA on the same (B, S, H, dh) inputs, heads moved to axis 1
+    as views, GQA by ``enable_gqa``; a boolean mask for a window.  The
+    math backend is excluded (it would materialise the logits).  Where no
+    other backend takes ``enable_gqa`` for the inputs (f32), K and V are
+    repeated to Hq heads before the timed call, and the note says so.
+    Returns (call, note): call is None, and note the reason, when no
+    backend takes the shape."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch.kernels.attention import ref
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    kw = {"scale": scale}
+    if window is None:
+        kw["is_causal"] = causal
+    else:
+        dev = q.device
+        kw["attn_mask"] = ref.mask(torch.arange(q.shape[1], device=dev),
+                                   torch.arange(k.shape[1], device=dev),
+                                   causal=causal, window=window)
+    backends = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                SDPBackend.CUDNN_ATTENTION]
+    g = q.shape[2] // k.shape[2]
+    errors = []
+    for gqa in (True, False):
+        if gqa:
+            kk, vv, note = kt, vt, None
+        else:
+            kk, vv = (x.repeat_interleave(g, dim=1) for x in (kt, vt))
+            note = ("K/V repeated to Hq heads before the timed call: no "
+                    "SDPA backend but math takes enable_gqa here")
+
+        def call(kk=kk, vv=vv, gqa=gqa):
+            with sdpa_kernel(backends):
+                return F.scaled_dot_product_attention(qt, kk, vv,
+                                                      enable_gqa=gqa, **kw)
+        try:
+            call()
+            torch.cuda.synchronize()
+            return call, note
+        except RuntimeError as e:        # no backend for this shape
+            errors.append(str(e)[:200])
+    return None, "none: no SDPA backend but math takes it: " + " | ".join(
+        errors)
+
+
+def flash_case(torch, flash, ref, cost_model, flush, *, name, b, sq, sk, hq,
+               hkv, dh, causal, window, dtype, seed=0):
+    """One shape of the flash kernel: its error against `attention_ref`,
+    times and bound.  The 32k cases time fewer calls: the plain version
+    takes seconds there."""
+    dev = torch.device("cuda")
+    dt = {"bf16": torch.bfloat16, "f32": torch.float32}[dtype]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((b, sq, hq, dh), generator=gen, device=dev).to(dt)
+    k = torch.randn((b, sk, hkv, dh), generator=gen, device=dev).to(dt)
+    v = torch.randn((b, sk, hkv, dh), generator=gen, device=dev).to(dt)
+    scale = dh ** -0.5
+
+    def kernel():
+        return flash.flash_attention(q, k, v, scale=scale, causal=causal,
+                                     window=window)
+
+    def plain():
+        return ref.attention_ref(q, k, v, scale=scale, causal=causal,
+                                 window=window)
+
+    out, want = kernel(), plain()
+    torch.cuda.synchronize()
+    err, err_over_tol = row_errors(torch, out, want, dt == torch.float32)
+    del want
+    per_row = keys_per_row(sq, sk, causal, window)
+    empty = torch.from_numpy(per_row == 0).to(dev)
+    zeros_ok = not bool(out[:, empty].any())
+    long = sq * sk > 2 ** 26
+    ms = median_ms(torch, kernel, 5 if long else 21, flush)
+    plain_ms = median_ms(torch, plain, 3 if long else 5, flush)
+    library, note = _sdpa(torch, q, k, v, causal=causal, window=window,
+                          scale=scale)
+    library_ms = (median_ms(torch, library, 5 if long else 11, flush)
+                  if library else None)
+    del library
+    pairs = int(per_row.sum())
+    ops = 4 * dh * hq * b * pairs        # q.k and p.v multiply-adds
+    nbytes = ((q.numel() + k.numel() + v.numel() + out.numel())
+              * q.element_size())
+    t_ops = ops / PEAK_OPS_PER_S["bfloat16" if dtype == "bf16"
+                                 else "float32"] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    active, dense = cost_model.attention_active_block_pairs(
+        sq, sk, flash.BLOCK_Q, flash.BLOCK_K, causal=causal, window=window)
+    res = {"kernel": "flash_attention", "name": name, "batch": b, "sq": sq,
+           "sk": sk, "hq": hq, "hkv": hkv, "dh": dh, "causal": causal,
+           "window": window, "dtype": dtype, "max_abs_err": err,
+           "tolerance": ("1e-4" if dtype == "f32"
+                         else "2^-7 x the row's max |ref|"),
+           "max_err_over_tol": err_over_tol,
+           "empty_rows": int((per_row == 0).sum()),
+           "zero_rows_ok": zeros_ok, "ok": err_over_tol <= 1 and zeros_ok,
+           "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "bytes": nbytes, "operations": ops, "pairs": pairs,
+           "tiles_walked": active * b * hq, "tiles_dense": dense * b * hq,
+           "tflops": ops / ms / 1e9}
+    if note:
+        res["library"] = note
+    return res
+
+
+def _by_kernel(torch, prof):
+    kernels = [(e.key, e.count, _device_us(e)) for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sorted((k for k in kernels if k[2] > 0), key=lambda k: -k[2])
+
+
+def prefill_phase(torch, shapes, steps, transformer, mods, cfg, params,
+                  seed=3):
+    """`make_prefill_step` on 1 x ``prefill_32k`` tokens at full width:
+    a warm-up forward (its last logits must be finite), ``PREFILL_TIMED``
+    untraced steps on the host clock with every launch count set to 0 just
+    before them, then one step traced by `torch.profiler`."""
+    from torch.profiler import ProfilerActivity, profile
+    shape = shapes.SHAPES["prefill_32k"]
+    runs, why = shapes.applicable(cfg, shape)
+    check(runs, f"{cfg.name} does not run prefill_32k: {why}")
+    dev = torch.device("cuda")
+    tokens = torch.randint(0, cfg.vocab_size, (1, shape.seq_len), device=dev,
+                           generator=torch.Generator(device=dev)
+                           .manual_seed(seed))
+    batch = {"tokens": tokens}
+    step = steps.make_prefill_step(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    logits, _ = transformer.forward(cfg, params, batch, last_only=True)
+    first = logits[:, -1].argmax(-1).to(torch.int32)
+    finite = bool(torch.isfinite(logits).all())
+    del logits
+    torch.cuda.synchronize()
+    reset_launch_counts(mods)
+    host_ms, nxt = [], None
+    for _ in range(PREFILL_TIMED):
+        t0 = time.perf_counter()
+        nxt = step(params, batch)
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+    counts = launch_counts(mods)
+    peak = torch.cuda.max_memory_allocated()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(params, batch)
+        torch.cuda.synchronize()
+    kernels = _by_kernel(torch, prof)
+    device_ms = sum(k[2] for k in kernels) / 1e3
+    flash_ms = sum(k[2] for k in kernels if "flash_" in k[0]) / 1e3
+    matmul_ms = sum(k[2] for k in kernels
+                    if any(m in k[0] for m in MATMUL_MARKS)) / 1e3
+    launches = counts.pop("flash_attention")
+    median = sorted(host_ms)[len(host_ms) // 2]
+    tok = nxt.tolist()
+    res = {"arch": cfg.name, "layers": cfg.num_layers,
+           "shape": shape.name, "batch": 1, "seq_len": shape.seq_len,
+           "reduced": {"global_batch": [shape.global_batch, 1]},
+           "host_ms": host_ms, "host_median_ms": median,
+           "prompt_tok_per_s": shape.seq_len / (median / 1e3),
+           "flash_launches": launches,
+           "flash_launches_per_forward": launches / PREFILL_TIMED,
+           "other_kernel_launches": counts,
+           "peak_memory_gb": round(peak / 1e9, 3),
+           "next_token": tok, "warmup_token": first.tolist(),
+           "logits_finite": finite,
+           "device_time_measured": bool(kernels),
+           "device_ms": device_ms, "flash_ms": flash_ms,
+           "matmul_ms": matmul_ms,
+           "flash_share": flash_ms / device_ms if device_ms else None,
+           "matmul_share": matmul_ms / device_ms if device_ms else None,
+           "device_busy_share": device_ms / median,
+           "top_kernels": [{"name": n[:120], "calls": c, "ms": us / 1e3}
+                           for n, c, us in kernels[:TOP_KERNELS]]}
+    res["ok"] = (finite and launches == PREFILL_TIMED * cfg.num_layers
+                 and not any(counts.values())
+                 and all(0 <= t < cfg.vocab_size for t in tok))
+    return res
+
+
+def prefill_vs_forward(torch, steps, transformer, mods, cfg, params, seq_len,
+                       seed=4):
+    """The prefill path (flash kernel) against the full forward
+    (`attention_core`) on one prompt, at full width and depth, in f32 and
+    in bf16 compute.
+
+    f32 separates the two paths from rounding: their last-position logits
+    must agree within 1e-4 of the largest |logit|, the CPU parity
+    tolerance.  In bf16 each path rounds differently, and over 40 layers
+    two bf16 evaluations drift apart by more than queue C's bound of 3e-2
+    of the largest |logit| (set on 2-layer SMOKE configs): the full
+    forward itself lands about 5e-2 from the f32 logits.  So in bf16 the
+    prefill path must be no farther from the f32 logits than the full
+    forward is, plus that bound, and its greedy token must equal the full
+    forward's unless the latter's top-2 gap is below the bound.  The
+    bf16-to-bf16 difference is reported beside the bound, and held to it
+    on the first ``SHALLOW`` layers of the same weights.  Runs where
+    ``params`` lie."""
+    dev = params["embed"]["table"].device
+    tokens = torch.randint(0, cfg.vocab_size, (1, seq_len), device=dev,
+                           generator=torch.Generator(device=dev)
+                           .manual_seed(seed))
+    batch = {"tokens": tokens}
+    bf16, f32 = torch.bfloat16, torch.float32
+    reset_launch_counts(mods)
+    prefill, full = {}, {}
+    for dt in (bf16, f32):
+        lp, _ = transformer.forward(cfg, params, batch, last_only=True,
+                                    compute_dtype=dt)
+        prefill[dt] = lp[:, -1].float()
+    tok_p = int(steps.make_prefill_step(cfg)(params, batch)[0])
+    flash_launches = launch_counts(mods)["flash_attention"]
+    for dt in (bf16, f32):
+        lf, _ = transformer.forward(cfg, params, batch, compute_dtype=dt)
+        full[dt] = lf[:, -1].float()
+        del lf
+    core_launches = launch_counts(mods)["flash_attention"] - flash_launches
+
+    def dist(a, b):
+        return float((a - b).abs().max())
+
+    s_cfg, s_params = first_layers(cfg, params, SHALLOW)
+    s_prefill = transformer.forward(s_cfg, s_params, batch,
+                                    last_only=True)[0][:, -1].float()
+    s_full = transformer.forward(s_cfg, s_params, batch)[0][:, -1].float()
+    s_bound = BF16_LOGIT_REL * float(s_full.abs().max())
+
+    f32_tol = 1e-4 * float(full[f32].abs().max())
+    bound = BF16_LOGIT_REL * float(full[bf16].abs().max())
+    top2 = full[bf16].topk(2, dim=-1).values[0]
+    gap = float(top2[0] - top2[1])
+    tok_f = int(full[bf16].argmax(-1))
+    res = {"arch": cfg.name, "seq_len": seq_len,
+           "window": cfg.sliding_window,
+           "f32_max_abs_err": dist(prefill[f32], full[f32]),
+           "f32_tolerance": f32_tol,
+           "bf16_max_abs_err": dist(prefill[bf16], full[bf16]),
+           "bf16_bound": bound,
+           "bf16_prefill_vs_f32": dist(prefill[bf16], full[f32]),
+           "bf16_forward_vs_f32": dist(full[bf16], full[f32]),
+           "shallow_layers": s_cfg.num_layers,
+           "shallow_bf16_max_abs_err": dist(s_prefill, s_full),
+           "shallow_bf16_bound": s_bound,
+           "token_prefill": tok_p, "token_forward": tok_f,
+           "argmax_equal": tok_p == tok_f, "forward_top2_gap": gap,
+           "flash_launches_prefill": flash_launches,
+           "flash_launches_forward": core_launches,
+           "finite": all(bool(torch.isfinite(t).all())
+                         for t in (*prefill.values(), *full.values()))}
+    if tok_p != tok_f:
+        res["note"] = ("argmax differs at a top-2 gap below the bound"
+                       if gap < bound else "argmax differs")
+    res["ok"] = (res["finite"] and res["f32_max_abs_err"] <= f32_tol
+                 and res["bf16_prefill_vs_f32"]
+                 <= res["bf16_forward_vs_f32"] + bound
+                 and res["shallow_bf16_max_abs_err"] <= s_bound
+                 and (tok_p == tok_f or gap < bound)
+                 and flash_launches == 3 * cfg.num_layers
+                 and core_launches == 0)
+    return res
+
+
+def first_layers(cfg, params, n: int):
+    """``cfg`` and ``params`` cut to their first ``n`` layers (at most all
+    of them); the stacked leaves are sliced as views."""
+    n = min(n, cfg.num_layers)
+
+    def cut(tree):
+        return ({k: cut(v) for k, v in tree.items()}
+                if isinstance(tree, dict) else tree[:n])
+    return (dataclasses.replace(cfg, num_layers=n),
+            {**params, "blocks": cut(params["blocks"])})
+
+
+def main_path_case(kernel: str, cases: list) -> dict:
+    """The case at the shape the kernel's main path gives it: Qwen3-14B's
+    32k prefill for the flash kernel; for the decode kernels the serve
+    shape with bf16 q and an f32 or int8 cache (paged: pages of 16)."""
+    if kernel == "flash_attention":
+        return next(c for c in cases if c["name"] == "qwen3_prefill_32k")
+    return next(c for c in cases if c["name"] == "serve_shape"
+                and c["q_dtype"] == "bfloat16"
+                and c["kv_dtype"] in ("float32", "int8")
+                and c.get("page_size") in (None, 16))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -582,13 +929,16 @@ def main() -> int:
         return 1
     import check_serve
     import repro_torch.configs as configs
+    from repro_torch.configs import shapes
     from repro_torch.convert import disable_tf32
+    from repro_torch.core import cost_model
     from repro_torch.kernels import _build
-    from repro_torch.kernels.attention import decode, decode_int8
-    from repro_torch.launch import serve
+    from repro_torch.kernels.attention import decode, decode_int8, ref
+    from repro_torch.kernels.attention import kernel as flash
+    from repro_torch.launch import serve, steps
     from repro_torch.models import transformer
     from repro_torch.runtime import lifecycle, paging, quantize
-    mods = (decode, decode_int8, quantize)
+    mods = (decode, decode_int8, quantize, flash)
 
     disable_tf32()
     smi = subprocess.run(
@@ -638,8 +988,43 @@ def main() -> int:
     check(tf["ok"], f"decode through the paged kernel != teacher forcing: "
                     f"{tf}")
 
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    fcases = []
+    for name, b, sq, sk, hq, hkv, dh, causal, window, dt in FLASH_CASES:
+        fcases.append(flash_case(
+            torch, flash, ref, cost_model, flush, name=name, b=b, sq=sq,
+            sk=sk, hq=hq, hkv=hkv, dh=dh, causal=causal, window=window,
+            dtype=dt))
+        gc.collect()
+        torch.cuda.empty_cache()
+    del flush
+    emit("flash_cases", cases=fcases)
+    check(all(c["ok"] for c in fcases),
+          "the flash kernel disagrees with its plain version: "
+          + json.dumps([c for c in fcases if not c["ok"]]))
+    cases += fcases
+
+    prefill_launches = {}
+    for phase, arch, check_len in PREFILL_PHASES:
+        cfg = configs.get(arch)
+        params = transformer.init(
+            cfg, torch.Generator(device="cuda").manual_seed(0),
+            dtype=torch.bfloat16)
+        res = prefill_phase(torch, shapes, steps, transformer, mods, cfg,
+                            params)
+        emit(phase, **res)
+        check(res["ok"], f"{phase} failed: {res}")
+        prefill_launches[phase] = res["flash_launches"]
+        pvf = prefill_vs_forward(torch, steps, transformer, mods, cfg,
+                                 params, check_len)
+        emit("prefill_vs_forward", **pvf)
+        check(pvf["ok"], f"prefill and full forward disagree: {pvf}")
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+
     layers = configs.get("qwen3_14b").num_layers
-    launches = {}
+    launches = {"flash_attention": prefill_launches["prefill"]}
     for phase, argv, kernel, most_at_once in SERVE_PHASES:
         launches[kernel] = serve_phase(
             torch, serve, check_serve, mods, phase=phase, argv=argv,
@@ -649,15 +1034,15 @@ def main() -> int:
     emit("paged_vs_contiguous", **pvc)
     check(pvc["ok"], f"paged and contiguous token streams differ: {pvc}")
 
-    emit("decode_step", **decode_step_breakdown(torch, configs, serve))
+    step = decode_step_breakdown(torch, configs, serve)
+    emit("decode_step", **step)
+    check(step["decode_attention_ms_per_step"] > 0,
+          "decode_step found no device time of the decode kernel")
 
     entries = []
     for name, (source, replaces) in KERNELS.items():
         mine = [c for c in cases if c["kernel"] == name]
-        serve_case = next(c for c in mine if c["name"] == "serve_shape"
-                          and c["q_dtype"] == "bfloat16"
-                          and c["kv_dtype"] in ("float32", "int8")
-                          and c.get("page_size") in (None, 16))
+        serve_case = main_path_case(name, mine)
         entry = {"name": name, "route": "cuda", "source": source,
                  "replaces": replaces, "launches": launches[name],
                  "max_abs_err": max(c["max_abs_err"] for c in mine),
@@ -665,7 +1050,9 @@ def main() -> int:
         entry.update({k: serve_case[k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
         if entry["library_ms"] is None:
-            entry["library"] = NO_LIBRARY
+            entry["library"] = serve_case.get("library", NO_LIBRARY)
+        if name == "flash_attention":
+            entry["launches_by_phase"] = prefill_launches
         entries.append(entry)
     print(json.dumps({"kernels": entries}), flush=True)
     print(smi, flush=True)

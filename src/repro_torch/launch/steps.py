@@ -1,6 +1,7 @@
 """Serving step functions.  Counterpart of the serving part of
-`repro.launch.steps` (`_last_valid_logits`, `make_serve_step`,
-`make_guarded_serve_step`).  The steps update the cache's K/V in place."""
+`repro.launch.steps` (`make_prefill_step`, `_last_valid_logits`,
+`make_serve_step`, `make_guarded_serve_step`).  The serve steps update the
+cache's K/V in place."""
 
 from __future__ import annotations
 
@@ -8,6 +9,22 @@ import torch
 
 from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig
+
+
+def make_prefill_step(cfg: ModelConfig, compute_dtype=torch.bfloat16):
+    """Forward-only prefill over a prompt without a cache: ``batch``
+    ({"tokens": (B, S)}, a "labels" entry ignored) in, the greedy next
+    token (B,) int32 out.  Only the final position is unembedded, and
+    attention runs the flash kernel (`kernels.attention.ops`)."""
+
+    def prefill_step(params, batch):
+        inputs = {k: v for k, v in batch.items() if k != "labels"}
+        logits, _ = transformer.forward(cfg, params, inputs,
+                                        compute_dtype=compute_dtype,
+                                        last_only=True)
+        return logits[:, -1].argmax(dim=-1).to(torch.int32)
+
+    return prefill_step
 
 
 def _last_valid_logits(logits: torch.Tensor, active, s: int) -> torch.Tensor:

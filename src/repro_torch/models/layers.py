@@ -12,7 +12,8 @@ every slot through a page table; either may be int8, with codes in "k"
 and "v" and one f32 scale per (token, KV head) in "k_scale" and "v_scale".
 
 Not ported yet, and raising `NotImplementedError` rather than being
-replaced by something else: sliding-window attention (ROADMAP A12).
+replaced by something else: the sliding-window ring-buffer cache (ROADMAP
+A12).  The window mask of the cache-free forward is ported.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.attention import decode, decode_int8
+from repro_torch.kernels.attention import decode, decode_int8, ops
 from repro_torch.runtime import quantize
 
 Params = dict
@@ -110,22 +111,28 @@ def _dense_init(generator, shape, dtype):
     return (w * DEFAULT_INIT_SCALE).to(dtype)
 
 
-def _mask_block(q_pos, k_pos, causal: bool, k_valid=None) -> torch.Tensor:
+def _mask_block(q_pos, k_pos, causal: bool, window: int | None = None,
+                k_valid=None) -> torch.Tensor:
     """Boolean mask from position vectors: ``(Sq, Sk)`` when every operand
     is shared across the batch (1-D), ``(B, Sq, Sk)`` when any carries a
-    leading batch axis (ragged continuous batching)."""
+    leading batch axis (ragged continuous batching).  A ``window`` keeps
+    keys less than ``window`` positions behind the query."""
     diff = q_pos[..., :, None] - k_pos[..., None, :]
     ok = torch.ones(diff.shape, dtype=torch.bool, device=diff.device)
     if causal:
         ok = ok & (diff >= 0)
+    if window is not None:
+        ok = ok & (diff < window)
     if k_valid is not None:
         ok = ok & k_valid[..., None, :]
     return ok
 
 
 def attention_core(q, k, v, q_pos, k_pos, *, causal: bool, scale: float,
-                   k_valid=None, chunk_q: int | None = None) -> torch.Tensor:
-    """Masked multi-head attention with GQA grouping (no cache repeat).
+                   window: int | None = None, k_valid=None,
+                   chunk_q: int | None = None) -> torch.Tensor:
+    """Masked multi-head attention with GQA grouping (no cache repeat):
+    query head h reads KV head h // g.
 
     q: (B, Sq, Hq, dh); k, v: (B, Sk, Hkv, dh); ``q_pos`` (Sq,) or (B, Sq),
     ``k_pos`` (Sk,) or (B, Sk), ``k_valid`` (Sk,) or (B, Sk).  Operands
@@ -144,7 +151,7 @@ def attention_core(q, k, v, q_pos, k_pos, *, causal: bool, scale: float,
 
     def blk(q_blk, qp_blk):
         logits = torch.einsum("bqhgd,bkhd->bhgqk", q_blk, kf) * scale
-        mask = _mask_block(qp_blk, k_pos, causal, k_valid)
+        mask = _mask_block(qp_blk, k_pos, causal, window, k_valid)
         mask = (mask[None, None, None] if mask.ndim == 2
                 else mask[:, None, None])
         logits = torch.where(mask, logits, NEG_INF)
@@ -216,10 +223,15 @@ def attention_apply(params: Params, x: torch.Tensor, cfg,
                     lengths: torch.Tensor | None = None,
                     active: torch.Tensor | None = None,
                     chunk_q: int | None = None,
-                    pages: torch.Tensor | None = None, paged=None):
+                    pages: torch.Tensor | None = None, paged=None,
+                    prefill: bool = False):
     """GQA self-attention of x (B, S, D) at ``positions`` ((S,) or (B, S)).
 
-    Without a cache: causal attention over the sequence itself.  With a
+    Without a cache: attention over the sequence itself, causal and
+    windowed as ``cfg`` says.  The forward-only serving prefill
+    (``prefill``, set by `transformer.forward` for ``last_only`` without a
+    cache) goes through the flash kernel (`ops.mha_attention`: CUDA on a
+    card); any other cache-free call runs `attention_core`.  With a
     cache, each slot writes its new K/V rows at ``lengths[b] + j`` for the
     columns ``active`` allows (``(B,)`` or ``(B, S)``) — **in place**,
     where the JAX code builds a new array — then attends over its own
@@ -235,8 +247,8 @@ def attention_apply(params: Params, x: torch.Tensor, cfg,
     `attention_core`.  Returns ``(y, cache)`` where ``cache`` holds the same
     (updated) tensors.
     """
-    if cfg.sliding_window:
-        raise _not_ported("sliding-window attention", "A12")
+    if cfg.sliding_window and cache is not None:
+        raise _not_ported("the sliding-window ring-buffer cache", "A12")
     b, s, _ = x.shape
     q = x @ params["wq"].to(x.dtype)
     k = x @ params["wk"].to(x.dtype)
@@ -262,8 +274,13 @@ def attention_apply(params: Params, x: torch.Tensor, cfg,
             chunk_q = 512
 
     if cache is None:
-        out = attention_core(q, k, v, positions, positions, causal=cfg.causal,
-                             scale=scale, chunk_q=chunk_q)
+        if prefill:
+            out = ops.mha_attention(q, k, v, causal=cfg.causal,
+                                    window=cfg.sliding_window)
+        else:
+            out = attention_core(q, k, v, positions, positions,
+                                 causal=cfg.causal, scale=scale,
+                                 window=cfg.sliding_window, chunk_q=chunk_q)
         out = out.reshape(b, s, cfg.q_dim).to(x.dtype)
         return out @ params["wo"].to(x.dtype), cache
 

@@ -143,11 +143,11 @@ def cache_reset_slot(cache: Params, slot: int, paged=None) -> Params:
 
 
 def _layer_apply(p: Params, x, cfg: ModelConfig, positions, cache, lengths,
-                 active, pages, paged):
+                 active, pages, paged, prefill):
     h = layers.rmsnorm(p["ln1"], x, cfg.norm_eps)
     h, _ = layers.attention_apply(p["mixer"], h, cfg, positions, cache=cache,
                                   lengths=lengths, active=active,
-                                  pages=pages, paged=paged)
+                                  pages=pages, paged=paged, prefill=prefill)
     x = x + h
     h2 = layers.rmsnorm(p["ln2"], x, cfg.norm_eps)
     return x + layers.swiglu_apply(p["mlp"], h2)
@@ -164,7 +164,9 @@ def forward(cfg: ModelConfig, params: Params, inputs: dict,
     bool) masks which slots (or which columns of a packed chunk) write
     cache rows and advance.  The cache's K/V tensors are updated **in
     place**; ``new_cache`` holds them with the new ``index`` and
-    ``lengths``.  ``last_only`` unembeds only the final position.
+    ``lengths``.  ``last_only`` unembeds only the final position; without a
+    cache it is the forward-only serving prefill, whose attention runs the
+    flash kernel (`layers.attention_apply`'s ``prefill``).
     ``paged`` (a `runtime.paging.PageSpec`) marks the cache as paged; its
     ``cache["pages"]`` table is threaded to every layer.
     """
@@ -184,13 +186,14 @@ def forward(cfg: ModelConfig, params: Params, inputs: dict,
     else:
         positions = ar
 
+    prefill = last_only and cache is None
     blocks = params["blocks"]
     for l in range(cfg.num_layers):
         gp = _tree_map(lambda a: a[l], blocks)
         gc = (None if cache is None
               else {k: a[l] for k, a in cache["blocks"].items()})
         x = _layer_apply(gp, x, cfg, positions, gc, lengths, act, pages,
-                         paged)
+                         paged, prefill)
 
     x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     new_cache = None

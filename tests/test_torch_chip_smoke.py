@@ -54,3 +54,76 @@ def test_chip_smoke_refuses_a_host_without_a_card(tmp_path):
                           cwd=tmp_path)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_keys_per_row_counts_the_mask():
+    """The pair count behind the flash kernel's bound, against the mask
+    itself, and at the two prefill shapes of the card run."""
+    from repro_torch.kernels.attention import ref
+    for sq, sk, causal, window in [(45, 30, True, 8), (37, 53, False, None),
+                                   (64, 64, True, None), (50, 40, False, 7),
+                                   (700, 500, True, 64)]:
+        keep = ref.mask(torch.arange(sq), torch.arange(sk), causal=causal,
+                        window=window)
+        rows = chip_smoke.keys_per_row(sq, sk, causal, window)
+        assert rows.tolist() == keep.sum(-1).tolist()
+    assert int(chip_smoke.keys_per_row(32768, 32768, True, None).sum()) \
+        == 32768 * 32769 // 2
+    danube = int(chip_smoke.keys_per_row(32768, 32768, True, 4096).sum())
+    assert danube == 4096 * 4097 // 2 + (32768 - 4096) * 4096
+
+
+def test_prefill_vs_forward_on_a_smoke_model(monkeypatch):
+    """The phase's check, run on the CPU at Danube's SMOKE size (window 8,
+    a prompt of 40): it passes, and the flash entry ran once per layer in
+    the two prefill forwards and the step, never in the full forwards."""
+    import repro_torch.configs as configs
+    from repro_torch.kernels.attention import decode_int8
+    from repro_torch.kernels.attention import kernel as flash
+    from repro_torch.kernels.attention import ops
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer
+    from repro_torch.runtime import quantize
+    cfg = configs.get_smoke("h2o_danube_1_8b")
+    params = transformer.init(cfg, torch.Generator().manual_seed(0),
+                              dtype=torch.bfloat16)
+    real = ops.mha_attention
+
+    def counting(*a, **kw):        # on the CPU no kernel launches: count
+        flash.launches += 1        # the entry's calls in their place
+        return real(*a, **kw)
+
+    monkeypatch.setattr(ops, "mha_attention", counting)
+    res = chip_smoke.prefill_vs_forward(
+        torch, steps, transformer, (decode, decode_int8, quantize, flash),
+        cfg, params, 40)
+    assert res["ok"], res
+    assert res["flash_launches_prefill"] == 3 * cfg.num_layers
+    assert res["flash_launches_forward"] == 0
+
+
+def test_prefill_vs_forward_catches_the_tiled_gqa_fold(monkeypatch):
+    """A flash entry that groups heads as the JAX wrapper does (query
+    head h reads KV head h % Hkv) fails the phase's check."""
+    import repro_torch.configs as configs
+    from repro_torch.kernels.attention import decode_int8
+    from repro_torch.kernels.attention import kernel as flash
+    from repro_torch.kernels.attention import ops
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer
+    from repro_torch.runtime import quantize
+    cfg = configs.get_smoke("qwen3_14b")
+    params = transformer.init(cfg, torch.Generator().manual_seed(0),
+                              dtype=torch.bfloat16)
+    real = ops.mha_attention
+
+    def tiled(q, k, v, **kw):
+        g = q.shape[2] // k.shape[2]
+        return real(q, k.repeat(1, 1, g, 1), v.repeat(1, 1, g, 1), **kw)
+
+    monkeypatch.setattr(ops, "mha_attention", tiled)
+    res = chip_smoke.prefill_vs_forward(
+        torch, steps, transformer, (decode, decode_int8, quantize, flash),
+        cfg, params, 40)
+    assert not res["ok"]
+    assert res["f32_max_abs_err"] > 100 * res["f32_tolerance"]

@@ -1,7 +1,9 @@
-"""The CUDA decode-attention kernels on the card, against their plain
-PyTorch versions: contiguous (`decode_attention`), paged
+"""The CUDA kernels on the card, against their plain PyTorch versions:
+the decode-attention kernels, contiguous (`decode_attention`), paged
 (`paged_decode_attention`), int8 (`quantized_decode_attention`) and paged
-int8 (`paged_quantized_decode_attention`).  Every test here is marked
+int8 (`paged_quantized_decode_attention`), and the prefill flash-attention
+kernel (`flash_attention`) against `ref.attention_ref` with every mask
+kind, ragged tails and query rows with no key.  Every test here is marked
 ``cuda`` and skips on a host without a card; this file imports no JAX, so
 it also runs where only the port is installed:
 
@@ -28,6 +30,8 @@ import numpy as np  # noqa: E402
 from repro_torch.convert import disable_tf32  # noqa: E402
 from repro_torch.kernels.attention import decode  # noqa: E402
 from repro_torch.kernels.attention import decode_int8  # noqa: E402
+from repro_torch.kernels.attention import kernel as flash  # noqa: E402
+from repro_torch.kernels.attention import ref as flash_ref  # noqa: E402
 from repro_torch.runtime import quantize  # noqa: E402
 
 TILE = 64                     # keys per tile of the CUDA kernel
@@ -228,3 +232,81 @@ def test_int8_kernels_refuse_rows_of_8_bytes(cuda):
         decode_int8.quantized_gqa_decode_attention(q, kq, ks, vq, vs,
                                                    length=32)
     assert decode_int8.launches == before
+
+
+# name: (Sq, Sk, causal, window); lengths not multiples of the 64-row tile
+FLASH_MASKS = {
+    "causal": (200, 200, True, None),
+    "window": (300, 300, True, 70),
+    "non_causal": (150, 230, False, None),
+    "window_non_causal": (200, 180, False, 50),
+    "window_sq_gt_sk": (300, 140, True, 64),
+}
+
+
+def _flash_inputs(seed, b, sq, sk, hq, hkv, dh, dt, device):
+    rng = np.random.default_rng(seed)
+    shapes = [(b, sq, hq, dh), (b, sk, hkv, dh), (b, sk, hkv, dh)]
+    return [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+            .to(device=device, dtype=DTYPES[dt]) for s in shapes]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("dh, g", [(128, 5), (80, 4), (128, 1), (16, 5)])
+@pytest.mark.parametrize("mask", list(FLASH_MASKS))
+def test_flash_kernel_matches_attention_ref(cuda, mask, dh, g, dt):
+    sq, sk, causal, window = FLASH_MASKS[mask]
+    hkv = 2
+    q, k, v = _flash_inputs(11, 2, sq, sk, g * hkv, hkv, dh, dt, cuda)
+    scale = dh ** -0.5
+    before = flash.launches
+    out = flash.flash_attention(q, k, v, scale=scale, causal=causal,
+                                window=window)
+    ref = flash_ref.attention_ref(q, k, v, scale=scale, causal=causal,
+                                  window=window)
+    torch.cuda.synchronize()
+    assert flash.launches == before + 1
+    assert out.dtype == q.dtype and out.shape == q.shape
+    _assert_rows_close(out, ref, dt == "f32")
+    i = torch.arange(sq, device=cuda)[:, None]
+    j = torch.arange(sk, device=cuda)[None, :]
+    keep = torch.ones((sq, sk), dtype=torch.bool, device=cuda)
+    if causal:
+        keep &= i >= j
+    if window is not None:
+        keep &= i - j < window
+    empty = ~keep.any(-1)
+    if mask == "window_sq_gt_sk":
+        assert empty.any()
+    assert not out[:, empty].any(), "rows with no key must be exactly 0"
+
+
+@pytest.mark.cuda
+def test_flash_kernel_reads_strided_views(cuda):
+    """q, k and v as head slices of one packed (B, S, Hq + 2 Hkv, dh)
+    projection are read in place through their strides."""
+    b, s, hq, hkv, dh = 2, 130, 10, 2, 128
+    qkv = torch.randn((b, s, hq + 2 * hkv, dh), device=cuda,
+                      dtype=torch.bfloat16)
+    q, k, v = qkv[:, :, :hq], qkv[:, :, hq:hq + hkv], qkv[:, :, hq + hkv:]
+    assert not q.is_contiguous()
+    out = flash.flash_attention(q, k, v, scale=dh ** -0.5)
+    ref = flash_ref.attention_ref(q, k, v, scale=dh ** -0.5)
+    torch.cuda.synchronize()
+    _assert_rows_close(out, ref, False)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_refuses_what_it_cannot_take(cuda):
+    q, k, v = _flash_inputs(12, 1, 40, 40, 4, 2, 128, "bf16", cuda)
+    before = flash.launches
+    with pytest.raises(ValueError, match="head_dim"):
+        flash.flash_attention(q[..., :48], k[..., :48], v[..., :48],
+                              scale=0.1)
+    with pytest.raises(ValueError, match="dtypes"):
+        flash.flash_attention(q, k.float(), v, scale=0.1)
+    wide = torch.zeros((1, 40, 4, 136), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16 bytes"):    # 8-byte offset
+        flash.flash_attention(wide[..., 4:132], k, v, scale=0.1)
+    assert flash.launches == before
