@@ -10,7 +10,8 @@ Phases, each printed as one JSON line:
 1. ``device``: the card as ``nvidia-smi`` reports it (also printed raw),
    the torch and CUDA versions.
 2. ``build``: every kernel under ``src/repro_torch/csrc`` compiled with
-   ``nvcc`` for ``sm_90a`` (five: B1-B5), and its seconds.
+   ``nvcc`` for ``sm_90a`` (eight: B1-B8, the two SpMV kernels in one
+   source), one ``nvcc`` per source, all at once, and the seconds.
 3. ``kernel_cases``: each CUDA decode-attention kernel against its plain
    PyTorch version on the card at Qwen3-14B decode shapes (Hq 40, Hkv 8,
    dh 128): contiguous (``decode_ref``, with PyTorch SDPA timed as the
@@ -62,9 +63,31 @@ Phases, each printed as one JSON line:
 9. ``decode_step``: where one decode step of the contiguous serve shape
    goes (batch 4, depth 600): host-clock time of untraced steps, then
    device time by kernel from `torch.profiler` over traced steps.
-10. ``kernels``: one entry per ported kernel, with its TPU counterpart,
+10. ``matmul_cases``: the blocked matmul B6, with the tile the tuner
+   measures fastest among the model's top ``TABLE1_MEASURE_K``, against
+   `matmul_ref` on the card (per-row tolerance `ref.row_tolerance`: 1e-5 of the row's
+   largest |ref| in f32, 2^-7 in bf16) at the four Table-1 shapes in
+   bf16, 4096^3 in f32, ragged 130x70x50 (bf16 and f32, with a bias and
+   GELU) and 1x128x256, and every activation with a bias at 4096^3 bf16;
+   each with its time, the plain version's, cuBLAS's (`torch.matmul` in
+   the same dtype, TF32 off), the bound and TFLOP/s.
+11. ``spmv_cases``: B7 (x resident) and B8 (x in slabs) against
+   `spmv_ell_ref` (B8 also against its slab walk) and, in the original
+   row order, `spmv_csr_ref`, within 1e-5 of each row's sum of
+   |products|: B7 on the four Table-II matrices, both on
+   ``spmv_1m_narrow`` (1M rows, x of 128 KB) and B8 on ``spmv_1m_wide``
+   (1M rows and columns); each with its time, the plain version's,
+   cuSPARSE's (`torch.sparse_csr_tensor` @ x) and its bytes bound.
+12. ``table1`` and ``table2``: `repro_torch.benchmarks.table1_matmul` and
+   ``table2_spmv`` on the card, each in a fresh tuning cache, with the
+   launch counts set to 0 just before and read just after: Table-1 plans
+   measured on the card (keys naming it), B6 timed at the Table-1 shapes,
+   a second `tune` answered from the cache; the Table-II rows (dense
+   baseline against the tuned sparse path) and the tuned plans of the
+   four matrices and both 1M-row ones, the wide one on B8.
+13. ``kernels``: one entry per ported kernel, with its TPU counterpart,
    launches on its main-path run (a serve run; B5: the ``prefill``
-   phase), error and times.
+   phase; B6: ``table1``; B7, B8: ``table2``), error and times.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed phase
 exits non-zero without it; so does a host without a CUDA card.
@@ -121,6 +144,12 @@ KERNELS = {
         "src/repro/kernels/attention/decode_int8.py:282"),
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/attention/kernel.py:177"),
+    "blocked_matmul": ("src/repro_torch/csrc/blocked_matmul.cu",
+                       "src/repro/kernels/matmul/kernel.py:102"),
+    "ell_spmv": ("src/repro_torch/csrc/ell_spmv.cu",
+                 "src/repro/kernels/spmv/kernel.py:51"),
+    "ell_spmv_blocked": ("src/repro_torch/csrc/ell_spmv.cu",
+                         "src/repro/kernels/spmv/kernel.py:105"),
 }
 NO_LIBRARY = ("none: no single PyTorch call computes attention through a "
               "page table or over int8 codes")
@@ -455,19 +484,28 @@ def decode_vs_teacher_forcing_paged(torch, configs, transformer, paging,
 
 
 def launch_counts(mods) -> dict:
+    from repro_torch.kernels.matmul import kernel as mm
+    from repro_torch.kernels.spmv import kernel as sp
     decode, decode_int8, _, flash = mods
     return {"decode_attention": decode.launches,
             "paged_decode_attention": decode.paged_launches,
             "quantized_decode_attention": decode_int8.launches,
             "paged_quantized_decode_attention": decode_int8.paged_launches,
-            "flash_attention": flash.launches}
+            "flash_attention": flash.launches,
+            "blocked_matmul": mm.launches,
+            "ell_spmv": sp.launches,
+            "ell_spmv_blocked": sp.blocked_launches}
 
 
 def reset_launch_counts(mods) -> None:
+    from repro_torch.kernels.matmul import kernel as mm
+    from repro_torch.kernels.spmv import kernel as sp
     decode, decode_int8, _, flash = mods
     decode.launches = decode.paged_launches = 0
     decode_int8.launches = decode_int8.paged_launches = 0
     flash.launches = 0
+    mm.launches = 0
+    sp.launches = sp.blocked_launches = 0
 
 
 def serve_phase(torch, serve, check_serve, mods, *, phase, argv, kernel,
@@ -909,12 +947,380 @@ def first_layers(cfg, params, n: int):
             {**params, "blocks": cut(params["blocks"])})
 
 
+# --------------------------------------------------------------------------
+# The paper's slice: blocked matmul (B6), ELL SpMV (B7, B8), Tables I, II
+# --------------------------------------------------------------------------
+
+# matmul_cases: (name, m, n, k, dtype, activation, with bias)
+MATMUL_CASES = (
+    [(f"table1_{m}x{n}x{k}", m, n, k, "bf16", None, False)
+     for m, n, k in [(4096, 4096, 4096), (8192, 8192, 8192),
+                     (16384, 16384, 16384), (8192, 2048, 8192)]]
+    + [("f32_4096", 4096, 4096, 4096, "f32", None, False),
+       ("ragged_130x70x50", 130, 70, 50, "bf16", "gelu", True),
+       ("ragged_130x70x50_f32", 130, 70, 50, "f32", "gelu", True),
+       ("row_1x128x256", 1, 128, 256, "bf16", None, False)]
+    + [(f"epilogue_{act}_4096", 4096, 4096, 4096, "bf16", act, True)
+       for act in ("relu", "gelu", "silu", "tanh")])
+MATMUL_MAIN = "table1_8192x8192x8192"     # the kernels line's B6 case
+TABLE1_MEASURE_K = 8                      # of the model's top tiles, timed
+SPMV_MEASURE_K = 3                        # as many as `autotune.tune` times
+SPMV_MAIN = {"ell_spmv": "spmv_1m_narrow", "ell_spmv_blocked": "spmv_1m_wide"}
+
+
+def bound_ms(nbytes: float, ops: float, dtype: str) -> tuple[float, str]:
+    """The least time of a call on one H100: the larger of its bytes over
+    the memory rate and its operations over the peak for ``dtype``
+    ("bfloat16" or "float32"), and which of the two it is."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def matmul_bound(m: int, n: int, k: int, in_bytes: int, out_bytes: int,
+                 bias: bool) -> tuple[float, float, float, str]:
+    """(bytes, operations, bound ms, bound by) of act(A @ B + bias): A and
+    B read once, C written once, the f32 bias read once; 2mnk operations
+    at the tensor cores' bf16 rate (2-byte operands) or the CUDA cores'
+    f32 rate."""
+    nbytes = (m * k + k * n) * in_bytes + m * n * out_bytes + 4 * n * bias
+    ops = 2.0 * m * n * k
+    ms, by = bound_ms(nbytes, ops, "bfloat16" if in_bytes == 2
+                      else "float32")
+    return nbytes, ops, ms, by
+
+
+def spmv_bound(rows: int, width: int, n: int, nnz: int
+               ) -> tuple[float, float, float, str]:
+    """(bytes, operations, bound ms, bound by) of y = A @ x over a padded
+    ELL matrix: its int32 cols and f32 vals (every entry, padding too:
+    the kernel reads them), x and y once; 2 operations a nonzero at the
+    f32 rate."""
+    nbytes = rows * width * 8 + n * 4 + rows * 4
+    ops = 2.0 * nnz
+    ms, by = bound_ms(nbytes, ops, "float32")
+    return nbytes, ops, ms, by
+
+
+def matmul_case(torch, mm_ops, mm_ref, flush, *, name, m, n, k, dtype,
+                activation, with_bias, tile, seed=0):
+    """One shape of B6 with ``tile`` against `matmul_ref` on the card,
+    within `ref.row_tolerance`; its time, the
+    plain version's, cuBLAS's (`torch.matmul` in the same dtype, TF32
+    off, without the epilogue) and the bound.  Runs where ``flush``
+    lies."""
+    dev = flush.device
+    dt = {"bf16": torch.bfloat16, "f32": torch.float32}[dtype]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    a = torch.randn((m, k), generator=gen, device=dev).to(dt)
+    b = torch.randn((k, n), generator=gen, device=dev).to(dt)
+    bias = (torch.randn((1, n), generator=gen, device=dev) if with_bias
+            else None)
+
+    def kernel():
+        return mm_ops.matmul(a, b, tile=tile, bias=bias,
+                             activation=activation)
+
+    def plain():
+        return mm_ref.matmul_ref(a, b, bias=bias, activation=activation)
+
+    out, want = kernel(), plain()
+    torch.cuda.synchronize()
+    err = (out.float() - want.float()).abs()
+    ratio = float((err / mm_ref.row_tolerance(want, out.dtype))
+                  .nan_to_num(0.0).max())
+    finite = bool(torch.isfinite(out).all())
+    del out, want
+    big = m * n * k >= 8192 ** 3
+    ms = median_ms(torch, kernel, 5 if big else 11, flush)
+    plain_ms = median_ms(torch, plain, 3 if big else 5, flush)
+    library_ms = median_ms(torch, lambda: torch.matmul(a, b),
+                           5 if big else 11, flush)
+    nbytes, ops, b_ms, by = matmul_bound(m, n, k, a.element_size(),
+                                         a.element_size(), with_bias)
+    return {"kernel": "blocked_matmul", "name": name, "m": m, "n": n, "k": k,
+            "dtype": dtype, "activation": activation, "bias": with_bias,
+            "tile": [tile.y, tile.x, tile.z], "max_abs_err": float(err.max()),
+            "tolerance": ("1e-5" if dtype == "f32" else "2^-7")
+            + " x the row's max |ref|",
+            "max_err_over_tol": ratio, "finite": finite,
+            "ok": ratio <= 1 and finite,
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "library": "torch.matmul (cuBLAS), no epilogue",
+            "bound_ms": b_ms, "bound_by": by, "bytes": nbytes,
+            "operations": ops, "tflops": ops / ms / 1e9,
+            "library_tflops": ops / library_ms / 1e9}
+
+
+def spmv_matrix(torch, table2, ops, name, dev):
+    """CSR arrays of a Table-II or a large matrix, its ELL packing under
+    the sorted law on ``dev``, x from a seed, and the CSR arrays there
+    with each row's columns sorted (the same matrix, in the order a
+    `torch.sparse_csr_tensor` requires)."""
+    import numpy as np
+    indptr, indices, data, shape = table2.build(name)
+    mat = ops.pack_csr(indptr, indices, data, shape, scheme="sorted",
+                       device=dev)
+    rows = np.repeat(np.arange(shape[0], dtype=np.int64), np.diff(indptr))
+    order = np.argsort(rows * shape[1] + indices, kind="stable")
+    indices, data = indices[order], data[order]
+    del rows, order
+    x = torch.randn(shape[1], generator=torch.Generator(device=dev)
+                    .manual_seed(7), device=dev)
+    csr = (torch.from_numpy(indptr.astype("int32")).to(dev),
+           torch.from_numpy(indices).to(dev),
+           torch.from_numpy(data).to(dev))
+    return mat, x, csr
+
+
+def spmv_case(torch, autotune, sp_ops, sp_kernel, sp_ref, spec, flush,
+              cache, *, name, mat, x, csr, kernel):
+    """One matrix through B7 (``ell_spmv``) or B8 (``ell_spmv_blocked``)
+    at the configuration the main path runs: the tuner's plan on the card
+    (`autotune.tune`, as `table2_spmv.tuned_records` calls it) when the
+    plan is this kernel's, else the fastest on the card of this kernel's
+    top configurations by the model, as many as the tuner times.  Held
+    against `spmv_ell_ref` (B8 also against its slab walk) within
+    `ref.row_tolerance`, and, in the original row order, against
+    `spmv_csr_ref`; its time, the plain version's, cuSPARSE's (a
+    `torch.sparse_csr_tensor` of the same CSR times x) and the bound."""
+    rows, width = mat.cols.shape
+    m, n = mat.shape
+    blocked = kernel == "ell_spmv_blocked"
+    tuned = autotune.tune("spmv", {"mat": mat}, device="cuda", cache=cache)
+    if (tuned.knobs["block_cols"] is not None) == blocked:
+        br, bc = tuned.knobs["block_rows"], tuned.knobs["block_cols"]
+        picked = "the tuner's plan"
+    else:
+        ranked = [r for r in spec.rank_configs(mat)
+                  if (r[2] is not None) == blocked][:SPMV_MEASURE_K]
+        if not ranked:
+            return {"kernel": kernel, "name": name, "ok": False,
+                    "why": "no configuration of this kernel fits"}
+        timed = [(autotune.measure(
+            lambda br=br, bc=bc: sp_ops.spmv(mat, x, block_rows=br,
+                                             block_cols=bc), "cuda"), br, bc)
+            for _, br, bc, _ in ranked]
+        _, br, bc = min(timed)
+        picked = (f"the fastest of this kernel's top {len(ranked)} "
+                  "by the model (the tuner's plan is the other kernel's)")
+    if blocked:
+        def run():
+            return sp_kernel.ell_spmv_blocked(x, mat.cols, mat.vals,
+                                              block_rows=br, block_cols=bc)
+
+        def plain():
+            return sp_ref.spmv_blocked_ref(mat.cols, mat.vals, x, bc)
+    else:
+        def run():
+            return sp_kernel.ell_spmv(x, mat.cols, mat.vals, block_rows=br)
+
+        def plain():
+            return sp_ref.spmv_ell_ref(mat.cols, mat.vals, x)
+    y = run()
+    tol = sp_ref.row_tolerance(mat.cols, mat.vals, x)
+    checks = {"ell_ref": sp_ref.spmv_ell_ref(mat.cols, mat.vals, x)}
+    if blocked:
+        checks["slab_walk_ref"] = plain()
+    ratios = {k: float(((y - v).abs() / tol).nan_to_num(0.0).max())
+              for k, v in checks.items()}
+    errs = {k: float((y - v).abs().max()) for k, v in checks.items()}
+    indptr, indices, data = csr
+    y_orig = torch.empty(m, device=x.device)
+    y_orig[mat.perm_index] = y[:m]
+    tol_orig = torch.empty(m, device=x.device)
+    tol_orig[mat.perm_index] = tol[:m]
+    want = sp_ref.spmv_csr_ref(indptr, indices, data, x, m)
+    ratios["csr_ref"] = float(((y_orig - want).abs() / tol_orig)
+                              .nan_to_num(0.0).max())
+    errs["csr_ref"] = float((y_orig - want).abs().max())
+    del checks, want, y_orig, tol_orig
+    a_csr = torch.sparse_csr_tensor(indptr, indices, data, size=(m, n),
+                                    check_invariants=True)
+    big = rows * width > 2 ** 24
+    ms = median_ms(torch, run, 11 if big else 21, flush)
+    plain_ms = median_ms(torch, plain, 3 if big else 5, flush)
+    library_ms = median_ms(torch, lambda: a_csr @ x, 11 if big else 21,
+                           flush)
+    del a_csr
+    nbytes, ops, b_ms, by = spmv_bound(rows, width, n, mat.nnz)
+    return {"kernel": kernel, "name": name, "rows": m, "n": n,
+            "nnz": mat.nnz, "width": width, "block_rows": br,
+            "block_cols": bc, "configuration": picked,
+            "tuned_plan": tuned.knobs, "slabs": -(-n // bc) if bc else None,
+            "max_abs_err": max(errs.values()), "errors": errs,
+            "tolerance": "1e-5 x the row's sum of |products|",
+            "max_err_over_tol": max(ratios.values()),
+            "err_over_tol": ratios, "ok": max(ratios.values()) <= 1,
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "library": "torch.sparse_csr_tensor @ x (cuSPARSE)",
+            "bound_ms": b_ms, "bound_by": by, "bytes": nbytes,
+            "operations": ops, "gb_per_s": nbytes / ms / 1e6}
+
+
+def spmv_cases(torch, table2, ops, autotune, sp_kernel, sp_ref, spec,
+               flush):
+    """B7 on the four Table-II matrices and on ``spmv_1m_narrow``, B8 on
+    ``spmv_1m_narrow`` and ``spmv_1m_wide`` (x of 4 MB fits no block's
+    shared memory, so B7 cannot take it)."""
+    plan = [(name, ("ell_spmv",)) for name in table2.MATRICES]
+    plan += [("spmv_1m_narrow", ("ell_spmv", "ell_spmv_blocked")),
+             ("spmv_1m_wide", ("ell_spmv_blocked",))]
+    import tempfile
+    cases = []
+    with tempfile.TemporaryDirectory() as tmp:
+        cache = autotune.TuneCache(pathlib.Path(tmp) / "autotune.json")
+        for name, kernels in plan:
+            mat, x, csr = spmv_matrix(torch, table2, ops, name, flush.device)
+            for kernel in kernels:
+                cases.append(spmv_case(torch, autotune, ops, sp_kernel,
+                                       sp_ref, spec, flush, cache, name=name,
+                                       mat=mat, x=x, csr=csr, kernel=kernel))
+            del mat, x, csr
+            gc.collect()
+            torch.cuda.empty_cache()
+    return cases
+
+
+def table1_phase(torch, table1, autotune, mods):
+    """The port's Table I on the card, in a fresh cache file: the tuner
+    against the eq. 2 tile at the Table-1 shapes (plans measured on the
+    card among the model's top ``TABLE1_MEASURE_K`` tiles, keys naming
+    it), B6 timed with the tuned, eq. 2 and fixed tiles,
+    the measured TFLOP/s beside the model's, and a second `tune` of each
+    shape answered from the cache.  Launch counts are set to 0 just
+    before and read just after."""
+    import tempfile
+    kind = torch.cuda.get_device_name(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        cache = autotune.TuneCache(pathlib.Path(tmp) / "autotune.json")
+        reset_launch_counts(mods)
+        t0 = time.time()
+        tuned = table1.tuned_vs_fixed("cuda", cache=cache,
+                                      measure_k=TABLE1_MEASURE_K)
+        measured = table1.tuned_vs_fixed_measured("cuda", cache=cache)
+        seconds = time.time() - t0
+        counts = launch_counts(mods)
+        again = [autotune.tune("matmul", {"m": m, "n": n, "k": k},
+                               torch.bfloat16, device="cuda", cache=cache)
+                 for m, n, k in table1.TABLE1_SHAPES]
+    ok = (all(r["tuned_source"] == "measured" and kind in r["key"]
+              for r in tuned)
+          and all(p.source == "cache" and p.provenance == "measured"
+                  for p in again)
+          and counts["blocked_matmul"] > 0
+          and all(v == 0 for k, v in counts.items() if k != "blocked_matmul"))
+    from repro_torch.core import hardware
+    return {"chip": dataclasses.asdict(hardware.detect()),
+            "seconds": seconds, "tuned_vs_fixed": tuned,
+            "measured": measured,
+            "second_tune_sources": [p.source for p in again],
+            "launches": counts, "ok": ok}
+
+
+def table2_phase(torch, table2, autotune, mods):
+    """The port's Table II on the card, in a fresh cache file: one row per
+    Table-II matrix (dense baseline against the tuned sparse path) and the
+    tuned plans of those and of the two 1M-row matrices; the wide one must
+    be tuned to the blocked kernel.  Launch counts are set to 0 just
+    before and read just after."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        cache = autotune.TuneCache(pathlib.Path(tmp) / "autotune.json")
+        reset_launch_counts(mods)
+        t0 = time.time()
+        rows = [table2.bench_one(name, device="cuda", cache=cache)
+                for name in table2.MATRICES]
+        records = table2.tuned_records(
+            "cuda", names=(*table2.MATRICES, *table2.LARGE), cache=cache)
+        seconds = time.time() - t0
+        counts = launch_counts(mods)
+    by_name = {r["matrix"]: r for r in records}
+    ok = (all(r["err"] < 1e-3 for r in rows)
+          and by_name["spmv_1m_wide"]["block_cols"] is not None
+          and all(r["measured_us"] is not None for r in records)
+          and counts["ell_spmv"] > 0 and counts["ell_spmv_blocked"] > 0
+          and counts["blocked_matmul"] == 0
+          and records[0]["blocked_vs_resident_err"] < 1e-3)
+    return {"seconds": seconds, "rows": rows, "tuned_records": records,
+            "launches": counts, "ok": ok}
+
+
+def paper_phases(torch, mods):
+    """The paper's slice: ``matmul_cases`` and ``spmv_cases`` (B6-B8
+    against their plain versions), then ``table1`` and ``table2`` (the
+    port's benchmarks on the card, the main path of B6-B8).  Emits a line
+    per phase and fails on any; returns the cases and each kernel's
+    launches on its main path."""
+    from repro_torch.benchmarks import table1_matmul as table1
+    from repro_torch.benchmarks import table2_spmv as table2
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.matmul import ops as mm_ops
+    from repro_torch.kernels.matmul import ref as mm_ref
+    from repro_torch.kernels.spmv import kernel as sp_kernel
+    from repro_torch.kernels.spmv import ops as sp_ops
+    from repro_torch.kernels.spmv import ref as sp_ref
+    from repro_torch.kernels.spmv import spec as sp_spec
+
+    import tempfile
+    from repro_torch.core import tiling
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    mcases = []
+    with tempfile.TemporaryDirectory() as tmp:
+        # each shape's tile as the main path picks it: measured on the card
+        tiles = autotune.TuneCache(pathlib.Path(tmp) / "autotune.json")
+        for name, m, n, k, dt, act, with_bias in MATMUL_CASES:
+            plan = autotune.tune(
+                "matmul", {"m": m, "n": n, "k": k},
+                {"bf16": torch.bfloat16, "f32": torch.float32}[dt],
+                device="cuda", measure_k=TABLE1_MEASURE_K, cache=tiles)
+            mcases.append(matmul_case(
+                torch, mm_ops, mm_ref, flush, name=name, m=m, n=n, k=k,
+                dtype=dt, activation=act, with_bias=with_bias,
+                tile=tiling.Tile(*plan.knobs["tile"])))
+            gc.collect()
+            torch.cuda.empty_cache()
+    emit("matmul_cases", cases=mcases)
+    check(all(c["ok"] for c in mcases),
+          "the matmul kernel disagrees with its plain version: "
+          + json.dumps([c for c in mcases if not c["ok"]]))
+    scases = spmv_cases(torch, table2, sp_ops, autotune, sp_kernel, sp_ref,
+                        sp_spec, flush)
+    del flush
+    torch.cuda.empty_cache()
+    emit("spmv_cases", cases=scases)
+    check(all(c["ok"] for c in scases),
+          "an SpMV kernel disagrees with its plain versions: "
+          + json.dumps([c for c in scases if not c["ok"]]))
+
+    t1 = table1_phase(torch, table1, autotune, mods)
+    emit("table1", **t1)
+    check(t1["ok"], "table1 failed: " + json.dumps(t1["launches"]))
+    t2 = table2_phase(torch, table2, autotune, mods)
+    emit("table2", **t2)
+    check(t2["ok"], "table2 failed: " + json.dumps(
+        {"launches": t2["launches"], "plans": t2["tuned_records"]}))
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = {"blocked_matmul": t1["launches"]["blocked_matmul"],
+                "ell_spmv": t2["launches"]["ell_spmv"],
+                "ell_spmv_blocked": t2["launches"]["ell_spmv_blocked"]}
+    return mcases + scases, launches
+
+
 def main_path_case(kernel: str, cases: list) -> dict:
     """The case at the shape the kernel's main path gives it: Qwen3-14B's
     32k prefill for the flash kernel; for the decode kernels the serve
-    shape with bf16 q and an f32 or int8 cache (paged: pages of 16)."""
+    shape with bf16 q and an f32 or int8 cache (paged: pages of 16); a
+    Table-1 shape in bf16 for the matmul; the 1M-row matrices for the
+    SpMV kernels (x narrow for B7, wide for B8)."""
     if kernel == "flash_attention":
         return next(c for c in cases if c["name"] == "qwen3_prefill_32k")
+    if kernel == "blocked_matmul":
+        return next(c for c in cases if c["name"] == MATMUL_MAIN)
+    if kernel in SPMV_MAIN:
+        return next(c for c in cases if c["name"] == SPMV_MAIN[kernel])
     return next(c for c in cases if c["name"] == "serve_shape"
                 and c["q_dtype"] == "bfloat16"
                 and c["kv_dtype"] in ("float32", "int8")
@@ -954,9 +1360,11 @@ def main() -> int:
 
     t0 = time.time()
     built = _build.build()
+    sources = {pathlib.Path(src).stem for src, _ in KERNELS.values()}
     emit("build", seconds=round(time.time() - t0, 3),
          libraries=sorted(p.name for p in built.values()),
-         flags=" ".join(_build.NVCC_FLAGS))
+         kernels=list(KERNELS), flags=" ".join(_build.NVCC_FLAGS))
+    check(sources <= set(built), f"not built: {sources - set(built)}")
 
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
     bf16, f32 = torch.bfloat16, torch.float32
@@ -1038,6 +1446,10 @@ def main() -> int:
     emit("decode_step", **step)
     check(step["decode_attention_ms_per_step"] > 0,
           "decode_step found no device time of the decode kernel")
+
+    paper_cases, paper_launches = paper_phases(torch, mods)
+    cases += paper_cases
+    launches.update(paper_launches)
 
     entries = []
     for name, (source, replaces) in KERNELS.items():

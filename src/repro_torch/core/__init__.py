@@ -1,6 +1,6 @@
-"""Core library of the port: the analytical laws the kernels share.
-
-Counterpart of `repro.core`.  Only `cost_model`'s block-skip law of the
-flash-attention kernel is ported so far; the tuning engine's time models
-follow with ROADMAP A8.
+"""Core library of the port: the chip the tuner models (`hardware`), the
+eq. 2 tiling law (`tiling`), the machine models and the flash kernel's
+block-skip law (`cost_model`), the row-balancing law (`loadbalance`),
+the design-space exploration (`dse`) and atomic writes (`ioutil`).
+Counterpart of `repro.core`.
 """

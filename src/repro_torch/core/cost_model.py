@@ -1,14 +1,21 @@
-"""The block-skip law of the flash-attention kernel.  A copy of three
-functions of `repro.core.cost_model` (`attention_step_bounds`,
-`attention_active_block_pairs`, `attention_max_k_steps`), kept here
-because this package never imports the JAX one.
+"""Analytical laws the kernels and the tuner share.  Counterpart of
+`repro.core.cost_model`, of which this package keeps its own copy, since
+it never imports the JAX one.
 
-The CUDA kernel ``csrc/flash_attention.cu`` mirrors `attention_step_bounds`
-in its own index math; `attention_active_block_pairs` counts the (q tile,
-K tile) pairs it streams and multiplies.
+- The block-skip law of the flash-attention kernel
+  (`attention_step_bounds`, `attention_active_block_pairs`,
+  `attention_max_k_steps`): ``csrc/flash_attention.cu`` mirrors
+  `attention_step_bounds` in its own index math.
+- The machine models the tuner ranks candidates by (the paper's Table I
+  and Table II, analytically): `matmul_time_model` and `spmv_time_model`.
+  Their formulas are the JAX package's; the chip defaults to the H100,
+  and an operation is charged at the peak of its operand width
+  (`Chip.peak_for`: bf16 on the tensor cores, f32 on the CUDA cores).
 """
 
 from __future__ import annotations
+
+from repro_torch.core import hardware, tiling
 
 
 def attention_step_bounds(
@@ -66,3 +73,74 @@ def attention_max_k_steps(
                                             causal=causal, window=window)
         widest = max(widest, last - first + 1)
     return widest
+
+
+def matmul_time_model(
+    m: int, n: int, k: int, tile, chip: hardware.Chip = hardware.H100_SXM,
+    dtype_bytes: int = 2, p: int = 1,
+) -> dict:
+    """Analytical time of the blocked matmul, the paper's Table-I
+    evaluation: compute and traffic (`tiling.comm_volume_rect`) times,
+    the run time their max (perfect overlap, the paper's double
+    buffering), and the efficiency compute / run time."""
+    flops = 2.0 * m * n * k
+    traffic_elems = tiling.comm_volume_rect(m, n, k, tile, p=p)
+    compute_s = flops / chip.peak_for(dtype_bytes)
+    memory_s = traffic_elems * dtype_bytes / chip.hbm_bw
+    total_s = max(compute_s, memory_s)
+    return {
+        "flops": flops,
+        "traffic_bytes": traffic_elems * dtype_bytes,
+        "compute_s": compute_s,
+        "memory_s": memory_s,
+        "time_s": total_s,
+        "efficiency": compute_s / total_s,
+        "gflops": flops / total_s / 1e9,
+    }
+
+
+def spmv_time_model(
+    rows: int, width: int, n: int, nnz: int,
+    block_rows: int, block_cols: int | None = None,
+    waste: float | None = None,
+    chip: hardware.Chip = hardware.H100_SXM,
+    val_bytes: int = 4, idx_bytes: int = 4,
+) -> dict:
+    """Bandwidth model of the ELL SpMV kernels (the paper's Table-II
+    evaluation, analytically).
+
+    ``waste`` is the fetched/active balance metric
+    (`EllMatrix.sliced_waste(block_rows)`): when given, the ELL traffic is
+    ``nnz * waste``, else the dense (rows * width) footprint.
+    ``block_cols=None`` models x resident (fetched once); an integer the
+    blocked kernel, where every row block re-streams all ceil(n /
+    block_cols) slabs of x.  ``vmem_bytes`` is the JAX kernel's working
+    set (x or a slab, and double-buffered ELL blocks), kept for parity;
+    the CUDA kernels' shared memory is `kernels.spmv.kernel.smem_bytes`.
+    """
+    fetched = nnz * waste if waste is not None else rows * width
+    ell_bytes = fetched * (val_bytes + idx_bytes)
+    row_blocks = max(1, -(-rows // block_rows))
+    if block_cols is None:
+        x_bytes = n * val_bytes                      # resident: fetched once
+        vmem_bytes = n * val_bytes
+    else:
+        slabs = max(1, -(-n // block_cols))
+        x_bytes = slabs * block_cols * val_bytes * row_blocks
+        vmem_bytes = block_cols * val_bytes
+    # Double-buffered cols+vals blocks alongside the x working set.
+    vmem_bytes += 2 * block_rows * width * (val_bytes + idx_bytes)
+    y_bytes = rows * val_bytes
+    memory_s = (ell_bytes + x_bytes + y_bytes) / chip.hbm_bw
+    flops = 2.0 * nnz
+    compute_s = flops / chip.peak_for(val_bytes)
+    total_s = max(compute_s, memory_s)
+    return {
+        "flops": flops,
+        "traffic_bytes": ell_bytes + x_bytes + y_bytes,
+        "vmem_bytes": vmem_bytes,
+        "compute_s": compute_s,
+        "memory_s": memory_s,
+        "time_s": total_s,
+        "gflops": flops / total_s / 1e9,
+    }

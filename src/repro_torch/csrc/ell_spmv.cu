@@ -1,0 +1,233 @@
+// Sparse matrix-vector product y = A @ x over a padded ELL matrix: two
+// entries, x resident and x in slabs.
+//
+// Replaces the Pallas TPU kernels src/repro/kernels/spmv/kernel.py ::
+// ell_spmv (body _spmv_kernel) and ell_spmv_blocked (body
+// _spmv_blocked_kernel).  cols (rows, width) int32 and vals (rows,
+// width) f32 are row major and contiguous; padding entries hold column 0
+// and value 0.  Every column index is below n.  y (rows,) f32.
+//
+// Rows are balanced before packing (core/loadbalance.py, the paper's
+// round-robin law, or a sort by length), so neighbouring rows cost about
+// the same.  Each row is taken by a group of `lanes` threads (a power of
+// two up to 32, so a group never spans two warps): lane l reads entries
+// l, l + lanes, ... of the row, adjacent lanes on adjacent addresses,
+// accumulates vals[r, w] * x[cols[r, w]] in f32, and the group sums its
+// lanes by shuffles.  A block of T threads takes T / lanes rows at a
+// time: the tuner's block_rows.
+//
+// Bound: bytes.  Each entry costs 8 bytes of cols and vals for 2
+// operations, far below the H100's ~20 f32 operations per byte, so the
+// floor is the ELL payload over the memory rate.  The gathers from x are
+// what would break it: both entries serve them from shared memory.
+//
+// ell_spmv: the whole of x is staged in shared memory, the counterpart
+// of the TPU's VMEM-resident x; n * 4 bytes must fit a block's shared
+// memory (the wrapper checks).  A persistent grid of 1024-thread blocks,
+// one or two per SM (x of more than 112 KB leaves room for one, and a
+// block of 1024 threads keeps 32 warps of loads in flight), each stages
+// x once and walks row blocks with a grid stride.
+//
+// ell_spmv_blocked: x too large for shared memory is streamed in slabs of
+// block_cols columns.  A block of 512 threads holds its block_rows rows'
+// entries in registers (at most kMaxPerLane per lane) for the whole walk,
+// and for each slab [start, start + block_cols) stages the slab, gathers
+// only the entries whose column falls inside it and adds them to the f32
+// partial sums (the TPU kernel's clamp-to-0 and mask); y is stored once
+// after the last slab.  Every block re-reads all of x, ceil(n /
+// block_cols) slabs, as every TPU row block re-streams x: that is the
+// reference algorithm's cost (ROADMAP queue D).
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <atomic>
+
+namespace {
+
+constexpr int kResidentThreads = 1024;
+constexpr int kBlockedThreads = 512;
+constexpr int kMaxPerLane = 32;
+constexpr int kMaxDevices = 64;
+
+// Sums v over the `lanes` threads of a group (lanes a power of two <= 32;
+// every thread of the warp takes part).
+__device__ __forceinline__ float group_sum(float v, int lanes) {
+  for (int off = lanes >> 1; off > 0; off >>= 1)
+    v += __shfl_down_sync(0xffffffffu, v, off, lanes);
+  return v;
+}
+
+// x[start, start + len) into shared memory, 16 bytes a thread where the
+// source is 16-byte aligned (x's allocation is, and start is a multiple
+// of 4 when the slab width is).
+__device__ __forceinline__ void stage_x(float* xs, const float* x,
+                                        long long start, int len) {
+  const float* src = x + start;
+  int head = 0;
+  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    const int n4 = len >> 2;
+    const float4* s4 = reinterpret_cast<const float4*>(src);
+    float4* d4 = reinterpret_cast<float4*>(xs);
+    for (int i = threadIdx.x; i < n4; i += blockDim.x) d4[i] = s4[i];
+    head = n4 << 2;
+  }
+  for (int i = head + threadIdx.x; i < len; i += blockDim.x) xs[i] = src[i];
+}
+
+__global__ void __launch_bounds__(kResidentThreads)
+    ell_spmv_kernel(const float* __restrict__ x, const int* __restrict__ cols,
+                    const float* __restrict__ vals, float* __restrict__ y,
+                    int rows, int width, int n, int lanes) {
+  extern __shared__ __align__(16) float xs[];
+  stage_x(xs, x, 0, n);
+  __syncthreads();
+  const int per_block = kResidentThreads / lanes;
+  const int g = threadIdx.x / lanes, l = threadIdx.x % lanes;
+  for (long long r0 = static_cast<long long>(blockIdx.x) * per_block;
+       r0 < rows; r0 += static_cast<long long>(gridDim.x) * per_block) {
+    const long long r = r0 + g;
+    float acc = 0.f;
+    if (r < rows) {
+      const int* cr = cols + r * width;
+      const float* vr = vals + r * width;
+#pragma unroll 4
+      for (int w = l; w < width; w += lanes) acc = fmaf(vr[w], xs[cr[w]], acc);
+    }
+    acc = group_sum(acc, lanes);
+    if (l == 0 && r < rows) y[r] = acc;
+  }
+}
+
+template <int E>
+__global__ void __launch_bounds__(kBlockedThreads)
+    ell_spmv_blocked_kernel(const float* __restrict__ x,
+                            const int* __restrict__ cols,
+                            const float* __restrict__ vals,
+                            float* __restrict__ y, int rows, int width, int n,
+                            int lanes, int block_cols) {
+  extern __shared__ __align__(16) float xs[];
+  const int per_block = kBlockedThreads / lanes;
+  const int g = threadIdx.x / lanes, l = threadIdx.x % lanes;
+  const long long r = static_cast<long long>(blockIdx.x) * per_block + g;
+  int c[E];
+  float v[E];
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    const int w = l + e * lanes;
+    const bool ok = r < rows && w < width;
+    c[e] = ok ? cols[r * width + w] : -1;   // -1: in no slab
+    v[e] = ok ? vals[r * width + w] : 0.f;
+  }
+  float acc = 0.f;
+  for (int start = 0; start < n; start += block_cols) {
+    __syncthreads();   // the previous slab is no longer read
+    stage_x(xs, x, start, min(block_cols, n - start));
+    __syncthreads();
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const unsigned local = static_cast<unsigned>(c[e] - start);
+      if (local < static_cast<unsigned>(block_cols))
+        acc = fmaf(v[e], xs[local], acc);
+    }
+  }
+  acc = group_sum(acc, lanes);
+  if (l == 0 && r < rows) y[r] = acc;
+}
+
+// Lets a kernel take up to the device's opt-in shared memory per block;
+// set once per kernel and device.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, std::atomic<bool> (&done)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && done[dev].load(std::memory_order_acquire))
+    return cudaSuccess;
+  int optin = 0;
+  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             optin);
+  if (err == cudaSuccess && dev < kMaxDevices)
+    done[dev].store(true, std::memory_order_release);
+  return err;
+}
+
+bool lanes_ok(int lanes) {
+  return lanes >= 1 && lanes <= 32 && (lanes & (lanes - 1)) == 0;
+}
+
+template <int E>
+int launch_blocked(const float* x, const int* cols, const float* vals,
+                   float* y, int rows, int width, int n, int lanes,
+                   int block_cols, cudaStream_t stream) {
+  static std::atomic<bool> done[kMaxDevices];
+  auto kernel = ell_spmv_blocked_kernel<E>;
+  cudaError_t err = allow_smem(kernel, done);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int per_block = kBlockedThreads / lanes;
+  const long long blocks = (static_cast<long long>(rows) + per_block - 1) /
+                           per_block;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  kernel<<<static_cast<unsigned>(blocks), kBlockedThreads,
+           block_cols * sizeof(float), stream>>>(x, cols, vals, y, rows, width,
+                                                 n, lanes, block_cols);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// C entries, bound with ctypes.  x: n floats; cols, vals: (rows, width)
+// contiguous; y: rows floats.  Return the CUDA error of the launch (0 on
+// success).
+
+// block_rows = 1024 / lanes rows per block step; grid: blocks, each
+// staging all of x (n * 4 bytes of shared memory).
+extern "C" int ell_spmv(const float* x, const int* cols, const float* vals,
+                        float* y, int rows, int width, int n, int lanes,
+                        int grid, void* stream) {
+  if (rows < 1 || width < 1 || n < 1 || grid < 1 || !lanes_ok(lanes))
+    return static_cast<int>(cudaErrorInvalidValue);
+  static std::atomic<bool> done[kMaxDevices];
+  cudaError_t err = allow_smem(ell_spmv_kernel, done);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ell_spmv_kernel<<<grid, kResidentThreads, n * sizeof(float),
+                    static_cast<cudaStream_t>(stream)>>>(x, cols, vals, y,
+                                                         rows, width, n,
+                                                         lanes);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// block_rows = 512 / lanes rows per block; each lane holds
+// ceil(width / lanes) <= 32 entries; slabs of block_cols columns.
+extern "C" int ell_spmv_blocked(const float* x, const int* cols,
+                                const float* vals, float* y, int rows,
+                                int width, int n, int lanes, int block_cols,
+                                void* stream) {
+  if (rows < 1 || width < 1 || n < 1 || block_cols < 1 || !lanes_ok(lanes))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int per_lane = (width + lanes - 1) / lanes;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (per_lane <= 1)
+    return launch_blocked<1>(x, cols, vals, y, rows, width, n, lanes,
+                             block_cols, s);
+  if (per_lane <= 2)
+    return launch_blocked<2>(x, cols, vals, y, rows, width, n, lanes,
+                             block_cols, s);
+  if (per_lane <= 4)
+    return launch_blocked<4>(x, cols, vals, y, rows, width, n, lanes,
+                             block_cols, s);
+  if (per_lane <= 8)
+    return launch_blocked<8>(x, cols, vals, y, rows, width, n, lanes,
+                             block_cols, s);
+  if (per_lane <= 16)
+    return launch_blocked<16>(x, cols, vals, y, rows, width, n, lanes,
+                              block_cols, s);
+  if (per_lane <= kMaxPerLane)
+    return launch_blocked<kMaxPerLane>(x, cols, vals, y, rows, width, n,
+                                       lanes, block_cols, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}

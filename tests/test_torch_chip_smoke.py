@@ -127,3 +127,65 @@ def test_prefill_vs_forward_catches_the_tiled_gqa_fold(monkeypatch):
         cfg, params, 40)
     assert not res["ok"]
     assert res["f32_max_abs_err"] > 100 * res["f32_tolerance"]
+
+
+def test_large_spmv_matrix_statistics_at_a_small_size():
+    """The 1M-row generator behind ``spmv_1m_*`` (`table2_spmv.build`), as
+    `chip_smoke.spmv_matrix` packs it, at 3,000 rows: LD_pilot87's per-row
+    range, the nonzero total, and a CSR copy with sorted rows for
+    `torch.sparse_csr_tensor`."""
+    import types
+
+    import numpy as np
+
+    from repro_torch.benchmarks import table2_spmv
+    from repro_torch.kernels.spmv import ops
+    small = types.SimpleNamespace(
+        build=lambda name: table2_spmv.synthesize_large(3000, 500, 1, 96,
+                                                        seed=5))
+    mat, x, (indptr, indices, data) = chip_smoke.spmv_matrix(
+        torch, small, ops, "spmv_1m_narrow", torch.device("cpu"))
+    per_row = np.diff(indptr.numpy())
+    assert mat.shape == (3000, 500) and len(per_row) == 3000
+    assert per_row.min() >= 1 and per_row.max() <= 96
+    assert mat.nnz == int(per_row.sum()) == len(indices) == len(data)
+    assert abs(mat.nnz / 3000 - 48.5) < 2
+    assert mat.cols.shape[1] == 128                # ELL width of the 1M cases
+    torch.sparse_csr_tensor(indptr, indices, data, size=(3000, 500),
+                            check_invariants=True)
+    dense = torch.sparse_csr_tensor(indptr, indices, data,
+                                    size=(3000, 500)).to_dense()
+    torch.testing.assert_close(ops.spmv(mat, x), dense @ x, rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_bytes_and_operations_bounds():
+    nbytes, ops, ms, by = chip_smoke.matmul_bound(4096, 4096, 4096, 2, 2,
+                                                  False)
+    assert nbytes == 3 * 4096 * 4096 * 2 and ops == 2 * 4096 ** 3
+    assert by == "operations" and ms == pytest.approx(ops / 989e12 * 1e3)
+    _, _, ms32, by32 = chip_smoke.matmul_bound(4096, 4096, 4096, 4, 4, True)
+    assert by32 == "operations" and ms32 == pytest.approx(ops / 67e12 * 1e3)
+    nbytes, _, ms, by = chip_smoke.matmul_bound(1, 128, 256, 2, 2, False)
+    assert by == "bytes" and nbytes == (256 + 256 * 128 + 128) * 2
+    nbytes, ops, ms, by = chip_smoke.spmv_bound(1 << 20, 128, 32768, 5 * 10**7)
+    assert nbytes == (1 << 20) * 128 * 8 + 32768 * 4 + (1 << 20) * 4
+    assert ops == 10 ** 8 and by == "bytes"
+    assert ms == pytest.approx(nbytes / 3.35e12 * 1e3)
+
+
+def test_matmul_row_tolerance():
+    """B6's per-row bound: one bf16 ulp of the row's largest |ref| passes
+    anywhere in the row, two fail; f32 is held to 1e-5 of it."""
+    from repro_torch.kernels.matmul import ref
+    want = torch.tensor([[300.0, 1.0, -2.0], [0.5, 0.25, 0.0]])
+    tol = ref.row_tolerance(want, torch.bfloat16)
+    assert tol.flatten().tolist() == [300 * 2 ** -7, 0.5 * 2 ** -7]
+    one_ulp = want.clone()
+    one_ulp[0, 1] += 2.0                           # bf16 ulp at 256..512
+    assert bool(((one_ulp - want).abs() <= tol).all())
+    two_ulp = want.clone()
+    two_ulp[1, 2] += 2 * 2 ** -8                   # 2 ulps of the row's 0.5
+    assert not bool(((two_ulp - want).abs() <= tol).all())
+    assert ref.row_tolerance(want, torch.float32)[0, 0] == \
+        pytest.approx(3e-3)

@@ -1,9 +1,13 @@
 """The CUDA kernels on the card, against their plain PyTorch versions:
 the decode-attention kernels, contiguous (`decode_attention`), paged
 (`paged_decode_attention`), int8 (`quantized_decode_attention`) and paged
-int8 (`paged_quantized_decode_attention`), and the prefill flash-attention
+int8 (`paged_quantized_decode_attention`), the prefill flash-attention
 kernel (`flash_attention`) against `ref.attention_ref` with every mask
-kind, ragged tails and query rows with no key.  Every test here is marked
+kind, ragged tails and query rows with no key, the blocked matmul
+(`blocked_matmul`) against `matmul_ref` at ragged shapes with every
+activation, and the ELL SpMV kernels (`ell_spmv`, `ell_spmv_blocked`)
+against `spmv_ell_ref`, the slab walk `spmv_blocked_ref` and each
+other.  Every test here is marked
 ``cuda`` and skips on a host without a card; this file imports no JAX, so
 it also runs where only the port is installed:
 
@@ -18,7 +22,10 @@ row or at a tile boundary cannot hide under the scale of another row; a
 row of length 0 must be exactly zero.  The int8 kernels and their plain
 versions dequantize the same codes in f32, so f32 output differs in
 summation order only: 1e-5.  Paged tables are a shuffled permutation of
-the pool's pages, -1 past each slot's last page.
+the pool's pages, -1 past each slot's last page.  The matmul and SpMV
+tolerances are their plain versions' `row_tolerance`: per output row,
+1e-5 (f32) or 2^-7 (bf16) of the row's largest |ref| for the matmul, and
+1e-5 of the row's sum of |products| for SpMV.
 """
 
 import pytest
@@ -310,3 +317,204 @@ def test_flash_kernel_refuses_what_it_cannot_take(cuda):
     with pytest.raises(ValueError, match="16 bytes"):    # 8-byte offset
         flash.flash_attention(wide[..., 4:132], k, v, scale=0.1)
     assert flash.launches == before
+
+
+# ---------------------------------------------------------------------------
+# B6: blocked matmul; B7, B8: ELL SpMV
+# ---------------------------------------------------------------------------
+
+from repro_torch.core import tiling  # noqa: E402
+from repro_torch.kernels import autotune  # noqa: E402
+from repro_torch.kernels.matmul import kernel as mm_kernel  # noqa: E402
+from repro_torch.kernels.matmul import ops as mm_ops  # noqa: E402
+from repro_torch.kernels.matmul import ref as mm_ref  # noqa: E402
+from repro_torch.kernels.spmv import kernel as spmv_kernel  # noqa: E402
+from repro_torch.kernels.spmv import ops as spmv_ops  # noqa: E402
+from repro_torch.kernels.spmv import ref as spmv_ref  # noqa: E402
+
+MM_SHAPES = [(130, 70, 50), (1, 128, 256), (257, 129, 96), (64, 64, 64),
+             (300, 520, 200)]
+MM_TILES = [tiling.Tile(64, 64, 32), tiling.Tile(128, 256, 64),
+            tiling.Tile(256, 128, 32), tiling.Tile(64, 256, 64)]
+
+
+def _mm_operands(m, n, k, dt, device, seed=0):
+    rng = np.random.default_rng(seed)
+    a = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal((k, n)).astype(np.float32))
+    bias = torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+    return (a.to(device=device, dtype=DTYPES[dt]),
+            b.to(device=device, dtype=DTYPES[dt]), bias.to(device))
+
+
+def _assert_within_row_tolerance(out, want):
+    tol = mm_ref.row_tolerance(want, out.dtype)
+    err = (out.float() - want.float()).abs()
+    ratio = (err / tol).nan_to_num(0.0)
+    assert float(ratio.max()) <= 1, (
+        f"worst err/tol {float(ratio.max())}, max err {float(err.max())}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("tile", MM_TILES, ids=str)
+@pytest.mark.parametrize("m, n, k", MM_SHAPES)
+def test_matmul_kernel_matches_matmul_ref(cuda, m, n, k, tile, dt):
+    a, b, _ = _mm_operands(m, n, k, dt, cuda)
+    before = mm_kernel.launches
+    out = mm_ops.matmul(a, b, tile=tile)
+    want = mm_ref.matmul_ref(a, b)
+    torch.cuda.synchronize()
+    assert mm_kernel.launches == before + 1
+    assert out.dtype == a.dtype and out.shape == (m, n)
+    _assert_within_row_tolerance(out, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt, out_dt", [("bf16", "bf16"), ("bf16", "f32"),
+                                        ("f32", "f32"), ("f32", "bf16")])
+@pytest.mark.parametrize("activation", list(mm_ref.ACTIVATIONS))
+def test_matmul_kernel_epilogue(cuda, activation, dt, out_dt):
+    a, b, bias = _mm_operands(130, 200, 72, dt, cuda, seed=3)
+    for with_bias in (False, True):
+        bb = bias if with_bias else None
+        out = mm_ops.matmul(a, b, tile=tiling.Tile(64, 128, 32), bias=bb,
+                            activation=activation, out_dtype=DTYPES[out_dt])
+        want = mm_ref.matmul_ref(a, b, bias=None if bb is None else bb[None],
+                                 activation=activation,
+                                 out_dtype=DTYPES[out_dt])
+        torch.cuda.synchronize()
+        assert out.dtype == DTYPES[out_dt]
+        _assert_within_row_tolerance(out, want)
+
+
+@pytest.mark.cuda
+def test_matmul_kernel_reads_a_strided_view(cuda):
+    a, b, _ = _mm_operands(96, 80, 64, "bf16", cuda)
+    wide = torch.zeros((96, 128), dtype=a.dtype, device=cuda)
+    wide[:, :64] = a
+    view = wide[:, :64]
+    out = mm_ops.matmul(view, b, tile=tiling.Tile(64, 64, 32))
+    _assert_within_row_tolerance(out, mm_ref.matmul_ref(a, b))
+
+
+@pytest.mark.cuda
+def test_matmul_kernel_refuses_what_it_cannot_take(cuda):
+    a, b, _ = _mm_operands(64, 64, 64, "f32", cuda)
+    with pytest.raises(ValueError, match="not built"):
+        mm_ops.matmul(a, b, tile=tiling.Tile(256, 256, 64))
+    with pytest.raises(ValueError, match="both float32"):
+        mm_ops.matmul(a, b.bfloat16(), tile=tiling.Tile(64, 64, 32))
+    with pytest.raises(ValueError, match="contiguous last axis"):
+        mm_ops.matmul(a.t(), b, tile=tiling.Tile(64, 64, 32))
+
+
+def _ell(seed, m, n, density, device, scheme="round_robin"):
+    rng = np.random.default_rng(seed)
+    dense = (rng.random((m, n)) < density) * rng.standard_normal((m, n))
+    lens = (dense != 0).sum(1)
+    indptr = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+    cols = np.nonzero(dense)[1].astype(np.int32)
+    vals = dense[dense != 0].astype(np.float32)
+    mat = spmv_ops.pack_csr(indptr, cols, vals, (m, n), scheme=scheme,
+                            device=device)
+    x = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(device)
+    return mat, x, dense
+
+
+def _assert_spmv_close(y, want, mat, x):
+    tol = spmv_ref.row_tolerance(mat.cols, mat.vals, x)
+    err = (y - want).abs()
+    assert bool((err <= tol).all()), (
+        f"max err {float(err.max())}, worst err/tol "
+        f"{float((err / tol).nan_to_num(0.0).max())}")
+
+
+SPMV_SHAPES = [(555, 300, 0.02), (91, 91, 0.5), (2030, 128, 0.05),
+               (3001, 1000, 0.3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_rows", spmv_kernel.RESIDENT_ROWS)
+@pytest.mark.parametrize("m, n, density", SPMV_SHAPES)
+def test_ell_spmv_matches_spmv_ell_ref(cuda, m, n, density, block_rows):
+    mat, x, dense = _ell(m + n, m, n, density, cuda)
+    before = spmv_kernel.launches
+    y = spmv_kernel.ell_spmv(x, mat.cols, mat.vals, block_rows=block_rows)
+    want = spmv_ref.spmv_ell_ref(mat.cols, mat.vals, x)
+    torch.cuda.synchronize()
+    assert spmv_kernel.launches == before + 1
+    _assert_spmv_close(y, want, mat, x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_rows", spmv_kernel.BLOCKED_ROWS)
+@pytest.mark.parametrize("m, n, density", SPMV_SHAPES)
+def test_ell_spmv_blocked_matches_its_ref_and_b7(cuda, m, n, density,
+                                                 block_rows):
+    mat, x, _ = _ell(m + n, m, n, density, cuda)
+    if not spmv_kernel.blocked_fits(mat.cols.shape[1], block_rows):
+        with pytest.raises(ValueError, match="not supported"):
+            spmv_kernel.ell_spmv_blocked(x, mat.cols, mat.vals,
+                                         block_rows=block_rows)
+        return
+    resident = spmv_kernel.ell_spmv(x, mat.cols, mat.vals)
+    for block_cols in (128, 256, max(1, n // 2), 4099):
+        before = spmv_kernel.blocked_launches
+        y = spmv_kernel.ell_spmv_blocked(x, mat.cols, mat.vals,
+                                         block_rows=block_rows,
+                                         block_cols=block_cols)
+        want = spmv_ref.spmv_blocked_ref(mat.cols, mat.vals, x, block_cols)
+        torch.cuda.synchronize()
+        assert spmv_kernel.blocked_launches == before + 1
+        _assert_spmv_close(y, want, mat, x)
+        _assert_spmv_close(y, resident, mat, x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme", ["round_robin", "lpt", "sorted", "none"])
+def test_spmv_in_original_row_order_matches_dense(cuda, scheme):
+    mat, x, dense = _ell(7, 2030, 128, 0.05, cuda, scheme=scheme)
+    want = torch.from_numpy((dense @ x.cpu().numpy().astype(np.float64))
+                            .astype(np.float32)).to(cuda)
+    for kw in ({}, {"block_rows": 32, "block_cols": 64}):
+        y = spmv_ops.spmv(mat, x, **kw)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(y, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_dispatch_on_the_card_launches_the_kernels(cuda, tmp_path):
+    cache = autotune.TuneCache(tmp_path / "c.json")
+    mat, x, dense = _ell(1, 555, 300, 0.02, cuda)
+    before = spmv_kernel.launches + spmv_kernel.blocked_launches
+    y = autotune.dispatch("spmv", mat, x, cache=cache)
+    torch.cuda.synchronize()
+    assert spmv_kernel.launches + spmv_kernel.blocked_launches > before
+    want = dense @ x.cpu().numpy().astype(np.float64)
+    torch.testing.assert_close(y.cpu(), torch.from_numpy(want).float(),
+                               rtol=1e-4, atol=1e-4)
+    a, b, _ = _mm_operands(200, 300, 100, "bf16", cuda)
+    before = mm_kernel.launches
+    out = autotune.dispatch("matmul", a, b, cache=cache)
+    torch.cuda.synchronize()
+    assert mm_kernel.launches > before
+    _assert_within_row_tolerance(out, mm_ref.matmul_ref(a, b))
+    plan = autotune.tune("matmul", {"m": 200, "n": 300, "k": 100},
+                         torch.bfloat16, device=cuda, cache=cache)
+    assert plan.source == "cache" and plan.provenance == "measured"
+    assert torch.cuda.get_device_name(cuda) in plan.key
+
+
+@pytest.mark.cuda
+def test_spmv_kernels_refuse_what_they_cannot_take(cuda):
+    mat, x, _ = _ell(1, 100, 70000, 0.001, cuda)
+    with pytest.raises(ValueError, match="do not fit"):
+        spmv_kernel.ell_spmv(x, mat.cols, mat.vals)
+    with pytest.raises(ValueError, match="float32"):
+        spmv_kernel.ell_spmv(x.double(), mat.cols, mat.vals.double())
+    with pytest.raises(ValueError, match="not supported"):
+        spmv_kernel.ell_spmv(x[:300], mat.cols % 300, mat.vals, block_rows=7)
+    for wrapper in (spmv_kernel.ell_spmv, spmv_kernel.ell_spmv_blocked):
+        with pytest.raises(ValueError, match="outside x's"):
+            wrapper(x[:300], mat.cols, mat.vals)
