@@ -24,14 +24,15 @@ Phases, each printed as one JSON line:
 4. ``decode_vs_teacher_forcing`` and ``decode_vs_teacher_forcing_paged``:
    a small model decoded token by token through the contiguous and the
    paged kernel agrees with its own full-sequence forward.
-5. ``flash_cases``: the prefill flash-attention kernel against
+5. ``flash_cases``: the prefill flash-attention kernels against
    ``ref.attention_ref`` on the card (the per-row tolerance of
    `row_errors`; rows with no key exactly 0) at Qwen3-14B's prefill shape
-   (causal, Hq 40, Hkv 8, dh 128) at 32,768 and 4,096 tokens, Danube's
-   (window 4096, Hq 32, Hkv 8, dh 80) at 32,768, a non-causal ragged case,
-   a window case with Sq > Sk and an f32 case; each with its time, its
-   bound from the pairs the mask keeps, the plain version's time and
-   PyTorch SDPA's.
+   (causal, Hq 40, Hkv 8, dh 128: the TMA/wgmma kernel) at 32,768 and
+   4,096 tokens, Danube's (window 4096, Hq 32, Hkv 8, dh 80: the mma.sync
+   kernel) at 32,768, a non-causal ragged case, window cases with Sq > Sk
+   at dh 80 and 128, and an f32 case; each with its design and tile, its
+   time, its bound from the pairs the mask keeps, the plain version's
+   time and PyTorch SDPA's.
 6. ``prefill`` and ``prefill_danube``: `steps.make_prefill_step` at the
    full published width and depth of Qwen3-14B and H2O-Danube-1.8B
    (random bf16 weights from a seeded generator) on 1 x 32,768 tokens,
@@ -71,13 +72,18 @@ Phases, each printed as one JSON line:
    GELU) and 1x128x256, and every activation with a bias at 4096^3 bf16;
    each with its time, the plain version's, cuBLAS's (`torch.matmul` in
    the same dtype, TF32 off), the bound and TFLOP/s.
-11. ``spmv_cases``: B7 (x resident) and B8 (x in slabs) against
-   `spmv_ell_ref` (B8 also against its slab walk) and, in the original
-   row order, `spmv_csr_ref`, within 1e-5 of each row's sum of
-   |products|: B7 on the four Table-II matrices, both on
-   ``spmv_1m_narrow`` (1M rows, x of 128 KB) and B8 on ``spmv_1m_wide``
-   (1M rows and columns); each with its time, the plain version's,
-   cuSPARSE's (`torch.sparse_csr_tensor` @ x) and its bytes bound.
+11. ``spmv_cases``: B7 (x resident) and B8 (x in slabs: staged when x
+   is one slab, else gathered directly) against `spmv_ell_ref` (B8 also
+   against its slab walk) and, in the original row order, `spmv_csr_ref`,
+   within 1e-5 of each row's sum of |products|: B7 on the four Table-II
+   matrices, both on ``spmv_1m_narrow`` (1M rows, x of 128 KB), B8 on
+   ``spmv_1m_wide`` (1M rows and columns, every row spread over x) and on
+   ``spmv_1m_banded`` (1M rows and columns, LD_pilot87's 1-96 nonzeros a
+   row within 128 columns of the diagonal, seeded here), each at the
+   tuner's plan; each with its time, the plain version's, cuSPARSE's
+   (`torch.sparse_csr_tensor` @ x), its bytes bound and, for B8, the
+   counts of staged, gathered and skipped (row block, slab) pairs
+   (`kernel.slab_plan`).
 12. ``table1`` and ``table2``: `repro_torch.benchmarks.table1_matmul` and
    ``table2_spmv`` on the card, each in a fresh tuning cache, with the
    launch counts set to 0 just before and read just after: Table-1 plans
@@ -86,8 +92,9 @@ Phases, each printed as one JSON line:
    baseline against the tuned sparse path) and the tuned plans of the
    four matrices and both 1M-row ones, the wide one on B8.
 13. ``kernels``: one entry per ported kernel, with its TPU counterpart,
-   launches on its main-path run (a serve run; B5: the ``prefill``
-   phase; B6: ``table1``; B7, B8: ``table2``), error and times.
+   its design, launches on its main-path run (a serve run; B5: the
+   ``prefill`` phase; B6: ``table1``; B7, B8: ``table2``), error and
+   times.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed phase
 exits non-zero without it; so does a host without a CUDA card.
@@ -129,6 +136,19 @@ SERVE_PHASES = [
                                        "int8", "--sched", "paged-aware"],
      "paged_quantized_decode_attention", 2),
 ]
+# Each kernel's design on the card, as the kernels line names it.
+DESIGNS = {
+    "decode_attention": "cp.async tile walk, f32 CUDA cores",
+    "paged_decode_attention": "cp.async tile walk, f32 CUDA cores",
+    "quantized_decode_attention": "cp.async tile walk, f32 CUDA cores",
+    "paged_quantized_decode_attention": "cp.async tile walk, f32 CUDA cores",
+    "flash_attention": {"wgmma": "wgmma+TMA", "mma.sync": "mma.sync",
+                        "f32": "f32 CUDA cores"},
+    "blocked_matmul": "mma.sync",
+    "ell_spmv": "x resident in shared memory",
+    "ell_spmv_blocked": "stage-or-gather: x staged when one slab, "
+                        "else gathered directly",
+}
 # Where each kernel's source is and which Pallas kernel it replaces.
 KERNELS = {
     "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
@@ -164,6 +184,7 @@ FLASH_CASES = [
     ("danube_prefill_32k", 1, 32768, 32768, 32, 8, 80, True, 4096, "bf16"),
     ("non_causal_ragged", 2, 1000, 1000, 40, 8, 128, False, None, "bf16"),
     ("window_sq_gt_sk", 1, 700, 500, 32, 8, 80, True, 64, "bf16"),
+    ("window_sq_gt_sk_dh128", 1, 700, 500, 40, 8, 128, True, 64, "bf16"),
     ("qwen3_4k_f32", 1, 4096, 4096, 40, 8, 128, True, None, "f32"),
 ]
 # (phase, arch, prefill_vs_forward's length: past Danube's 4096 window)
@@ -758,11 +779,14 @@ def flash_case(torch, flash, ref, cost_model, flush, *, name, b, sq, sk, hq,
     t_ops = ops / PEAK_OPS_PER_S["bfloat16" if dtype == "bf16"
                                  else "float32"] * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    design = flash.design(dt, dh)
     active, dense = cost_model.attention_active_block_pairs(
-        sq, sk, flash.BLOCK_Q, flash.BLOCK_K, causal=causal, window=window)
+        sq, sk, *flash.TILES[design], causal=causal, window=window)
     res = {"kernel": "flash_attention", "name": name, "batch": b, "sq": sq,
            "sk": sk, "hq": hq, "hkv": hkv, "dh": dh, "causal": causal,
-           "window": window, "dtype": dtype, "max_abs_err": err,
+           "window": window, "dtype": dtype,
+           "design": DESIGNS["flash_attention"][design],
+           "tile": list(flash.TILES[design]), "max_abs_err": err,
            "tolerance": ("1e-4" if dtype == "f32"
                          else "2^-7 x the row's max |ref|"),
            "max_err_over_tol": err_over_tol,
@@ -966,6 +990,9 @@ MATMUL_MAIN = "table1_8192x8192x8192"     # the kernels line's B6 case
 TABLE1_MEASURE_K = 8                      # of the model's top tiles, timed
 SPMV_MEASURE_K = 3                        # as many as `autotune.tune` times
 SPMV_MAIN = {"ell_spmv": "spmv_1m_narrow", "ell_spmv_blocked": "spmv_1m_wide"}
+# spmv_1m_banded: (rows = columns, nonzeros a row, half band), seed
+BANDED = (1_048_576, (1, 96), 128)
+BANDED_SEED = 5
 
 
 def bound_ms(nbytes: float, ops: float, dtype: str) -> tuple[float, str]:
@@ -1059,7 +1086,12 @@ def spmv_matrix(torch, table2, ops, name, dev):
     with each row's columns sorted (the same matrix, in the order a
     `torch.sparse_csr_tensor` requires)."""
     import numpy as np
-    indptr, indices, data, shape = table2.build(name)
+    if name == "spmv_1m_banded":
+        rows, (lo, hi), half = BANDED
+        indptr, indices, data, shape = table2.synthesize_banded(
+            rows, rows, lo, hi, half, seed=BANDED_SEED)
+    else:
+        indptr, indices, data, shape = table2.build(name)
     mat = ops.pack_csr(indptr, indices, data, shape, scheme="sorted",
                        device=dev)
     rows = np.repeat(np.arange(shape[0], dtype=np.int64), np.diff(indptr))
@@ -1145,14 +1177,18 @@ def spmv_case(torch, autotune, sp_ops, sp_kernel, sp_ref, spec, flush,
                            flush)
     del a_csr
     nbytes, ops, b_ms, by = spmv_bound(rows, width, n, mat.nnz)
+    plan = (sp_kernel.slab_plan(mat.cols, mat.vals, n, br, bc) if blocked
+            else None)
     return {"kernel": kernel, "name": name, "rows": m, "n": n,
             "nnz": mat.nnz, "width": width, "block_rows": br,
             "block_cols": bc, "configuration": picked,
+            "design": DESIGNS[kernel], "slab_plan": plan,
             "tuned_plan": tuned.knobs, "slabs": -(-n // bc) if bc else None,
             "max_abs_err": max(errs.values()), "errors": errs,
             "tolerance": "1e-5 x the row's sum of |products|",
             "max_err_over_tol": max(ratios.values()),
-            "err_over_tol": ratios, "ok": max(ratios.values()) <= 1,
+            "err_over_tol": ratios,
+            "ok": max(ratios.values()) <= 1,
             "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "library": "torch.sparse_csr_tensor @ x (cuSPARSE)",
             "bound_ms": b_ms, "bound_by": by, "bytes": nbytes,
@@ -1162,11 +1198,12 @@ def spmv_case(torch, autotune, sp_ops, sp_kernel, sp_ref, spec, flush,
 def spmv_cases(torch, table2, ops, autotune, sp_kernel, sp_ref, spec,
                flush):
     """B7 on the four Table-II matrices and on ``spmv_1m_narrow``, B8 on
-    ``spmv_1m_narrow`` and ``spmv_1m_wide`` (x of 4 MB fits no block's
-    shared memory, so B7 cannot take it)."""
+    ``spmv_1m_narrow``, ``spmv_1m_wide`` and ``spmv_1m_banded`` (x of 4 MB
+    fits no block's shared memory, so B7 cannot take the last two)."""
     plan = [(name, ("ell_spmv",)) for name in table2.MATRICES]
     plan += [("spmv_1m_narrow", ("ell_spmv", "ell_spmv_blocked")),
-             ("spmv_1m_wide", ("ell_spmv_blocked",))]
+             ("spmv_1m_wide", ("ell_spmv_blocked",)),
+             ("spmv_1m_banded", ("ell_spmv_blocked",))]
     import tempfile
     cases = []
     with tempfile.TemporaryDirectory() as tmp:
@@ -1458,7 +1495,8 @@ def main() -> int:
         entry = {"name": name, "route": "cuda", "source": source,
                  "replaces": replaces, "launches": launches[name],
                  "max_abs_err": max(c["max_abs_err"] for c in mine),
-                 "ok": True}
+                 "ok": True,
+                 "design": serve_case.get("design", DESIGNS[name])}
         entry.update({k: serve_case[k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
         if entry["library_ms"] is None:

@@ -93,6 +93,34 @@ def synthesize_large(rows: int, n: int, lo: int = 1, hi: int = 96,
     return indptr, indices, data, (rows, n)
 
 
+def synthesize_banded(rows: int, n: int, lo: int = 1, hi: int = 96,
+                      half: int = 128, seed: int = 0):
+    """CSR (rows, n) with a uniform lo..hi nonzeros a row, all within
+    ``half`` columns of the diagonal (the window shifted inward at the
+    first and last rows), as in SuiteSparse's finite-element and circuit
+    matrices; N(0, 1) values, vectorised.  Row r's columns are ``o_r + j *
+    s_r``, j below its count, with a random stride s_r and start o_r that
+    keep them distinct and inside its window of 2 * half + 1 columns."""
+    width = 2 * half + 1
+    if n < width or hi > width:
+        raise ValueError(f"n={n} and {hi} nonzeros a row need a window of "
+                         f"{width} columns inside the matrix")
+    rng = np.random.default_rng(seed)
+    per_row = rng.integers(lo, hi + 1, size=rows)
+    indptr = np.zeros(rows + 1, np.int64)
+    np.cumsum(per_row, out=indptr[1:])
+    nnz = int(indptr[-1])
+    r = np.arange(rows, dtype=np.int64)
+    base = np.clip(r - half, 0, n - width)
+    stride = rng.integers(1, (width - 1) // np.maximum(per_row - 1, 1) + 1)
+    start = base + rng.integers(0, width - (per_row - 1) * stride)
+    row_of = np.repeat(r, per_row)
+    j = np.arange(nnz, dtype=np.int64) - indptr[:-1][row_of]
+    indices = (start[row_of] + j * stride[row_of]).astype(np.int32)
+    data = rng.standard_normal(nnz, dtype=np.float32)
+    return indptr, indices, data, (rows, n)
+
+
 def build(name: str, seed: int = 0):
     """The CSR arrays of a matrix of `MATRICES` or `LARGE`."""
     if name in LARGE:

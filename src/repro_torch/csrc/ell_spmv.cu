@@ -19,7 +19,7 @@
 // Bound: bytes.  Each entry costs 8 bytes of cols and vals for 2
 // operations, far below the H100's ~20 f32 operations per byte, so the
 // floor is the ELL payload over the memory rate.  The gathers from x are
-// what would break it: both entries serve them from shared memory.
+// what would break it.
 //
 // ell_spmv: the whole of x is staged in shared memory, the counterpart
 // of the TPU's VMEM-resident x; n * 4 bytes must fit a block's shared
@@ -28,15 +28,25 @@
 // block of 1024 threads keeps 32 warps of loads in flight), each stages
 // x once and walks row blocks with a grid stride.
 //
-// ell_spmv_blocked: x too large for shared memory is streamed in slabs of
-// block_cols columns.  A block of 512 threads holds its block_rows rows'
-// entries in registers (at most kMaxPerLane per lane) for the whole walk,
-// and for each slab [start, start + block_cols) stages the slab, gathers
-// only the entries whose column falls inside it and adds them to the f32
-// partial sums (the TPU kernel's clamp-to-0 and mask); y is stored once
-// after the last slab.  Every block re-reads all of x, ceil(n /
-// block_cols) slabs, as every TPU row block re-streams x: that is the
-// reference algorithm's cost (ROADMAP queue D).
+// ell_spmv_blocked: x too large for shared memory, cut in slabs of
+// block_cols columns (the TPU kernel streams every slab through VMEM for
+// every row block).  A block of 512 threads holds its block_rows rows'
+// entries in registers (at most kMaxPerLane per lane) and reads x in one
+// of two ways:
+//   - x is one slab (n <= block_cols): every block stages it in shared
+//     memory, the copy overlapping the loads of its entries, as B7 does,
+//     and reads its entries' x from there;
+//   - x is several slabs: every entry gathers x[c] directly through the
+//     read-only path (__ldg), from L1 or the 50 MB L2 that holds x (4 MB
+//     at 1M columns).  No slab is copied, so a slab none of the block's
+//     entries falls in costs nothing.
+// Both add into one f32 partial sum per lane; y is stored once.  So B8 is
+// bound by bytes: the ELL read once, plus one L2 sector per direct gather
+// at most (a block's neighbouring gathers share L1 lines and sectors).
+// Staging a slab only where a block's entries in it would pay for the
+// copy (a per-slab count in shared memory) was measured on one H100 and
+// never beat gathering: the copy waits for the entry loads it is decided
+// from, while the gathers it saves are mostly L1 hits.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -106,7 +116,7 @@ __global__ void __launch_bounds__(kBlockedThreads)
                             const float* __restrict__ vals,
                             float* __restrict__ y, int rows, int width, int n,
                             int lanes, int block_cols) {
-  extern __shared__ __align__(16) float xs[];
+  extern __shared__ __align__(16) float xs[];   // x, when it is one slab
   const int per_block = kBlockedThreads / lanes;
   const int g = threadIdx.x / lanes, l = threadIdx.x % lanes;
   const long long r = static_cast<long long>(blockIdx.x) * per_block + g;
@@ -116,20 +126,20 @@ __global__ void __launch_bounds__(kBlockedThreads)
   for (int e = 0; e < E; ++e) {
     const int w = l + e * lanes;
     const bool ok = r < rows && w < width;
-    c[e] = ok ? cols[r * width + w] : -1;   // -1: in no slab
+    c[e] = ok ? cols[r * width + w] : -1;   // -1: no entry
     v[e] = ok ? vals[r * width + w] : 0.f;
   }
   float acc = 0.f;
-  for (int start = 0; start < n; start += block_cols) {
-    __syncthreads();   // the previous slab is no longer read
-    stage_x(xs, x, start, min(block_cols, n - start));
+  if (n <= block_cols) {
+    stage_x(xs, x, 0, n);
     __syncthreads();
 #pragma unroll
-    for (int e = 0; e < E; ++e) {
-      const unsigned local = static_cast<unsigned>(c[e] - start);
-      if (local < static_cast<unsigned>(block_cols))
-        acc = fmaf(v[e], xs[local], acc);
-    }
+    for (int e = 0; e < E; ++e)
+      if (c[e] >= 0) acc = fmaf(v[e], xs[c[e]], acc);
+  } else {
+#pragma unroll
+    for (int e = 0; e < E; ++e)
+      if (c[e] >= 0) acc = fmaf(v[e], __ldg(x + c[e]), acc);
   }
   acc = group_sum(acc, lanes);
   if (l == 0 && r < rows) y[r] = acc;
@@ -172,9 +182,9 @@ int launch_blocked(const float* x, const int* cols, const float* vals,
   const long long blocks = (static_cast<long long>(rows) + per_block - 1) /
                            per_block;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  kernel<<<static_cast<unsigned>(blocks), kBlockedThreads,
-           block_cols * sizeof(float), stream>>>(x, cols, vals, y, rows, width,
-                                                 n, lanes, block_cols);
+  const size_t smem = n <= block_cols ? n * sizeof(float) : 0;
+  kernel<<<static_cast<unsigned>(blocks), kBlockedThreads, smem, stream>>>(
+      x, cols, vals, y, rows, width, n, lanes, block_cols);
   return static_cast<int>(cudaGetLastError());
 }
 

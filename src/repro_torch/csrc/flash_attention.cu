@@ -7,36 +7,66 @@
 // window) and j < Sk; positions count from 0 in each sequence.  A row with
 // no surviving key writes exact zeros.
 //
-// Work: one block owns one tile of 64 query rows of one (sequence, query
-// head) and walks the 64-key tiles of its band, [first, last] of
+// Work: one block owns one tile of query rows of one (sequence, query
+// head) and walks the key tiles of its band, [first, last] of
 // core/cost_model.py :: attention_step_bounds, mirrored in step_bounds
-// below.  Tiles outside the band are neither loaded nor multiplied, so
-// causal prefill walks the triangle and a 4096-key window a band of about
-// 4096 / 64 tiles.  GQA is index math: the block of query head h reads
-// KV head h / g in place through the strides, so K and V are never
-// repeated in memory (the TPU wrapper repeats them g times, along the
-// batch axis).  Causal blocks start with the longest rows, so the last
-// wave of blocks is the shortest.
+// below at the block's tile.  Tiles outside the band are neither loaded
+// nor multiplied, so causal prefill walks the triangle and a 4096-key
+// window a band of about 4096 / tile tiles; only tiles that cross the
+// diagonal, the window's edge or the ragged Sk tail are masked.  GQA is
+// index math: the block of query head h reads KV head h / g in place
+// through the strides, so K and V are never repeated in memory (the TPU
+// wrapper repeats them g times, along the batch axis).  Causal blocks
+// start with the longest rows, so the last wave of blocks is the
+// shortest.  Online softmax in f32 in the log2 domain: a running max and
+// sum per row, the unnormalised probabilities rounded to bf16 for the p.v
+// product as the TPU kernel rounds them to v's dtype, and a store that
+// divides by max(l, 1e-30).
 //
 // Bound: tensor-core operations.  Each (q, k) pair of a head costs 4 * dh
-// operations (q.k and p.v); a 64 x 64 tile does 64 multiply-adds per
-// element it loads, far above the H100's ~295 bf16 operations per byte
-// of device memory.  The bf16 kernel therefore runs both products on the
-// tensor cores (mma.sync m16n8k16, bf16 operands, f32 accumulators):
-// each of the 4 warps owns 16 query rows, keeps its q fragments, scores,
-// probabilities and output accumulator in registers, and reads K and V
-// tiles from shared memory with ldmatrix.  The next K/V tile is copied
-// with cp.async while the current one is computed (two stages); rows are
-// padded by 16 bytes so ldmatrix reads are free of bank conflicts.
-// Online softmax in f32: a running max and sum per row, the unnormalised
-// probabilities rounded to bf16 for the p.v product as the TPU kernel
-// rounds them to v's dtype, and a store that divides by max(l, 1e-30).
-// Known gap: mma.sync reaches a fraction of the card's wgmma rate, and
-// the tile is small (ROADMAP queue D4).
+// operations (q.k and p.v); a 128 x 128 tile does 128 multiply-adds per
+// element it loads, far above the H100's ~295 bf16 operations per byte of
+// device memory.  Three designs, picked by the wrapper from (dtype,
+// head_dim) (kernels/attention/kernel.py :: design):
 //
-// The f32 kernel (not on the prefill path; for f32 callers and tests) does
-// the same walk with f32 FMAs on CUDA cores: two threads per query row.
+// wgmma (bf16 at head_dim 128, Qwen3-14B's prefill; flash_wgmma_kernel):
+// FlashAttention-3's layout.  A block of three warpgroups owns 128 query
+// rows.  The producer warpgroup gives up registers (setmaxnreg) and one
+// of its threads issues TMA copies: q once, then K and V tiles of 128
+// keys into a ring of two stages, each copy completing on an mbarrier;
+// a K (V) stage is refilled when both consumers have arrived on its
+// "empty" barrier.  Each of the two consumer warpgroups (setmaxnreg up to
+// 240) owns 64 rows: s = q k^T on wgmma m64n128k16 with both operands in
+// shared memory (K-major), the softmax in f32 registers, then o += p v on
+// wgmma with p as register A fragments (the f32 score layout is the bf16
+// A-fragment layout, pairs of columns packed) and V as an MN-major B
+// operand (head_dim contiguous, the transpose bit).  A consumer issues
+// tile j's q k^T together with tile j - 1's p v, frees K's stage as soon
+// as its q k^T is done, and runs tile j's softmax while p v is on the
+// tensor cores.  Tiles are 128 rows of 128 head dims, two 64-column boxes
+// in TMA's 128-byte swizzle, which the wgmma descriptors (leading byte
+// offset: the second box, stride byte offset: 8 rows of 128 bytes) read
+// as laid.  TMA fills rows past Sq or Sk with zeros; the mask, not the
+// zeros, removes such keys.  Shared memory: q 32 KB + 2 x (K, V) 64 KB =
+// 160 KB.  Tensor maps are built on the host per call from the strides,
+// through the driver entry point the runtime hands out (no link against
+// libcuda).  A ping-pong between the two consumers (turns on named
+// barriers) measured no faster, and is left out.
+//
+// mma.sync (bf16 at head_dim 16, 80, 96; flash_bf16_kernel): one block
+// of 4 warps owns 64 query rows and walks 64-key tiles; each warp owns
+// 16 rows, keeps its q fragments, scores, probabilities and output in
+// registers and reads K and V from shared memory with ldmatrix (mma.sync
+// m16n8k16, f32 accumulators).  The next K/V tile is copied with cp.async
+// while the current one is computed (two stages); rows are padded by 16
+// bytes so ldmatrix reads are free of bank conflicts.  head_dim 80 would
+// need 160-byte TMA boxes, past the 128-byte swizzle.
+//
+// f32 (not on the prefill path; for f32 callers and tests;
+// flash_f32_kernel): the same 64 x 64 walk with f32 FMAs on CUDA cores,
+// two threads per query row.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -63,30 +93,33 @@ struct Params {
   long long v_sb, v_ss, v_sh;
   int sq, sk, hq, g, dh;
   int causal, window;             // window 0: none
-  int k_steps;                    // ceil(Sk / kBlockK)
   float scale;
 };
 
-// [first, last] K tiles of query tile i: attention_step_bounds.
+// [first, last] K tiles of query tile i at tile (BQ, BK):
+// attention_step_bounds.
+template <int BQ, int BK>
 __device__ __forceinline__ void step_bounds(const Params& p, int i,
                                             int& first, int& last) {
-  const int q_lo = i * kBlockQ, q_hi = q_lo + kBlockQ - 1;
-  last = p.k_steps - 1;
-  if (p.causal) last = min(last, q_hi / kBlockK);
+  const int q_lo = i * BQ, q_hi = q_lo + BQ - 1;
+  last = (p.sk + BK - 1) / BK - 1;
+  if (p.causal) last = min(last, q_hi / BK);
   first = 0;
   if (p.window > 0) {
     const int n = q_lo - p.window + 1;   // floor division, as in Python
-    first = max(0, n >= 0 ? n / kBlockK : -((-n + kBlockK - 1) / kBlockK));
+    first = max(0, n >= 0 ? n / BK : -((-n + BK - 1) / BK));
   }
   first = min(first, last);
 }
 
-// Whether any pair of the (query tile at q0, key tile at k0) is masked.
+// Whether any pair of the (BQ query rows at q0, BK keys at k0) tile is
+// masked.
+template <int BQ, int BK>
 __device__ __forceinline__ bool tile_needs_mask(const Params& p, int q0,
                                                 int k0) {
-  if (k0 + kBlockK > p.sk) return true;
-  if (p.causal && k0 + kBlockK - 1 > q0) return true;
-  return p.window > 0 && (q0 + kBlockQ - 1) - k0 >= p.window;
+  if (k0 + BK > p.sk) return true;
+  if (p.causal && k0 + BK - 1 > q0) return true;
+  return p.window > 0 && (q0 + BQ - 1) - k0 >= p.window;
 }
 
 __device__ __forceinline__ bool pair_ok(const Params& p, int i, int j) {
@@ -196,7 +229,7 @@ __global__ void __launch_bounds__(kThreads) flash_bf16_kernel(const Params p) {
   const int gr = lane >> 2, tq = lane & 3;
   const int q0 = tile * kBlockQ;
   int first, last;
-  step_bounds(p, tile, first, last);
+  step_bounds<kBlockQ, kBlockK>(p, tile, first, last);
 
   const bf16* qg = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
   const bf16* kg = static_cast<const bf16*>(p.k) + b * p.k_sb + hk * p.k_sh;
@@ -265,7 +298,7 @@ __global__ void __launch_bounds__(kThreads) flash_bf16_kernel(const Params p) {
     // and row_b (e = 2, 3); a row's 64 scores live in the 4 lanes of its
     // quad.
     const int k0 = kt * kBlockK;
-    const bool masked = tile_needs_mask(p, q0, k0);
+    const bool masked = tile_needs_mask<kBlockQ, kBlockK>(p, q0, k0);
     float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
     for (int n = 0; n < kNs; ++n) {
@@ -384,7 +417,7 @@ __global__ void __launch_bounds__(kThreads) flash_f32_kernel(const Params p) {
   const int r = threadIdx.x >> 1, half = threadIdx.x & 1;
   const int q0 = tile * kBlockQ, row = q0 + r;
   int first, last;
-  step_bounds(p, tile, first, last);
+  step_bounds<kBlockQ, kBlockK>(p, tile, first, last);
 
   const float* qg = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
   const float* kg = static_cast<const float*>(p.k) + b * p.k_sb + hk * p.k_sh;
@@ -463,6 +496,432 @@ __global__ void __launch_bounds__(kThreads) flash_f32_kernel(const Params p) {
 }
 
 // --------------------------------------------------------------------------
+// bf16 at head_dim 128 on Hopper: TMA, wgmma, warp specialisation
+// --------------------------------------------------------------------------
+
+namespace hopper {
+
+constexpr int kM = 128;            // query rows per block: 2 consumers x 64
+constexpr int kN = 128;            // keys per tile
+constexpr int kD = 128;            // head_dim
+constexpr int kBox = 64;           // columns of one TMA box: 128 bytes
+constexpr int kStages = 2;         // K/V ring
+constexpr int kThreads = 384;      // consumers 0 and 1, producer 2
+constexpr int kBoxBytes = kN * kBox * 2;   // 16 KB: 128 rows x 64 columns
+constexpr int kTileBytes = 2 * kBoxBytes;  // 32 KB: 128 rows x 128 columns
+
+// Each tile is two boxes, columns [0, 64) and [64, 128), each 128 rows of
+// 128 bytes in TMA's 128-byte swizzle; every box starts on 1024 bytes.
+struct Smem {
+  bf16 q[2][kM * kBox];
+  bf16 k[kStages][2][kN * kBox];
+  bf16 v[kStages][2][kN * kBox];
+  unsigned long long q_full;
+  unsigned long long k_full[kStages];
+  unsigned long long v_full[kStages];
+  unsigned long long k_empty[kStages];   // both consumers done with K (s)
+  unsigned long long v_empty[kStages];   // ... with V (s)
+};
+constexpr size_t kSmemBytes = sizeof(Smem) + 1024;   // + alignment slack
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar,
+                                          unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(unsigned long long* bar,
+                                               unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// Waits until the phase of ``bar`` with this parity has completed.
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned parity) {
+  const unsigned addr = smem_addr(bar);
+  unsigned done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One box of a 4-D (dh, heads, seq, batch) tensor map into shared memory,
+// completing on ``bar``; rows past the tensor arrive as zeros.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         unsigned long long* bar, int c0,
+                                         int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<unsigned long long>(map)), "r"(smem_addr(bar)),
+      "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled operand at ``p``:
+// start address, leading and stride byte offsets (16-byte units), layout
+// type 1 (128-byte swizzle).
+__device__ __forceinline__ unsigned long long desc(const void* p,
+                                                   unsigned lbo,
+                                                   unsigned sbo) {
+  return static_cast<unsigned long long>((smem_addr(p) & 0x3FFFF) >> 4) |
+         (static_cast<unsigned long long>(lbo >> 4) << 16) |
+         (static_cast<unsigned long long>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// Pins the order of register reads and writes against the asynchronous
+// wgmma statements around it (the compiler sees their operands as
+// written at issue, the card at wait).
+template <typename T, int N>
+__device__ __forceinline__ void fence_regs(T (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>   // until at most N committed groups are in flight
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// d (64 x 128, f32) = a (64 x 16) b (16 x 128) + (scale_d ? d : 0); a and
+// b K-major in shared memory (q rows and k rows, head_dim contiguous).
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], int scale_d,
+                                         unsigned long long desc_a,
+                                         unsigned long long desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d (64 x 128, f32) += a (64 x 16, bf16 fragments in registers) b (16 x
+// 128); b MN-major in shared memory (v rows, head_dim contiguous: the
+// transpose bit).
+__device__ __forceinline__ void wgmma_rs(float (&d)[64],
+                                         const unsigned (&a)[4],
+                                         unsigned long long desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(1));
+}
+
+// s = q k^T for consumer wg's 64 rows against the K tile in stage st: 8
+// steps of 16 head dims, 4 in each box, the first overwriting s.  Issued
+// and committed as one group, not awaited.
+__device__ __forceinline__ void issue_qk(float (&sc)[64], Smem& sm, int wg,
+                                         int st) {
+  fence_regs(sc);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kD / 16; ++kk) {
+    const int box = kk / 4, off = (kk % 4) * 16;
+    wgmma_ss(sc, kk > 0, desc(sm.q[box] + wg * 64 * kBox + off, 16, 1024),
+             desc(sm.k[st][box] + off, 16, 1024));
+  }
+  wgmma_commit();
+  fence_regs(sc);
+}
+
+// o += p v against the V tile in stage st: 8 steps of 16 keys, V MN-major
+// with its two head-dim boxes 16 KB apart (leading byte offset).  Issued
+// and committed, not awaited; p's registers stay live until the wait.
+__device__ __forceinline__ void issue_pv(float (&o)[64],
+                                         unsigned (&pa)[kN / 16][4],
+                                         Smem& sm, int st) {
+#pragma unroll
+  for (int j = 0; j < kN / 16; ++j) fence_regs(pa[j]);
+  fence_regs(o);
+  wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < kN / 16; ++j)
+    wgmma_rs(o, pa[j], desc(sm.v[st][0] + j * 16 * kBox, kBoxBytes, 1024));
+  wgmma_commit();
+  fence_regs(o);
+#pragma unroll
+  for (int j = 0; j < kN / 16; ++j) fence_regs(pa[j]);
+}
+
+// Online softmax of one key tile at k0 for rows row_a (d[4 i + e], e < 2)
+// and row_b: scales and masks the scores, moves the running max m,
+// rescales the running sum l by corr = exp2(m_old - m_new) and adds the
+// tile's probabilities, which replace the scores in sc (f32).  A row's
+// 128 scores live in the 4 lanes of its quad, 32 each.
+__device__ __forceinline__ void softmax_tile(float (&sc)[64], float (&m)[2],
+                                             float (&l)[2], float (&corr)[2],
+                                             const Params& p, bool masked,
+                                             int row_a, int row_b, int k0,
+                                             int tq4) {
+  const float sl2 = p.scale * kLog2e;   // scores in the log2 domain
+  float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    float x = sc[i] * sl2;
+    if (masked && !pair_ok(p, (i & 2) ? row_b : row_a,
+                           k0 + (i >> 2) * 8 + 2 * tq4 + (i & 1)))
+      x = kNegInf;
+    sc[i] = x;
+    mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], x);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m[r], mx[r]);
+    corr[r] = exp2f(m[r] - m_new);
+    m[r] = m_new;
+    l[r] *= corr[r];
+  }
+#pragma unroll
+  for (int i = 0; i < 64; i += 2) {
+    const int r = (i >> 1) & 1;
+    // a row with no surviving key yet stays at m = -1e30: its
+    // probabilities are 0, not exp2(0) = 1
+    const float p0 = m[r] <= kNegInf ? 0.f : exp2f(sc[i] - m[r]);
+    const float p1 = m[r] <= kNegInf ? 0.f : exp2f(sc[i + 1] - m[r]);
+    l[r] += p0 + p1;   // pairs first: half the chain of dependent adds
+    sc[i] = p0;
+    sc[i + 1] = p1;
+  }
+}
+
+// p rounded to bf16 into the register A fragments of o += p v: keys
+// [16 j, 16 j + 16) are score columns 16 j .. 16 j + 15, so a[0..3] =
+// pack(d[8 j + 0, 1]), pack(d[8 j + 2, 3]), pack(d[8 j + 4, 5]),
+// pack(d[8 j + 6, 7]).
+__device__ __forceinline__ void pack_p(unsigned (&pa)[kN / 16][4],
+                                       const float (&sc)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; i += 2)
+    pa[i >> 3][(i >> 1) & 3] = pack_bf16(sc[i], sc[i + 1]);
+}
+
+// Fragment layouts (PTX ISA, wgmma .m64nNk16): warp w of a consumer owns
+// rows 16 w + gr and 16 w + gr + 8 of its 64 (lane = 4 gr + tq); score and
+// output accumulators: d[4 i + e] is column 8 i + 2 tq + (e & 1) of row
+// gr (e < 2) or gr + 8.
+//
+// A consumer's tile j: it issues s_j = q k_j^T and o += p_{j-1} v_{j-1}
+// together, waits for s_j only, runs tile j's softmax in f32 while the
+// tensor cores finish p_{j-1} v_{j-1}, then rescales o and packs p_j.
+// p_j is packed only after p_{j-1} v_{j-1} has retired: a second register
+// set for p, written during the product, made ptxas serialise the wgmma.
+// Rows past Sq are computed on TMA's zeros and never stored.
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const Params p) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023));
+
+  const int tile = p.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int h = blockIdx.y, b = blockIdx.z, hk = h / p.g;
+  const int q0 = tile * kM;
+  int first, last;
+  step_bounds<kM, kN>(p, tile, first, last);
+  const int n_tiles = last - first + 1;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&sm.k_full[s], 1);
+      mbar_init(&sm.v_full[s], 1);
+      mbar_init(&sm.k_empty[s], 2 * 128);   // every consumer thread
+      mbar_init(&sm.v_empty[s], 2 * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // ---- producer: one thread issues every copy ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(&sm.q_full, kTileBytes);
+      tma_load(sm.q[0], &tq, &sm.q_full, 0, h, q0, b);
+      tma_load(sm.q[1], &tq, &sm.q_full, kBox, h, q0, b);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % kStages, row = (first + it) * kN;
+        const unsigned free = ((it / kStages) & 1) ^ 1;   // use 0: at once
+        mbar_wait(&sm.k_empty[s], free);
+        mbar_expect_tx(&sm.k_full[s], kTileBytes);
+        tma_load(sm.k[s][0], &tk, &sm.k_full[s], 0, hk, row, b);
+        tma_load(sm.k[s][1], &tk, &sm.k_full[s], kBox, hk, row, b);
+        mbar_wait(&sm.v_empty[s], free);
+        mbar_expect_tx(&sm.v_full[s], kTileBytes);
+        tma_load(sm.v[s][0], &tv, &sm.v_full[s], 0, hk, row, b);
+        tma_load(sm.v[s][1], &tv, &sm.v_full[s], kBox, hk, row, b);
+      }
+    }
+  } else {
+    // ---- consumer wg: query rows [q0 + 64 wg, q0 + 64 wg + 64) ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int t = threadIdx.x % 128;
+    const int warp = t >> 5, lane = t & 31;
+    const int gr = lane >> 2, tq4 = lane & 3;
+    const int row_a = q0 + wg * 64 + warp * 16 + gr, row_b = row_a + 8;
+    float m[2] = {kNegInf, kNegInf};      // running max (log2 domain)
+    float l[2] = {0.f, 0.f};              // this thread's share of the sum
+    float corr[2];
+    float o[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) o[i] = 0.f;
+    unsigned pa[kN / 16][4];              // p of the previous tile
+
+    mbar_wait(&sm.q_full, 0);
+    {
+      // Tile 0: s = q k^T and its softmax (o is still 0).
+      float sc[64];
+      mbar_wait(&sm.k_full[0], 0);
+      issue_qk(sc, sm, wg, 0);
+      wgmma_wait<0>();
+      fence_regs(sc);
+      mbar_arrive(&sm.k_empty[0]);
+      const int k0 = first * kN;
+      softmax_tile(sc, m, l, corr, p, tile_needs_mask<kM, kN>(p, q0, k0),
+                   row_a, row_b, k0, tq4);
+      pack_p(pa, sc);
+    }
+    for (int it = 1; it < n_tiles; ++it) {
+      const int s = it % kStages, ps = (it - 1) % kStages;
+      float sc[64];
+      mbar_wait(&sm.k_full[s], (it / kStages) & 1);
+      mbar_wait(&sm.v_full[ps], ((it - 1) / kStages) & 1);
+      issue_qk(sc, sm, wg, s);
+      issue_pv(o, pa, sm, ps);
+      wgmma_wait<1>();                   // s of tile it is in
+      fence_regs(sc);
+      mbar_arrive(&sm.k_empty[s]);
+      const int k0 = (first + it) * kN;
+      softmax_tile(sc, m, l, corr, p, tile_needs_mask<kM, kN>(p, q0, k0),
+                   row_a, row_b, k0, tq4);
+      wgmma_wait<0>();                   // o += p v of tile it - 1 is in
+      fence_regs(o);
+#pragma unroll
+      for (int j = 0; j < kN / 16; ++j) fence_regs(pa[j]);
+      mbar_arrive(&sm.v_empty[ps]);
+#pragma unroll
+      for (int i = 0; i < 64; ++i) o[i] *= corr[(i >> 1) & 1];
+      pack_p(pa, sc);
+    }
+    {
+      // The last tile's o += p v.
+      const int s = (n_tiles - 1) % kStages;
+      mbar_wait(&sm.v_full[s], ((n_tiles - 1) / kStages) & 1);
+      issue_pv(o, pa, sm, s);
+      wgmma_wait<0>();
+      fence_regs(o);
+    }
+
+    // Store o / max(l, 1e-30); rows past Sq are padding.
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      l[r] = 1.f / fmaxf(l[r], 1e-30f);
+    }
+    bf16* og = static_cast<bf16*>(p.o);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r ? row_b : row_a;
+      if (row >= p.sq) continue;
+      bf16* orow = og + ((static_cast<long long>(b) * p.sq + row) * p.hq + h) *
+                            kD;
+#pragma unroll
+      for (int i = 0; i < 16; ++i)
+        *reinterpret_cast<__nv_bfloat162*>(orow + i * 8 + 2 * tq4) =
+            __floats2bfloat162_rn(o[4 * i + 2 * r] * l[r],
+                                  o[4 * i + 2 * r + 1] * l[r]);
+    }
+  }
+}
+
+}  // namespace hopper
+
+// --------------------------------------------------------------------------
 // Launch
 // --------------------------------------------------------------------------
 
@@ -491,10 +950,14 @@ int launch(const Params& p, int batch, bool is_bf16, cudaStream_t stream) {
   const dim3 grid((p.sq + kBlockQ - 1) / kBlockQ, p.hq, batch);
   cudaError_t err;
   if (is_bf16) {
-    static std::atomic<bool> done[kMaxDevices];
-    err = allow_smem(flash_bf16_kernel<DH>, bf16_smem<DH>(), done);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    flash_bf16_kernel<DH><<<grid, kThreads, bf16_smem<DH>(), stream>>>(p);
+    if constexpr (DH == hopper::kD) {
+      return static_cast<int>(cudaErrorInvalidValue);   // the wgmma entry's
+    } else {
+      static std::atomic<bool> done[kMaxDevices];
+      err = allow_smem(flash_bf16_kernel<DH>, bf16_smem<DH>(), done);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      flash_bf16_kernel<DH><<<grid, kThreads, bf16_smem<DH>(), stream>>>(p);
+    }
   } else {
     static std::atomic<bool> done[kMaxDevices];
     err = allow_smem(flash_f32_kernel<DH>, f32_smem<DH>(), done);
@@ -504,24 +967,94 @@ int launch(const Params& p, int batch, bool is_bf16, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// cuTensorMapEncodeTiled from the driver through the runtime, so the
+// library needs no link against libcuda.
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(ptr)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A (dh, heads, seq, batch) bf16 operand read in boxes of 64 head dims x
+// 1 head x 128 rows x 1 sequence, 128-byte swizzle; strides in elements.
+bool tensor_map(CUtensorMap* map, EncodeTiled encode, const void* base,
+                int heads, int seq, int batch, long long s_h, long long s_s,
+                long long s_b) {
+  const cuuint64_t dims[4] = {hopper::kD, static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(seq),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(s_h) * 2,
+                                 static_cast<cuuint64_t>(s_s) * 2,
+                                 static_cast<cuuint64_t>(s_b) * 2};
+  const cuuint32_t box[4] = {hopper::kBox, 1, hopper::kN, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+int launch_wgmma(const Params& p, int batch, int hkv, cudaStream_t stream) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap tq, tk, tv;
+  if (!tensor_map(&tq, encode, p.q, p.hq, p.sq, batch, p.q_sh, p.q_ss,
+                  p.q_sb) ||
+      !tensor_map(&tk, encode, p.k, hkv, p.sk, batch, p.k_sh, p.k_ss,
+                  p.k_sb) ||
+      !tensor_map(&tv, encode, p.v, hkv, p.sk, batch, p.v_sh, p.v_ss,
+                  p.v_sb))
+    return static_cast<int>(cudaErrorInvalidValue);
+  static std::atomic<bool> done[kMaxDevices];
+  cudaError_t err =
+      allow_smem(hopper::flash_wgmma_kernel, hopper::kSmemBytes, done);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((p.sq + hopper::kM - 1) / hopper::kM, p.hq, batch);
+  hopper::flash_wgmma_kernel<<<grid, hopper::kThreads, hopper::kSmemBytes,
+                               stream>>>(tq, tk, tv, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// C entry, bound with ctypes.  q: (B, Sq, Hq, dh) with strides (q_sb, q_ss,
-// q_sh, 1); k, v: (B, Sk, Hkv, dh) with strides (.., 1); every stride but
-// the last and every address a multiple of 16 bytes.  out: contiguous
-// (B, Sq, Hq, dh) of q's type.  is_bf16: all operands bfloat16 (1) or
-// float32 (0).  window 0 means no window.  Returns the CUDA error of the
-// launch (0 on success).
-extern "C" int flash_attention(
-    const void* q, const void* k, const void* v, void* out, int is_bf16,
-    int batch, int sq, int sk, int hq, int hkv, int dh, int causal,
-    int window, long long q_sb, long long q_ss, long long q_sh,
-    long long k_sb, long long k_ss, long long k_sh, long long v_sb,
-    long long v_ss, long long v_sh, float scale, void* stream) {
+// C entries, bound with ctypes.  q: (B, Sq, Hq, dh) with strides (q_sb,
+// q_ss, q_sh, 1); k, v: (B, Sk, Hkv, dh) with strides (.., 1); every
+// stride but the last and every address a multiple of 16 bytes.  out:
+// contiguous (B, Sq, Hq, dh) of q's type.  window 0 means no window.
+// Return the CUDA error of the launch (0 on success).
+#define FLASH_ARGS                                                          \
+  const void *q, const void *k, const void *v, void *out, int is_bf16,     \
+      int batch, int sq, int sk, int hq, int hkv, int dh, int causal,       \
+      int window, long long q_sb, long long q_ss, long long q_sh,           \
+      long long k_sb, long long k_ss, long long k_sh, long long v_sb,       \
+      long long v_ss, long long v_sh, float scale, void *stream
+
+namespace {
+
+bool make_params(Params& p, FLASH_ARGS) {
   if (batch < 1 || sq < 1 || sk < 1 || hkv < 1 || hq < 1 || hq % hkv ||
       window < 0 || hq > 65535 || batch > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  Params p{};
+    return false;
+  p = Params{};
   p.q = q;
   p.k = k;
   p.v = v;
@@ -542,8 +1075,24 @@ extern "C" int flash_attention(
   p.dh = dh;
   p.causal = causal != 0;
   p.window = window;
-  p.k_steps = (sk + kBlockK - 1) / kBlockK;
   p.scale = scale;
+  (void)is_bf16;
+  (void)stream;
+  return true;
+}
+
+}  // namespace
+
+#define FLASH_NAMES                                                       \
+  q, k, v, out, is_bf16, batch, sq, sk, hq, hkv, dh, causal, window, q_sb, \
+      q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale, stream
+
+// mma.sync (bf16, is_bf16 1) at head_dim 16, 80 and 96, CUDA cores (f32,
+// is_bf16 0) at 16, 80, 96 and 128.
+extern "C" int flash_attention(FLASH_ARGS) {
+  Params p;
+  if (!make_params(p, FLASH_NAMES))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool b16 = is_bf16 != 0;
   switch (dh) {
@@ -553,4 +1102,12 @@ extern "C" int flash_attention(
     case 128: return launch<128>(p, batch, b16, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// TMA and wgmma: bf16 (is_bf16 1) at head_dim 128 only.
+extern "C" int flash_attention_wgmma(FLASH_ARGS) {
+  Params p;
+  if (!make_params(p, FLASH_NAMES) || is_bf16 != 1 || dh != hopper::kD)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_wgmma(p, batch, hkv, static_cast<cudaStream_t>(stream));
 }

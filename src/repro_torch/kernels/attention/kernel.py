@@ -1,16 +1,19 @@
 """Forward flash attention for prefill.  Counterpart of the Pallas kernel
 `repro.kernels.attention.kernel.flash_attention` (body ``_flash_kernel``).
 
-The work is done by the hand-written CUDA kernel
-``csrc/flash_attention.cu``; `ref.attention_ref` is its plain PyTorch
+The work is done by the hand-written CUDA kernels of
+``csrc/flash_attention.cu``; `ref.attention_ref` is their plain PyTorch
 version.  A wrapper takes the plain version only for tensors that lie on
-the CPU; a CUDA tensor launches the kernel or raises.  ``launches``
-counts kernel launches, so a run can show that its prefill went through
-the kernel.
+the CPU; a CUDA tensor launches a kernel or raises.  `design` picks the
+kernel from the dtype and head_dim: bf16 at head_dim 128 (Qwen3-14B's
+prefill) runs on TMA and ``wgmma`` in tiles of 128 query rows by 128
+keys; bf16 at the other head dims on ``mma.sync`` and f32 on CUDA cores,
+both in tiles of 64 by 64 (`TILES`).  ``launches`` counts kernel
+launches, so a run can show that its prefill went through a kernel.
 
 The JAX prefill picks ``(block_q, block_k)`` through the tuner; this
-package has no tuner yet (ROADMAP A8), so the kernel runs the tile it was
-designed for, 64 query rows by 64 keys (`BLOCK_Q`, `BLOCK_K`).
+package has no tuner for attention yet (ROADMAP A8), so each kernel runs
+the tile it was designed for.
 """
 
 from __future__ import annotations
@@ -22,14 +25,23 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.attention import ref
 
-BLOCK_Q = 64                  # query rows per block (kBlockQ)
-BLOCK_K = 64                  # keys per tile (kBlockK)
 # Every head_dim of the configs this path runs and of their SMOKE
-# variants (16); the bf16 kernel's products take dh in steps of 16.
+# variants (16); the bf16 kernels' products take dh in steps of 16.
 HEAD_DIMS = (16, 80, 96, 128)
 _DTYPES = (torch.float32, torch.bfloat16)
+# (query rows, keys) of each kernel's tile
+TILES = {"wgmma": (128, 128), "mma.sync": (64, 64), "f32": (64, 64)}
 
 launches = 0
+
+
+def design(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel a (dtype, head_dim) runs on the card: "wgmma" (TMA,
+    warp-specialised, bf16 at head_dim 128), "mma.sync" (bf16 at the
+    other head dims) or "f32" (CUDA cores)."""
+    if dtype == torch.bfloat16:
+        return "wgmma" if head_dim == 128 else "mma.sync"
+    return "f32"
 
 
 def _check(q, k, v, window) -> None:
@@ -74,8 +86,8 @@ def _check_cuda(q, k, v) -> None:
                              "16 bytes")
 
 
-def _entry():
-    fn = _build.library("flash_attention").flash_attention
+def _entry(name: str):
+    fn = getattr(_build.library("flash_attention"), name)
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
                        + [ctypes.c_longlong] * 9
@@ -94,8 +106,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``h // g`` when ``i >= j`` (``causal``), ``i - j < window``
     (``window``) and ``j < Sk``, positions counted from 0 in each
     sequence; a row with no such key outputs 0.  K tiles outside a query
-    tile's band (`core.cost_model.attention_step_bounds`) are never read.
-    Operands are read in place through their strides.
+    tile's band (`core.cost_model.attention_step_bounds` at the tile of
+    `design`) are never read.  Operands are read in place through their
+    strides.
     """
     _check(q, k, v, window)
     if q.device.type == "cpu" and k.device.type == "cpu" \
@@ -106,15 +119,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     b, sq, hq, dh = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     out = torch.empty((b, sq, hq, dh), dtype=q.dtype, device=q.device)
-    err = _entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                   int(q.dtype == torch.bfloat16), b, sq, sk, hq, hkv, dh,
-                   int(causal), 0 if window is None else int(window),
-                   *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                   float(scale), torch.cuda.current_stream(q.device)
-                   .cuda_stream)
+    entry = ("flash_attention_wgmma" if design(q.dtype, dh) == "wgmma"
+             else "flash_attention")
+    err = _entry(entry)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        int(q.dtype == torch.bfloat16), b, sq, sk, hq, hkv, dh, int(causal),
+        0 if window is None else int(window), *q.stride()[:3],
+        *k.stride()[:3], *v.stride()[:3], float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"{entry} kernel launch failed: CUDA error "
+                           f"{err}")
     global launches
     launches += 1
     return out

@@ -13,8 +13,11 @@ raises, and refuses cols that point outside x (`check_columns`).
 to ``threads / block_rows`` lanes (1024 threads for `ell_spmv`, 512 for
 `ell_spmv_blocked`).  The blocked kernel keeps its rows' entries in
 registers, at most `MAX_PER_LANE` a lane, which bounds ``block_rows`` by
-the width (`blocked_fits`).  Unlike the Pallas kernels these mask a
-ragged last row block and x's last slab themselves: nothing is padded.
+the width (`blocked_fits`).  It stages x in shared memory when x is one
+slab and otherwise gathers each entry's x directly from L2, so a slab
+that none of a block's entries falls in costs nothing (`slab_plan`
+counts what it does).  Unlike the Pallas kernels these mask a ragged
+last row block and x's last slab themselves: nothing is padded.
 """
 
 from __future__ import annotations
@@ -46,6 +49,31 @@ _cols_checked = WeakTensorKeyDictionary()
 def smem_bytes(n: int, block_cols: int | None = None) -> int:
     """Shared memory a block of the kernel takes: all of x, or a slab."""
     return 4 * (n if block_cols is None else block_cols)
+
+
+def slab_plan(cols: torch.Tensor, vals: torch.Tensor, n: int,
+              block_rows: int, block_cols: int) -> dict:
+    """What `ell_spmv_blocked` does with each (row block, slab) pair: x
+    of one slab is staged by every block; of several, a pair that holds
+    some of the block's nonzero entries is gathered (those entries read x
+    directly) and the others are skipped.  Returns the pair counts and
+    the nonzero entries gathered directly; runs on ``cols``' device."""
+    rows = cols.shape[0]
+    slabs = -(-n // block_cols)
+    blocks = -(-rows // block_rows)
+    live = vals != 0
+    entries = int(live.sum())
+    if slabs == 1:
+        staged, gathered, direct = blocks, 0, 0
+    else:
+        row_block = torch.arange(rows, device=cols.device) // block_rows
+        key = (row_block[:, None].expand_as(cols)[live] * slabs
+               + cols[live].long() // block_cols)
+        staged, gathered, direct = 0, int(torch.unique(key).numel()), entries
+    return {"blocks": blocks, "slabs": slabs, "pairs": blocks * slabs,
+            "staged": staged, "gathered": gathered,
+            "skipped": blocks * slabs - staged - gathered,
+            "direct_entries": direct, "entries": entries}
 
 
 def blocked_fits(width: int, block_rows: int) -> bool:

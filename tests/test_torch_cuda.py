@@ -2,12 +2,13 @@
 the decode-attention kernels, contiguous (`decode_attention`), paged
 (`paged_decode_attention`), int8 (`quantized_decode_attention`) and paged
 int8 (`paged_quantized_decode_attention`), the prefill flash-attention
-kernel (`flash_attention`) against `ref.attention_ref` with every mask
-kind, ragged tails and query rows with no key, the blocked matmul
-(`blocked_matmul`) against `matmul_ref` at ragged shapes with every
-activation, and the ELL SpMV kernels (`ell_spmv`, `ell_spmv_blocked`)
-against `spmv_ell_ref`, the slab walk `spmv_blocked_ref` and each
-other.  Every test here is marked
+kernels (`flash_attention`: TMA and `wgmma` for bf16 at head_dim 128,
+`mma.sync` and CUDA cores otherwise) against `ref.attention_ref` with
+every mask kind, ragged tails and query rows with no key, the blocked
+matmul (`blocked_matmul`) against `matmul_ref` at ragged shapes with
+every activation, and the ELL SpMV kernels (`ell_spmv`,
+`ell_spmv_blocked` with slabs staged, gathered and skipped) against
+`spmv_ell_ref`, the slab walk `spmv_blocked_ref` and each other.  Every test here is marked
 ``cuda`` and skips on a host without a card; this file imports no JAX, so
 it also runs where only the port is installed:
 
@@ -304,6 +305,83 @@ def test_flash_kernel_reads_strided_views(cuda):
     _assert_rows_close(out, ref, False)
 
 
+def _keep(sq, sk, causal, window, device):
+    i = torch.arange(sq, device=device)[:, None]
+    j = torch.arange(sk, device=device)[None, :]
+    keep = torch.ones((sq, sk), dtype=torch.bool, device=device)
+    if causal:
+        keep &= i >= j
+    if window is not None:
+        keep &= i - j < window
+    return keep
+
+
+WGMMA_LENGTHS = [1, 127, 129, 1000]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [1, 5])
+@pytest.mark.parametrize("causal, window", [(True, None), (True, 100),
+                                            (False, None), (False, 60)])
+@pytest.mark.parametrize("sq, sk", [(s, s) for s in WGMMA_LENGTHS]
+                         + [(1, 1000), (1000, 1), (127, 129), (129, 127)])
+def test_wgmma_flash_kernel_matches_attention_ref(cuda, sq, sk, causal,
+                                                  window, g):
+    """The TMA/wgmma kernel (bf16, head_dim 128) against `attention_ref`
+    by the per-row tolerance, at lengths on both sides of its 128-row and
+    128-key tiles; rows with no key exactly 0."""
+    assert flash.design(torch.bfloat16, 128) == "wgmma"
+    hkv = 2
+    q, k, v = _flash_inputs(sq * 7 + sk, 2, sq, sk, g * hkv, hkv, 128,
+                            "bf16", cuda)
+    before = flash.launches
+    out = flash.flash_attention(q, k, v, scale=128 ** -0.5, causal=causal,
+                                window=window)
+    ref = flash_ref.attention_ref(q, k, v, scale=128 ** -0.5, causal=causal,
+                                  window=window)
+    torch.cuda.synchronize()
+    assert flash.launches == before + 1
+    assert out.shape == q.shape and out.dtype == torch.bfloat16
+    _assert_rows_close(out, ref, False)
+    empty = ~_keep(sq, sk, causal, window, cuda).any(-1)
+    assert not out[:, empty].any(), "rows with no key must be exactly 0"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [1, 5])
+def test_wgmma_flash_kernel_reads_strided_views(cuda, g):
+    """q, k and v as head slices of one packed projection, and a batch of
+    sequences, through the tensor maps' strides."""
+    b, s, hkv, dh = 3, 300, 2, 128
+    hq = g * hkv
+    qkv = torch.randn((b, s, hq + 2 * hkv, dh), device=cuda,
+                      dtype=torch.bfloat16)
+    q, k, v = qkv[:, :, :hq], qkv[:, :, hq:hq + hkv], qkv[:, :, hq + hkv:]
+    for causal in (True, False):
+        out = flash.flash_attention(q, k, v, scale=dh ** -0.5, causal=causal)
+        ref = flash_ref.attention_ref(q, k, v, scale=dh ** -0.5,
+                                      causal=causal)
+        torch.cuda.synchronize()
+        _assert_rows_close(out, ref, False)
+
+
+@pytest.mark.cuda
+def test_wgmma_flash_window_rows_with_no_key_are_zero(cuda):
+    """Sq > Sk under a window: rows past Sk + window - 1 see no key, in
+    tiles whose keys TMA fills with zeros past Sk."""
+    sq, sk, window = 700, 130, 64
+    q, k, v = _flash_inputs(5, 1, sq, sk, 10, 2, 128, "bf16", cuda)
+    out = flash.flash_attention(q, k, v, scale=0.1, causal=True,
+                                window=window)
+    ref = flash_ref.attention_ref(q, k, v, scale=0.1, causal=True,
+                                  window=window)
+    torch.cuda.synchronize()
+    empty = ~_keep(sq, sk, True, window, cuda).any(-1)
+    assert int(empty.sum()) == sq - (sk + window - 1)
+    assert not out[:, empty].any()
+    _assert_rows_close(out, ref, False)
+
+
 @pytest.mark.cuda
 def test_flash_kernel_refuses_what_it_cannot_take(cuda):
     q, k, v = _flash_inputs(12, 1, 40, 40, 4, 2, 128, "bf16", cuda)
@@ -469,6 +547,110 @@ def test_ell_spmv_blocked_matches_its_ref_and_b7(cuda, m, n, density,
         assert spmv_kernel.blocked_launches == before + 1
         _assert_spmv_close(y, want, mat, x)
         _assert_spmv_close(y, resident, mat, x)
+
+
+def _banded_csr(rows, n, per_row, half, seed):
+    """CSR with ``per_row`` distinct columns a row within ``half`` of the
+    diagonal (clipped to [0, n))."""
+    rng = np.random.default_rng(seed)
+    indptr, indices = [0], []
+    for r in range(rows):
+        lo, hi = max(0, r - half), min(n, r + half + 1)
+        k = min(per_row, hi - lo)
+        indices.extend(sorted(rng.choice(np.arange(lo, hi), k,
+                                         replace=False)))
+        indptr.append(len(indices))
+    data = rng.standard_normal(len(indices)).astype(np.float32)
+    return (np.array(indptr, np.int32), np.array(indices, np.int32), data,
+            (rows, n))
+
+
+def _blocked_against_refs(mat, x, block_rows, block_cols):
+    before = spmv_kernel.blocked_launches
+    y = spmv_kernel.ell_spmv_blocked(x, mat.cols, mat.vals,
+                                     block_rows=block_rows,
+                                     block_cols=block_cols)
+    torch.cuda.synchronize()
+    assert spmv_kernel.blocked_launches == before + 1
+    _assert_spmv_close(y, spmv_ref.spmv_ell_ref(mat.cols, mat.vals, x), mat,
+                       x)
+    _assert_spmv_close(y, spmv_ref.spmv_blocked_ref(mat.cols, mat.vals, x,
+                                                    block_cols), mat, x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_rows, block_cols", [(16, 512), (64, 1024),
+                                                    (128, 4099),
+                                                    (128, 20_003)])
+def test_blocked_kernel_on_a_banded_matrix(cuda, block_rows, block_cols):
+    """Columns within 64 of the diagonal in natural row order: a row
+    block's entries fall in one or two slabs, which gather, and the
+    other slabs are skipped; at 20,003 columns x is one slab, staged."""
+    n = 20_003                            # not a multiple of 4
+    mat = spmv_ops.pack_csr(*_banded_csr(n, n, 40, 64, 3), scheme="none",
+                            device=cuda)
+    plan = spmv_kernel.slab_plan(mat.cols, mat.vals, n, block_rows,
+                                 block_cols)
+    if block_cols >= n:
+        assert plan["staged"] == plan["pairs"] == plan["blocks"]
+    else:
+        assert plan["staged"] == 0
+        assert plan["gathered"] > 0 and plan["skipped"] > plan["gathered"]
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(n)
+                         .astype(np.float32)).to(cuda)
+    _blocked_against_refs(mat, x, block_rows, block_cols)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_cols", [4096, 1000, 97])
+def test_blocked_kernel_gathers_a_scattered_matrix(cuda, block_cols):
+    """Every row spread over all of x: each slab holds a few of a block's
+    entries, which gather x directly."""
+    from repro_torch.benchmarks import table2_spmv
+    n = 400_001
+    mat = spmv_ops.pack_csr(*table2_spmv.synthesize_large(4000, n, seed=2),
+                            scheme="sorted", device=cuda)
+    plan = spmv_kernel.slab_plan(mat.cols, mat.vals, n, 64, block_cols)
+    assert plan["staged"] == 0 and plan["gathered"] > 0
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(n)
+                         .astype(np.float32)).to(cuda)
+    _blocked_against_refs(mat, x, 64, block_cols)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_cols", [1024, 3 * 1024 + 3])
+def test_blocked_kernel_skips_empty_slabs_at_32_entries_a_lane(cuda,
+                                                                block_cols):
+    """One matrix whose first rows are dense in the first slab, middle
+    rows spread over x, and whose last slab, ragged at 3 columns, no row
+    touches (skipped), at a width that needs 32 entries a lane; and the
+    same matrix with x as one slab, staged."""
+    rng = np.random.default_rng(9)
+    n = 3 * 1024 + 3
+    rows = []
+    for r in range(512):
+        if r < 256:
+            cols = rng.choice(1024, 200, replace=False)      # slab 0
+        else:
+            cols = rng.choice(3 * 1024, 2, replace=False)    # spread
+        rows.append(np.sort(cols))
+    indptr = np.concatenate([[0], np.cumsum([len(c) for c in rows])])
+    indices = np.concatenate(rows).astype(np.int32)
+    data = rng.standard_normal(len(indices)).astype(np.float32)
+    mat = spmv_ops.pack_csr(indptr.astype(np.int32), indices, data,
+                            (512, n), scheme="none", device=cuda)
+    assert mat.cols.shape[1] == 256
+    block_rows = 64                        # 8 lanes a row: 32 entries each
+    assert spmv_kernel.blocked_fits(256, block_rows)
+    plan = spmv_kernel.slab_plan(mat.cols, mat.vals, n, block_rows,
+                                 block_cols)
+    if block_cols >= n:
+        assert plan["staged"] == plan["blocks"]
+    else:
+        assert plan["staged"] == 0 and plan["gathered"] > 0
+        assert plan["skipped"] >= plan["blocks"]   # the ragged slab, at least
+    x = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(cuda)
+    _blocked_against_refs(mat, x, block_rows, block_cols)
 
 
 @pytest.mark.cuda

@@ -185,7 +185,7 @@ def test_entry_refuses_bad_shapes(bad, match):
 def _bounds_grid():
     for sq, sk in [(1, 1), (37, 37), (45, 30), (64, 64), (100, 257),
                    (512, 512), (4096, 4096)]:
-        for bq, bk in [(16, 16), (64, 64), (16, 64), (128, 32)]:
+        for bq, bk in [(16, 16), (64, 64), (16, 64), (128, 32), (128, 128)]:
             for causal in (True, False):
                 for window in (None, 1, 8, 64, 100, 4096):
                     yield sq, sk, bq, bk, causal, window
@@ -204,7 +204,7 @@ def test_step_bounds_equal_the_jax_law():
             assert (tcost.attention_step_bounds(i, bq, bk, k_steps, **kw)
                     == jcost.attention_step_bounds(i, bq, bk, k_steps, **kw))
         n += 1
-    assert n == 7 * 4 * 2 * 6
+    assert n == 7 * 5 * 2 * 6
 
 
 def test_band_holds_every_surviving_pair():
@@ -226,3 +226,41 @@ def test_band_holds_every_surviving_pair():
         first, last = bounds[i[:, 0] // bq].T
         inside = ((j // bk >= first[:, None]) & (j // bk <= last[:, None]))
         assert not (keep & ~inside).any(), (sq, sk, bq, bk, causal, window)
+
+
+@pytest.mark.parametrize("dtype, head_dim, want", [
+    (torch.bfloat16, 128, "wgmma"),
+    (torch.bfloat16, 16, "mma.sync"),
+    (torch.bfloat16, 80, "mma.sync"),
+    (torch.bfloat16, 96, "mma.sync"),
+    (torch.float32, 128, "f32"),
+    (torch.float32, 80, "f32"),
+    (torch.float32, 16, "f32"),
+])
+def test_design_routes_by_dtype_and_head_dim(dtype, head_dim, want):
+    """bf16 at head_dim 128 (Qwen3-14B's prefill) takes the TMA/wgmma
+    kernel in 128 x 128 tiles; the other bf16 head dims the mma.sync one
+    and f32 the CUDA-core one, both in 64 x 64 tiles."""
+    assert tkernel.design(dtype, head_dim) == want
+    assert tkernel.TILES[want] == ((128, 128) if want == "wgmma"
+                                   else (64, 64))
+    assert head_dim in tkernel.HEAD_DIMS
+
+
+def test_wgmma_tile_bounds_at_the_prefill_shapes():
+    """At the (128, 128) tile a causal 32k prefill walks the triangle of
+    256 query tiles, and a 4096-key window at most 33 tiles a query tile,
+    as the JAX law counts them."""
+    for causal, window in [(True, None), (True, 4096), (False, None)]:
+        kw = dict(causal=causal, window=window)
+        ours = tcost.attention_active_block_pairs(32768, 32768, 128, 128,
+                                                  **kw)
+        assert ours == jcost.attention_active_block_pairs(32768, 32768, 128,
+                                                          128, **kw)
+        assert (tcost.attention_max_k_steps(32768, 32768, 128, 128, **kw)
+                == jcost.attention_max_k_steps(32768, 32768, 128, 128, **kw))
+    active, dense = tcost.attention_active_block_pairs(32768, 32768, 128, 128,
+                                                       causal=True)
+    assert (active, dense) == (256 * 257 // 2, 256 * 256)
+    assert tcost.attention_max_k_steps(32768, 32768, 128, 128, causal=True,
+                                       window=4096) == 33

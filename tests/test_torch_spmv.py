@@ -151,3 +151,104 @@ def test_column_check_refuses_columns_outside_x():
     cols[1, 0] = -1                                # changed in place
     with pytest.raises(ValueError, match=r"\[-1, 4\]"):
         kernel.check_columns(cols, 5)
+
+
+# ---------------------------------------------------------------------------
+# B8's per-(row block, slab) decision: `kernel.slab_plan`
+# ---------------------------------------------------------------------------
+
+def _slab_plan_by_loops(cols, vals, n, block_rows, block_cols):
+    """The kernel's rule written out block by block and entry by entry."""
+    cols, vals = cols.numpy(), vals.numpy()
+    rows = cols.shape[0]
+    slabs = -(-n // block_cols)
+    out = dict(staged=0, gathered=0, skipped=0, direct_entries=0)
+    for r0 in range(0, rows, block_rows):
+        live = [int(c) for c, v in zip(cols[r0:r0 + block_rows].ravel(),
+                                       vals[r0:r0 + block_rows].ravel())
+                if v != 0]
+        if slabs == 1:
+            out["staged"] += 1
+            continue
+        touched = {c // block_cols for c in live}
+        out["gathered"] += len(touched)
+        out["skipped"] += slabs - len(touched)
+        out["direct_entries"] += len(live)
+    return out
+
+
+def _banded(rows, seed=5):
+    return table2_spmv.synthesize_banded(rows, rows, seed=seed)
+
+
+@pytest.mark.parametrize("kind, n, block_rows, block_cols", [
+    ("banded", 3000, 64, 1024),
+    ("banded", 3000, 16, 4099),          # one slab: staged
+    ("scattered", 60_000, 64, 1024),
+    ("scattered", 60_000, 128, 200),     # 300 slabs
+    ("scattered", 60_000, 32, 59_999),   # a ragged last slab of 1 column
+    ("scattered", 60_000, 64, 60_000),   # one slab: staged
+])
+def test_slab_plan_equals_the_kernel_rule_entry_by_entry(kind, n, block_rows,
+                                                         block_cols):
+    if kind == "banded":
+        csr = _banded(n)
+    else:
+        csr = table2_spmv.synthesize_large(3000, n, seed=4)
+    mat = ops.pack_csr(*csr, scheme="sorted", device="cpu")
+    plan = kernel.slab_plan(mat.cols, mat.vals, n, block_rows, block_cols)
+    want = _slab_plan_by_loops(mat.cols, mat.vals, n, block_rows, block_cols)
+    assert {k: plan[k] for k in want} == want
+    assert plan["staged"] + plan["gathered"] + plan["skipped"] \
+        == plan["pairs"] == plan["blocks"] * plan["slabs"]
+    assert plan["entries"] == mat.nnz
+
+
+def test_slab_plan_stages_one_slab_and_gathers_across_many():
+    """The two regimes at a small size.  x of one slab is staged by every
+    row block.  Across many slabs every entry gathers: a banded matrix
+    (columns within 128 of the diagonal) in its natural row order puts a
+    row block's entries in one or two slabs, so nearly every other pair
+    is skipped; sorted by length, as the Table-II driver packs it, a
+    block's rows come from far apart and touch more slabs; a
+    `synthesize_large` matrix spreads every row over all of x."""
+    csr = _banded(100_000)
+    mat = ops.pack_csr(*csr, scheme="none", device="cpu")
+    one = kernel.slab_plan(mat.cols, mat.vals, 100_000, 128, 100_000)
+    assert one["staged"] == one["blocks"] == one["pairs"]
+    assert one["direct_entries"] == 0
+    band = kernel.slab_plan(mat.cols, mat.vals, 100_000, 128, 4096)
+    assert band["staged"] == 0
+    assert band["gathered"] <= 2 * band["blocks"]
+    assert band["skipped"] > 10 * band["gathered"]
+    assert band["direct_entries"] == band["entries"] \
+        == int((mat.vals != 0).sum())
+    mat = ops.pack_csr(*csr, scheme="sorted", device="cpu")
+    sorted_band = kernel.slab_plan(mat.cols, mat.vals, 100_000, 128, 4096)
+    assert sorted_band["gathered"] > 2 * band["gathered"]
+    csr = table2_spmv.synthesize_large(20_000, 400_000, seed=3)
+    mat = ops.pack_csr(*csr, scheme="sorted", device="cpu")
+    wide = kernel.slab_plan(mat.cols, mat.vals, 400_000, 128, 4096)
+    assert wide["staged"] == 0 and wide["gathered"] > 0
+    assert wide["direct_entries"] == wide["entries"] == mat.nnz
+
+
+def test_blocked_smem_is_one_slab():
+    assert kernel.smem_bytes(10_000, 4096) == 4 * 4096
+    assert kernel.smem_bytes(10_000) == 40_000
+
+
+def test_banded_matrix_keeps_its_band():
+    indptr, indices, data, shape = table2_spmv.synthesize_banded(
+        5000, 5000, seed=5)
+    lens = np.diff(indptr)
+    assert shape == (5000, 5000) and lens.min() >= 1 and lens.max() <= 96
+    rows = np.repeat(np.arange(5000), lens)
+    inner = (rows >= 128) & (rows < 5000 - 128)
+    assert np.abs(indices - rows)[inner].max() <= 128
+    assert np.abs(indices - rows).max() <= 256
+    key = rows * 5000 + indices
+    assert len(np.unique(key)) == len(key)     # distinct within a row
+    again = table2_spmv.synthesize_banded(5000, 5000, seed=5)
+    assert all(np.array_equal(a, b) for a, b in zip(again[:3],
+                                                      (indptr, indices, data)))
