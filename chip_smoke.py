@@ -10,8 +10,9 @@ Phases, each printed as one JSON line:
 1. ``device``: the card as ``nvidia-smi`` reports it (also printed raw),
    the torch and CUDA versions.
 2. ``build``: every kernel under ``src/repro_torch/csrc`` compiled with
-   ``nvcc`` for ``sm_90a`` (eight: B1-B8, the two SpMV kernels in one
-   source), one ``nvcc`` per source, all at once, and the seconds.
+   ``nvcc`` for ``sm_90a`` (B1-B8 in nine sources: B6's wgmma kernel in
+   its own, its mma.sync and f32 kernels in another, the two SpMV kernels
+   in one), one ``nvcc`` per source, all at once, and the seconds.
 3. ``kernel_cases``: each CUDA decode-attention kernel against its plain
    PyTorch version on the card at Qwen3-14B decode shapes (Hq 40, Hkv 8,
    dh 128): contiguous (``decode_ref``, with PyTorch SDPA timed as the
@@ -66,29 +67,39 @@ Phases, each printed as one JSON line:
    device time by kernel from `torch.profiler` over traced steps.
 10. ``matmul_cases``: the blocked matmul B6, with the tile the tuner
    measures fastest among the model's top ``TABLE1_MEASURE_K``, against
-   `matmul_ref` on the card (per-row tolerance `ref.row_tolerance`: 1e-5 of the row's
-   largest |ref| in f32, 2^-7 in bf16) at the four Table-1 shapes in
-   bf16, 4096^3 in f32, ragged 130x70x50 (bf16 and f32, with a bias and
-   GELU) and 1x128x256, and every activation with a bias at 4096^3 bf16;
-   each with its time, the plain version's, cuBLAS's (`torch.matmul` in
+   `matmul_ref` on the card (per-row tolerance `ref.row_tolerance`: 1e-5
+   of the row's largest |ref| in f32, 2^-7 in bf16) at the four Table-1
+   shapes in bf16, 4096^3 in f32, ragged 130x70x50 (bf16 and f32, with a
+   bias and GELU; rows of 100 bytes, so the mma.sync kernel), ragged
+   4000x3000x1000 (the wgmma kernel, TMA filling the edges) and
+   1x128x256, and every activation with a bias at 4096^3 bf16; each with
+   the design that ran (`kernel.design`: wgmma+TMA, mma.sync or CUDA
+   cores), its time, the plain version's, cuBLAS's (`torch.matmul` in
    the same dtype, TF32 off), the bound and TFLOP/s.
-11. ``spmv_cases``: B7 (x resident) and B8 (x in slabs: staged when x
-   is one slab, else gathered directly) against `spmv_ell_ref` (B8 also
-   against its slab walk) and, in the original row order, `spmv_csr_ref`,
-   within 1e-5 of each row's sum of |products|: B7 on the four Table-II
+11. ``spmv_cases``: B7 (x resident, reading only each row's nonzeros by
+   the row lengths) and B8 (x in slabs: staged when x is one slab, else
+   gathered directly) against `spmv_ell_ref` (B7 also with the row
+   lengths, B8 also against its slab walk) and, in the original row
+   order, `spmv_csr_ref`, within 1e-5 of each row's sum of |products|:
+   B7 on the four Table-II
    matrices, both on ``spmv_1m_narrow`` (1M rows, x of 128 KB), B8 on
    ``spmv_1m_wide`` (1M rows and columns, every row spread over x) and on
    ``spmv_1m_banded`` (1M rows and columns, LD_pilot87's 1-96 nonzeros a
    row within 128 columns of the diagonal, seeded here), each at the
    tuner's plan; each with its time, the plain version's, cuSPARSE's
-   (`torch.sparse_csr_tensor` @ x), its bytes bound and, for B8, the
-   counts of staged, gathered and skipped (row block, slab) pairs
+   (`torch.sparse_csr_tensor` @ x), its bytes bound (the nonzeros' cols
+   and vals, x and y; the padded ELL's bytes beside it) and, for B7,
+   every block_rows that launches differently timed against the tuner's
+   pick; for B8, the counts
+   of staged, gathered and skipped (row block, slab) pairs
    (`kernel.slab_plan`).
 12. ``table1`` and ``table2``: `repro_torch.benchmarks.table1_matmul` and
    ``table2_spmv`` on the card, each in a fresh tuning cache, with the
    launch counts set to 0 just before and read just after: Table-1 plans
-   measured on the card (keys naming it), B6 timed at the Table-1 shapes,
-   a second `tune` answered from the cache; the Table-II rows (dense
+   measured on the card (keys naming it), B6 timed at the Table-1 shapes
+   (every launch on the wgmma kernel), a second `tune` answered from the
+   cache, and every built tile timed at 8192^3 beside its rank under the
+   model; the Table-II rows (dense
    baseline against the tuned sparse path) and the tuned plans of the
    four matrices and both 1M-row ones, the wide one on B8.
 13. ``kernels``: one entry per ported kernel, with its TPU counterpart,
@@ -144,8 +155,10 @@ DESIGNS = {
     "paged_quantized_decode_attention": "cp.async tile walk, f32 CUDA cores",
     "flash_attention": {"wgmma": "wgmma+TMA", "mma.sync": "mma.sync",
                         "f32": "f32 CUDA cores"},
-    "blocked_matmul": "mma.sync",
-    "ell_spmv": "x resident in shared memory",
+    "blocked_matmul": "wgmma+TMA (bf16 read by TMA), mma.sync (other "
+                      "bf16), CUDA cores (f32): kernel.design",
+    "ell_spmv": "x resident in shared memory, row lengths: only the "
+                "nonzeros read, in 16-byte vectors",
     "ell_spmv_blocked": "stage-or-gather: x staged when one slab, "
                         "else gathered directly",
 }
@@ -164,7 +177,7 @@ KERNELS = {
         "src/repro/kernels/attention/decode_int8.py:282"),
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/attention/kernel.py:177"),
-    "blocked_matmul": ("src/repro_torch/csrc/blocked_matmul.cu",
+    "blocked_matmul": ("src/repro_torch/csrc/blocked_matmul_wgmma.cu",
                        "src/repro/kernels/matmul/kernel.py:102"),
     "ell_spmv": ("src/repro_torch/csrc/ell_spmv.cu",
                  "src/repro/kernels/spmv/kernel.py:51"),
@@ -526,6 +539,7 @@ def reset_launch_counts(mods) -> None:
     decode_int8.launches = decode_int8.paged_launches = 0
     flash.launches = 0
     mm.launches = 0
+    mm.design_launches.update(dict.fromkeys(mm.design_launches, 0))
     sp.launches = sp.blocked_launches = 0
 
 
@@ -982,6 +996,7 @@ MATMUL_CASES = (
                      (16384, 16384, 16384), (8192, 2048, 8192)]]
     + [("f32_4096", 4096, 4096, 4096, "f32", None, False),
        ("ragged_130x70x50", 130, 70, 50, "bf16", "gelu", True),
+       ("ragged_4000x3000x1000", 4000, 3000, 1000, "bf16", "gelu", True),
        ("ragged_130x70x50_f32", 130, 70, 50, "f32", "gelu", True),
        ("row_1x128x256", 1, 128, 256, "bf16", None, False)]
     + [(f"epilogue_{act}_4096", 4096, 4096, 4096, "bf16", act, True)
@@ -1018,25 +1033,27 @@ def matmul_bound(m: int, n: int, k: int, in_bytes: int, out_bytes: int,
     return nbytes, ops, ms, by
 
 
-def spmv_bound(rows: int, width: int, n: int, nnz: int
-               ) -> tuple[float, float, float, str]:
-    """(bytes, operations, bound ms, bound by) of y = A @ x over a padded
-    ELL matrix: its int32 cols and f32 vals (every entry, padding too:
-    the kernel reads them), x and y once; 2 operations a nonzero at the
-    f32 rate."""
-    nbytes = rows * width * 8 + n * 4 + rows * 4
+def spmv_bound(m: int, n: int, nnz: int, rows: int, width: int
+               ) -> tuple[float, float, float, str, float]:
+    """(bytes, operations, bound ms, bound by, padded bytes) of y = A @ x
+    for an (m, n) matrix of ``nnz`` nonzeros: the bytes the function needs
+    are each nonzero's int32 column and f32 value, x and y once; 2
+    operations a nonzero at the f32 rate.  The padded bytes are what a
+    walk of the whole (rows, width) ELL reads (the bound of earlier
+    runs)."""
+    nbytes = nnz * 8 + n * 4 + m * 4
     ops = 2.0 * nnz
     ms, by = bound_ms(nbytes, ops, "float32")
-    return nbytes, ops, ms, by
+    return nbytes, ops, ms, by, rows * width * 8 + n * 4 + rows * 4
 
 
 def matmul_case(torch, mm_ops, mm_ref, flush, *, name, m, n, k, dtype,
                 activation, with_bias, tile, seed=0):
     """One shape of B6 with ``tile`` against `matmul_ref` on the card,
-    within `ref.row_tolerance`; its time, the
-    plain version's, cuBLAS's (`torch.matmul` in the same dtype, TF32
-    off, without the epilogue) and the bound.  Runs where ``flush``
-    lies."""
+    within `ref.row_tolerance`; the design that ran
+    (`kernel.design`), its time, the plain version's, cuBLAS's
+    (`torch.matmul` in the same dtype, TF32 off, without the epilogue)
+    and the bound.  Runs where ``flush`` lies."""
     dev = flush.device
     dt = {"bf16": torch.bfloat16, "f32": torch.float32}[dtype]
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -1052,27 +1069,32 @@ def matmul_case(torch, mm_ops, mm_ref, flush, *, name, m, n, k, dtype,
     def plain():
         return mm_ref.matmul_ref(a, b, bias=bias, activation=activation)
 
+    design = mm_ops.kernel.design(a, b, tile)
+    before = dict(mm_ops.kernel.design_launches)
     out, want = kernel(), plain()
     torch.cuda.synchronize()
+    ran = {d: v - before[d] for d, v in mm_ops.kernel.design_launches.items()
+           if v != before[d]}
     err = (out.float() - want.float()).abs()
     ratio = float((err / mm_ref.row_tolerance(want, out.dtype))
                   .nan_to_num(0.0).max())
     finite = bool(torch.isfinite(out).all())
     del out, want
     big = m * n * k >= 8192 ** 3
-    ms = median_ms(torch, kernel, 5 if big else 11, flush)
+    reps = 5 if big else 11
+    ms = median_ms(torch, kernel, reps, flush)
     plain_ms = median_ms(torch, plain, 3 if big else 5, flush)
-    library_ms = median_ms(torch, lambda: torch.matmul(a, b),
-                           5 if big else 11, flush)
+    library_ms = median_ms(torch, lambda: torch.matmul(a, b), reps, flush)
     nbytes, ops, b_ms, by = matmul_bound(m, n, k, a.element_size(),
                                          a.element_size(), with_bias)
     return {"kernel": "blocked_matmul", "name": name, "m": m, "n": n, "k": k,
             "dtype": dtype, "activation": activation, "bias": with_bias,
+            "design": design, "launched": ran,
             "tile": [tile.y, tile.x, tile.z], "max_abs_err": float(err.max()),
             "tolerance": ("1e-5" if dtype == "f32" else "2^-7")
             + " x the row's max |ref|",
             "max_err_over_tol": ratio, "finite": finite,
-            "ok": ratio <= 1 and finite,
+            "ok": ratio <= 1 and finite and ran == {design: 1},
             "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "library": "torch.matmul (cuBLAS), no epilogue",
             "bound_ms": b_ms, "bound_by": by, "bytes": nbytes,
@@ -1112,27 +1134,38 @@ def spmv_case(torch, autotune, sp_ops, sp_kernel, sp_ref, spec, flush,
     at the configuration the main path runs: the tuner's plan on the card
     (`autotune.tune`, as `table2_spmv.tuned_records` calls it) when the
     plan is this kernel's, else the fastest on the card of this kernel's
-    top configurations by the model, as many as the tuner times.  Held
-    against `spmv_ell_ref` (B8 also against its slab walk) within
-    `ref.row_tolerance`, and, in the original row order, against
-    `spmv_csr_ref`; its time, the plain version's, cuSPARSE's (a
-    `torch.sparse_csr_tensor` of the same CSR times x) and the bound."""
+    top configurations by the model, as many as the tuner times.  B7 runs
+    with the row lengths, as `ops.spmv` calls it.  Held against
+    `spmv_ell_ref` (B7 also with the row lengths, B8 also against its slab
+    walk) within `ref.row_tolerance`, and, in the original row order,
+    against `spmv_csr_ref`; its time, the plain version's, cuSPARSE's (a
+    `torch.sparse_csr_tensor` of the same CSR times x) and the bound.  For
+    B7 also every block_rows that launches differently
+    (`kernel.distinct_block_rows`) timed, where there are several, so the
+    tuner's pick can be held against the card's fastest."""
     rows, width = mat.cols.shape
     m, n = mat.shape
     blocked = kernel == "ell_spmv_blocked"
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     tuned = autotune.tune("spmv", {"mat": mat}, device="cuda", cache=cache)
     if (tuned.knobs["block_cols"] is not None) == blocked:
         br, bc = tuned.knobs["block_rows"], tuned.knobs["block_cols"]
         picked = "the tuner's plan"
     else:
         ranked = [r for r in spec.rank_configs(mat)
-                  if (r[2] is not None) == blocked][:SPMV_MEASURE_K]
+                  if (r[2] is not None) == blocked]
+        if not blocked:
+            launched = sp_kernel.distinct_block_rows(
+                rows, width, n, sms, [r[1] for r in ranked])
+            ranked = [r for r in ranked if r[1] in launched]
+        ranked = ranked[:SPMV_MEASURE_K]
         if not ranked:
             return {"kernel": kernel, "name": name, "ok": False,
                     "why": "no configuration of this kernel fits"}
         timed = [(autotune.measure(
-            lambda br=br, bc=bc: sp_ops.spmv(mat, x, block_rows=br,
-                                             block_cols=bc), "cuda"), br, bc)
+            lambda br=br, bc=bc: sp_ops.packed_spmv(mat, x, block_rows=br,
+                                                    block_cols=bc), "cuda"),
+                  br, bc)
             for _, br, bc, _ in ranked]
         _, br, bc = min(timed)
         picked = (f"the fastest of this kernel's top {len(ranked)} "
@@ -1145,16 +1178,19 @@ def spmv_case(torch, autotune, sp_ops, sp_kernel, sp_ref, spec, flush,
         def plain():
             return sp_ref.spmv_blocked_ref(mat.cols, mat.vals, x, bc)
     else:
-        def run():
-            return sp_kernel.ell_spmv(x, mat.cols, mat.vals, block_rows=br)
+        def run(br=br):
+            return sp_kernel.ell_spmv(x, mat.cols, mat.vals, block_rows=br,
+                                      row_lens=mat.lens)
 
         def plain():
-            return sp_ref.spmv_ell_ref(mat.cols, mat.vals, x)
+            return sp_ref.spmv_ell_ref(mat.cols, mat.vals, x, mat.lens)
     y = run()
     tol = sp_ref.row_tolerance(mat.cols, mat.vals, x)
     checks = {"ell_ref": sp_ref.spmv_ell_ref(mat.cols, mat.vals, x)}
     if blocked:
         checks["slab_walk_ref"] = plain()
+    else:
+        checks["ell_ref_row_lens"] = plain()
     ratios = {k: float(((y - v).abs() / tol).nan_to_num(0.0).max())
               for k, v in checks.items()}
     errs = {k: float((y - v).abs().max()) for k, v in checks.items()}
@@ -1172,11 +1208,17 @@ def spmv_case(torch, autotune, sp_ops, sp_kernel, sp_ref, spec, flush,
                                     check_invariants=True)
     big = rows * width > 2 ** 24
     ms = median_ms(torch, run, 11 if big else 21, flush)
+    sweep = None
+    distinct = ([] if blocked else
+                sp_kernel.distinct_block_rows(rows, width, n, sms))
+    if len(distinct) > 1:
+        sweep = {r: median_ms(torch, lambda r=r: run(r), 11, flush)
+                 for r in distinct}
     plain_ms = median_ms(torch, plain, 3 if big else 5, flush)
     library_ms = median_ms(torch, lambda: a_csr @ x, 11 if big else 21,
                            flush)
     del a_csr
-    nbytes, ops, b_ms, by = spmv_bound(rows, width, n, mat.nnz)
+    nbytes, ops, b_ms, by, padded = spmv_bound(m, n, mat.nnz, rows, width)
     plan = (sp_kernel.slab_plan(mat.cols, mat.vals, n, br, bc) if blocked
             else None)
     return {"kernel": kernel, "name": name, "rows": m, "n": n,
@@ -1184,6 +1226,9 @@ def spmv_case(torch, autotune, sp_ops, sp_kernel, sp_ref, spec, flush,
             "block_cols": bc, "configuration": picked,
             "design": DESIGNS[kernel], "slab_plan": plan,
             "tuned_plan": tuned.knobs, "slabs": -(-n // bc) if bc else None,
+            "block_rows_ms": sweep,
+            "fastest_block_rows": sweep and min(sweep, key=sweep.get),
+            "ms_over_fastest": sweep and ms / min(sweep.values()),
             "max_abs_err": max(errs.values()), "errors": errs,
             "tolerance": "1e-5 x the row's sum of |products|",
             "max_err_over_tol": max(ratios.values()),
@@ -1192,7 +1237,8 @@ def spmv_case(torch, autotune, sp_ops, sp_kernel, sp_ref, spec, flush,
             "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "library": "torch.sparse_csr_tensor @ x (cuSPARSE)",
             "bound_ms": b_ms, "bound_by": by, "bytes": nbytes,
-            "operations": ops, "gb_per_s": nbytes / ms / 1e6}
+            "padded_bytes": padded, "operations": ops,
+            "gb_per_s": nbytes / ms / 1e6}
 
 
 def spmv_cases(torch, table2, ops, autotune, sp_kernel, sp_ref, spec,
@@ -1220,6 +1266,50 @@ def spmv_cases(torch, table2, ops, autotune, sp_kernel, sp_ref, spec,
     return cases
 
 
+def tile_sweep(torch, shape=(8192, 8192, 8192), reps: int = 5
+               ) -> list[dict]:
+    """B6 at ``shape`` in bf16 with every built tile beside its rank and
+    time under the model (`spec.rank_tiles`), fastest first: whether the
+    model's order is the card's (D5).  Each tile's time is the median of
+    ``reps`` calls timed as `median_ms` times them (L2 evicted, a spin
+    before each), the tiles taken in turn within each round so that a
+    drift of the card's clock falls on all of them alike."""
+    from repro_torch.benchmarks import table1_matmul as table1
+    from repro_torch.core import tiling
+    from repro_torch.kernels.matmul import ops as mm_ops
+    from repro_torch.kernels.matmul import spec as mm_spec
+    m, n, k = shape
+    ranked = mm_spec.rank_tiles(m, n, k, top=len(tiling.HOPPER_TILES) + 1)
+    rank = {c.detail["tile"]: (i + 1, c.score) for i, c in enumerate(ranked)}
+    a, b = table1._operands(m, n, k, torch.bfloat16, torch.device("cuda"))
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    times = {t: [] for t in tiling.HOPPER_TILES}
+    for t in times:
+        mm_ops.matmul(a, b, tile=t)
+    torch.cuda.synchronize()
+    for _ in range(reps):
+        for t in times:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            flush.zero_()
+            torch.cuda._sleep(4_000_000)
+            start.record()
+            mm_ops.matmul(a, b, tile=t)
+            end.record()
+            torch.cuda.synchronize()
+            times[t].append(start.elapsed_time(end))
+    rows = []
+    for t, ms in times.items():
+        ms = sorted(ms)[reps // 2]
+        rows.append({"tile": [t.y, t.x, t.z], "ms": ms,
+                     "tflops": 2.0 * m * n * k / ms / 1e9,
+                     "model_rank": rank[t][0] if t in rank else None,
+                     "model_ms": rank[t][1] * 1e3 if t in rank else None,
+                     "design": mm_ops.kernel.design(a, b, t)})
+    del a, b, flush
+    return sorted(rows, key=lambda r: r["ms"])
+
+
 def table1_phase(torch, table1, autotune, mods):
     """The port's Table I on the card, in a fresh cache file: the tuner
     against the eq. 2 tile at the Table-1 shapes (plans measured on the
@@ -1227,8 +1317,11 @@ def table1_phase(torch, table1, autotune, mods):
     it), B6 timed with the tuned, eq. 2 and fixed tiles,
     the measured TFLOP/s beside the model's, and a second `tune` of each
     shape answered from the cache.  Launch counts are set to 0 just
-    before and read just after."""
+    before and read just after; every launch must be on the wgmma
+    kernel.  Then, outside that window, every built tile at 8192^3
+    (`tile_sweep`)."""
     import tempfile
+    from repro_torch.kernels.matmul import kernel as mm_kernel
     kind = torch.cuda.get_device_name(0)
     with tempfile.TemporaryDirectory() as tmp:
         cache = autotune.TuneCache(pathlib.Path(tmp) / "autotune.json")
@@ -1239,21 +1332,26 @@ def table1_phase(torch, table1, autotune, mods):
         measured = table1.tuned_vs_fixed_measured("cuda", cache=cache)
         seconds = time.time() - t0
         counts = launch_counts(mods)
+        by_design = dict(mm_kernel.design_launches)
         again = [autotune.tune("matmul", {"m": m, "n": n, "k": k},
                                torch.bfloat16, device="cuda", cache=cache)
                  for m, n, k in table1.TABLE1_SHAPES]
+    sweep = tile_sweep(torch)
     ok = (all(r["tuned_source"] == "measured" and kind in r["key"]
               for r in tuned)
           and all(p.source == "cache" and p.provenance == "measured"
                   for p in again)
           and counts["blocked_matmul"] > 0
-          and all(v == 0 for k, v in counts.items() if k != "blocked_matmul"))
+          and by_design["wgmma+TMA"] == counts["blocked_matmul"]
+          and all(v == 0 for k, v in counts.items() if k != "blocked_matmul")
+          and all(r["design"] == "wgmma+TMA" for r in sweep))
     from repro_torch.core import hardware
     return {"chip": dataclasses.asdict(hardware.detect()),
             "seconds": seconds, "tuned_vs_fixed": tuned,
             "measured": measured,
             "second_tune_sources": [p.source for p in again],
-            "launches": counts, "ok": ok}
+            "launches": counts, "launches_by_design": by_design,
+            "tile_sweep_8192": sweep, "ok": ok}
 
 
 def table2_phase(torch, table2, autotune, mods):
@@ -1341,6 +1439,7 @@ def paper_phases(torch, mods):
     gc.collect()
     torch.cuda.empty_cache()
     launches = {"blocked_matmul": t1["launches"]["blocked_matmul"],
+                "blocked_matmul_by_design": t1["launches_by_design"],
                 "ell_spmv": t2["launches"]["ell_spmv"],
                 "ell_spmv_blocked": t2["launches"]["ell_spmv_blocked"]}
     return mcases + scases, launches
@@ -1503,6 +1602,8 @@ def main() -> int:
             entry["library"] = serve_case.get("library", NO_LIBRARY)
         if name == "flash_attention":
             entry["launches_by_phase"] = prefill_launches
+        if name == "blocked_matmul":
+            entry["launches_by_design"] = launches["blocked_matmul_by_design"]
         entries.append(entry)
     print(json.dumps({"kernels": entries}), flush=True)
     print(smi, flush=True)

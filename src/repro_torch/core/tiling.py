@@ -13,12 +13,17 @@ under ``x*(2z + y) <= L`` with z = 1; Lagrange gives eq. 2,
 package's, verbatim.
 
 Hopper form (`solve_hopper`, in place of the TPU's `solve_tpu`): the CUDA
-kernel ``csrc/blocked_matmul.cu`` stages A (y, z) and B (z, x) tiles in
-shared memory, two stages deep, rows padded by 16 bytes, and keeps the
-(y, x) C tile in f32 registers.  So a tile must fit two budgets, the
-block's shared memory (the paper's ``L``) and the registers an SM can
-give its accumulators, and must be one of the tiles the kernel is built
-for (`HOPPER_TILES`).  Q does not depend on z, so z is the deepest that
+kernels stage A (y, z) and B (z, x) tiles in shared memory and keep the
+(y, x) C tile in f32 registers.  bf16 runs ``csrc/blocked_matmul_wgmma.cu``
+(TMA and ``wgmma``): a ring of unpadded, swizzled stages, two mbarriers
+a stage, at least `WGMMA_MIN_STAGES` and as many as a block's shared
+memory holds.  f32 runs the CUDA-core kernel of ``csrc/blocked_matmul.cu``:
+two stages, rows padded by 16 bytes.  `hopper_smem_bytes` is what each
+allocates at launch, `hopper_min_smem_bytes` the least it runs in.  So a
+tile must fit two budgets, the block's shared memory (the paper's ``L``,
+against the least footprint) and the registers an SM can give its
+accumulators, and must be one of the tiles the kernels are built for
+(`HOPPER_TILES`).  Q does not depend on z, so z is the deepest that
 fits.
 """
 
@@ -34,7 +39,14 @@ from repro_torch.core import hardware
 HOPPER_YX = ((64, 64), (64, 128), (64, 256), (128, 64), (128, 128),
              (128, 256), (256, 64), (256, 128))
 HOPPER_Z = (32, 64)
-STAGES = 2
+STAGES = 2                      # the f32 kernel's stages
+# The bf16 (wgmma) kernel's ring: as many stages of (A, B, two 8-byte
+# mbarriers) as a block's shared memory holds after the slack that lets
+# the ring start on 1024 bytes, and never fewer than three.
+WGMMA_SMEM_LIMIT = 232_448
+WGMMA_MIN_STAGES = 3
+WGMMA_ALIGN_SLACK = 1024
+MBARRIER_BYTES = 8
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,20 +131,44 @@ def brute_force_paper(L: int, p: int = 1, n: int = 4096) -> Tile:
     return best
 
 
+def _wgmma_stage_bytes(tile: Tile) -> int:
+    return (tile.y * tile.z + tile.z * tile.x) * 2 + 2 * MBARRIER_BYTES
+
+
+def wgmma_stages(tile: Tile) -> int:
+    """Stages of the bf16 kernel's ring for ``tile``."""
+    return (WGMMA_SMEM_LIMIT - WGMMA_ALIGN_SLACK) // _wgmma_stage_bytes(tile)
+
+
 def hopper_smem_bytes(tile: Tile, dtype_bytes: int) -> int:
-    """Shared memory of the CUDA kernel's staged tiles: ``STAGES`` copies
-    of A (y, z) and B (z, x), each row padded by 16 bytes (as the kernel
-    lays them out, so ``ldmatrix`` reads are free of bank conflicts)."""
+    """Dynamic shared memory a launch of the CUDA kernel for ``tile``
+    takes.  bf16 (2-byte operands): `wgmma_stages` stages of unpadded A
+    (y, z) and B (z, x) with their two mbarriers, plus the alignment
+    slack.  f32: ``STAGES`` copies of A and B, each row padded by 16 bytes
+    (so the CUDA cores' reads are free of bank conflicts)."""
+    if dtype_bytes == 2:
+        return (wgmma_stages(tile) * _wgmma_stage_bytes(tile)
+                + WGMMA_ALIGN_SLACK)
     pad = 16 // dtype_bytes
     return STAGES * (tile.y * (tile.z + pad) + tile.z * (tile.x + pad)) \
         * dtype_bytes
 
 
+def hopper_min_smem_bytes(tile: Tile, dtype_bytes: int) -> int:
+    """The least shared memory the kernel for ``tile`` runs in: in bf16
+    a ring of `WGMMA_MIN_STAGES` (the launch fills the card's budget with
+    more, which only hides more latency); in f32 its fixed two stages."""
+    if dtype_bytes == 2:
+        return WGMMA_MIN_STAGES * _wgmma_stage_bytes(tile) + WGMMA_ALIGN_SLACK
+    return hopper_smem_bytes(tile, dtype_bytes)
+
+
 def hopper_fits(tile: Tile, dtype_bytes: int, smem_bytes: int,
                 accum_bytes: int) -> bool:
-    """Whether the staged tiles fit ``smem_bytes`` and the f32 C tile
-    fits ``accum_bytes`` of registers."""
-    return (hopper_smem_bytes(tile, dtype_bytes) <= smem_bytes
+    """Whether the kernel's least footprint for ``tile`` fits
+    ``smem_bytes`` and the f32 C tile fits ``accum_bytes`` of
+    registers."""
+    return (hopper_min_smem_bytes(tile, dtype_bytes) <= smem_bytes
             and tile.y * tile.x * 4 <= accum_bytes)
 
 

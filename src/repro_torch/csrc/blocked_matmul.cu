@@ -28,8 +28,10 @@
 // transposed ldmatrix.  f32 operands run exact FMAs on the CUDA cores,
 // never TF32: each thread owns an 8 x 8 part of the tile, its rows and
 // columns strided by y / 8 and x / 8 so a warp's reads hit distinct
-// banks or broadcast.  Known gap: mma.sync and cp.async reach a fraction
-// of what wgmma fed by TMA reaches on Hopper (ROADMAP queue D).
+// banks or broadcast.  bf16 operands that TMA can read (16-byte aligned
+// base and row strides) run blocked_matmul_wgmma.cu instead, at the
+// tensor cores' rate; this mma.sync kernel takes the other bf16 operands
+// (kernels/matmul/kernel.py :: design).
 //
 // Built for the tiles of core/tiling.py :: HOPPER_TILES: (y, x) in
 // {64, 128, 256}^2 without 256 x 256 (its accumulators would fill the
@@ -445,4 +447,27 @@ extern "C" int blocked_matmul(const void* a, const void* b, const float* bias,
   if (y == 256 && x == 64) return launch<256, 64, 4, 2>(p, z, b16, s);
   if (y == 256 && x == 128) return launch<256, 128, 4, 2>(p, z, b16, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Dynamic shared memory of a launch of tile (y, x, z) in bf16 (is_bf16 1)
+// or f32, in bytes; -1 for a tile not built.
+extern "C" long long blocked_matmul_smem(int y, int x, int z, int is_bf16) {
+  const bool b16 = is_bf16 != 0;
+#define BUILT(Y, X)                                           \
+  if (y == Y && x == X) {                                     \
+    if (z == 32)                                              \
+      return b16 ? bf16_smem<Y, X, 32>() : f32_smem<Y, X, 32>(); \
+    if (z == 64)                                              \
+      return b16 ? bf16_smem<Y, X, 64>() : f32_smem<Y, X, 64>(); \
+  }
+  BUILT(64, 64)
+  BUILT(64, 128)
+  BUILT(64, 256)
+  BUILT(128, 64)
+  BUILT(128, 128)
+  BUILT(128, 256)
+  BUILT(256, 64)
+  BUILT(256, 128)
+#undef BUILT
+  return -1;
 }

@@ -10,23 +10,32 @@
 // Rows are balanced before packing (core/loadbalance.py, the paper's
 // round-robin law, or a sort by length), so neighbouring rows cost about
 // the same.  Each row is taken by a group of `lanes` threads (a power of
-// two up to 32, so a group never spans two warps): lane l reads entries
-// l, l + lanes, ... of the row, adjacent lanes on adjacent addresses,
-// accumulates vals[r, w] * x[cols[r, w]] in f32, and the group sums its
-// lanes by shuffles.  A block of T threads takes T / lanes rows at a
-// time: the tuner's block_rows.
+// two up to 32, so a group never spans two warps), adjacent lanes on
+// adjacent addresses; each accumulates vals[r, w] * x[cols[r, w]] in f32,
+// and the group sums its lanes by shuffles.
 //
-// Bound: bytes.  Each entry costs 8 bytes of cols and vals for 2
+// Bound: bytes.  Each nonzero costs 8 bytes of cols and vals for 2
 // operations, far below the H100's ~20 f32 operations per byte, so the
-// floor is the ELL payload over the memory rate.  The gathers from x are
-// what would break it.
+// floor is the nonzeros' bytes over the memory rate.  The gathers from x
+// and any padding read are what would break it.
 //
 // ell_spmv: the whole of x is staged in shared memory, the counterpart
 // of the TPU's VMEM-resident x; n * 4 bytes must fit a block's shared
-// memory (the wrapper checks).  A persistent grid of 1024-thread blocks,
-// one or two per SM (x of more than 112 KB leaves room for one, and a
-// block of 1024 threads keeps 32 warps of loads in flight), each stages
-// x once and walks row blocks with a grid stride.
+// memory (the wrapper checks).  Given each packed row's length (row_lens,
+// the CSR row lengths pack_csr keeps), lane l of row r reads the
+// 16-byte vectors l, l + lanes, ... of its row below row_lens[r] (4 cols
+// in one int4 load, 4 vals in one float4, streaming past L1) and masks
+// the entries of the last vector past the row's end, so no padding entry
+// is used and no vector wholly of padding is read: the bytes fall from
+// the padded ELL's to the nonzeros' rounded up to 16 bytes.  Without
+// row_lens every row runs its full width, as the Pallas kernel does.
+// Rows whose width is not a multiple of 4 entries, or arrays not on 16
+// bytes, take 4-byte loads.  The launch geometry comes from the matrix
+// (kernels/spmv/kernel.py :: launch_geometry): a matrix of few long rows
+// gets more lanes a row and blocks as small as one warp, so its rows
+// spread over the SMs; a large one a grid of 1024-thread blocks, as many
+// as fit on the SMs (x of more than 112 KB leaves room for one), each
+// staging x once and walking row blocks with a grid stride.
 //
 // ell_spmv_blocked: x too large for shared memory, cut in slabs of
 // block_cols columns (the TPU kernel streams every slab through VMEM for
@@ -85,24 +94,44 @@ __device__ __forceinline__ void stage_x(float* xs, const float* x,
   for (int i = head + threadIdx.x; i < len; i += blockDim.x) xs[i] = src[i];
 }
 
+template <int V>
 __global__ void __launch_bounds__(kResidentThreads)
     ell_spmv_kernel(const float* __restrict__ x, const int* __restrict__ cols,
-                    const float* __restrict__ vals, float* __restrict__ y,
+                    const float* __restrict__ vals,
+                    const int* __restrict__ row_lens, float* __restrict__ y,
                     int rows, int width, int n, int lanes) {
   extern __shared__ __align__(16) float xs[];
   stage_x(xs, x, 0, n);
   __syncthreads();
-  const int per_block = kResidentThreads / lanes;
+  const int per_block = blockDim.x / lanes;
   const int g = threadIdx.x / lanes, l = threadIdx.x % lanes;
   for (long long r0 = static_cast<long long>(blockIdx.x) * per_block;
        r0 < rows; r0 += static_cast<long long>(gridDim.x) * per_block) {
     const long long r = r0 + g;
     float acc = 0.f;
     if (r < rows) {
+      const int len = row_lens ? row_lens[r] : width;
       const int* cr = cols + r * width;
       const float* vr = vals + r * width;
+      if constexpr (V == 4) {
+        const int4* c4 = reinterpret_cast<const int4*>(cr);
+        const float4* v4 = reinterpret_cast<const float4*>(vr);
+        const int nv = (len + 3) >> 2;
+#pragma unroll 2
+        for (int i = l; i < nv; i += lanes) {
+          const int4 c = __ldcs(c4 + i);
+          const float4 v = __ldcs(v4 + i);
+          const int rem = len - 4 * i;   // entries of this vector in the row
+          acc = fmaf(v.x, xs[c.x], acc);
+          if (rem > 1) acc = fmaf(v.y, xs[c.y], acc);
+          if (rem > 2) acc = fmaf(v.z, xs[c.z], acc);
+          if (rem > 3) acc = fmaf(v.w, xs[c.w], acc);
+        }
+      } else {
 #pragma unroll 4
-      for (int w = l; w < width; w += lanes) acc = fmaf(vr[w], xs[cr[w]], acc);
+        for (int w = l; w < len; w += lanes)
+          acc = fmaf(__ldcs(vr + w), xs[__ldcs(cr + w)], acc);
+      }
     }
     acc = group_sum(acc, lanes);
     if (l == 0 && r < rows) y[r] = acc;
@@ -194,20 +223,34 @@ int launch_blocked(const float* x, const int* cols, const float* vals,
 // contiguous; y: rows floats.  Return the CUDA error of the launch (0 on
 // success).
 
-// block_rows = 1024 / lanes rows per block step; grid: blocks, each
-// staging all of x (n * 4 bytes of shared memory).
+// row_lens: rows ints in [0, width], or null (every row runs its full
+// width).  threads: a block's threads (a multiple of 32 up to 1024, of
+// lanes a row); grid: blocks, each staging all of x (n * 4 bytes of
+// shared memory) and walking threads / lanes rows at a time.
 extern "C" int ell_spmv(const float* x, const int* cols, const float* vals,
-                        float* y, int rows, int width, int n, int lanes,
-                        int grid, void* stream) {
-  if (rows < 1 || width < 1 || n < 1 || grid < 1 || !lanes_ok(lanes))
+                        const int* row_lens, float* y, int rows, int width,
+                        int n, int lanes, int threads, int grid,
+                        void* stream) {
+  if (rows < 1 || width < 1 || n < 1 || grid < 1 || !lanes_ok(lanes) ||
+      threads < 32 || threads > kResidentThreads || threads % 32)
     return static_cast<int>(cudaErrorInvalidValue);
-  static std::atomic<bool> done[kMaxDevices];
-  cudaError_t err = allow_smem(ell_spmv_kernel, done);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ell_spmv_kernel<<<grid, kResidentThreads, n * sizeof(float),
-                    static_cast<cudaStream_t>(stream)>>>(x, cols, vals, y,
-                                                         rows, width, n,
-                                                         lanes);
+  const bool vec = width % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(cols) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(vals) % 16 == 0;
+  static std::atomic<bool> done4[kMaxDevices], done1[kMaxDevices];
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t smem = n * sizeof(float);
+  if (vec) {
+    cudaError_t err = allow_smem(ell_spmv_kernel<4>, done4);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ell_spmv_kernel<4><<<grid, threads, smem, s>>>(x, cols, vals, row_lens,
+                                                    y, rows, width, n, lanes);
+  } else {
+    cudaError_t err = allow_smem(ell_spmv_kernel<1>, done1);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ell_spmv_kernel<1><<<grid, threads, smem, s>>>(x, cols, vals, row_lens,
+                                                    y, rows, width, n, lanes);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

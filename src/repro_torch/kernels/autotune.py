@@ -6,9 +6,9 @@ per-family shims).
    the configurations that fit the card's shared memory and registers by
    the analytic model (the paper's "simulate" step);
 2. **measure**: on a CUDA device the top ``measure_k`` are timed with
-   CUDA events.  A CPU tensor runs the plain PyTorch version, which says
-   nothing of the kernel, so on the CPU nothing is measured and a plan's
-   source is always ``"model"``;
+   CUDA events (`measure`).  A CPU tensor runs the plain PyTorch
+   version, which says nothing of the kernel, so on the CPU nothing is
+   measured and a plan's source is always ``"model"``;
 3. **memoize**: winners go to a JSON cache keyed
    ``family:{spec.key_fn(...)}:v{budget}`` (schema v3, the JAX package's:
    a file written by either package loads in the other; v2 files are
@@ -26,6 +26,7 @@ or fails.
 from __future__ import annotations
 
 import json
+import math
 import os
 import pathlib
 import time
@@ -167,25 +168,47 @@ def get_cache() -> TuneCache:
 # Measurement
 # ---------------------------------------------------------------------------
 
-def measure(fn: Callable[[], object], device, reps: int = 3,
+# On the card the timed calls start behind a spin of LEAD_CYCLES clocks
+# (about 2 ms of an H100), which outlasts the host's launch of MAX_REPS
+# calls: a call shorter than its host-side launch (a published SpMV
+# matrix takes microseconds) is then timed by the card's work, not by
+# the enqueue.  Without ``reps`` a first call's time sets how many more
+# cover COVER_US of device time, at most MAX_REPS.
+LEAD_CYCLES = 4_000_000
+MAX_REPS = 25
+COVER_US = 1000.0
+
+
+def _cuda_us(fn: Callable[[], object], device, reps: int) -> float:
+    torch.cuda.synchronize(device)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(LEAD_CYCLES)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps * 1e3
+
+
+def measure(fn: Callable[[], object], device, reps: int | None = None,
             warmup: int = 1) -> float:
     """Mean time of ``fn`` in microseconds over ``reps`` calls after
-    ``warmup``: between CUDA events on a CUDA device, on the host clock
-    otherwise."""
+    ``warmup``: between CUDA events behind a spin of the card on a CUDA
+    device, on the host clock otherwise.  ``reps=None``: on the card one
+    call, then as many as cover `COVER_US` (at most `MAX_REPS`) when one
+    does not; on the host 3."""
     device = torch.device(device)
     for _ in range(max(warmup, 0)):
         fn()
-    reps = max(reps, 1)
     if device.type == "cuda":
-        torch.cuda.synchronize(device)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / reps * 1e3
+        if reps is not None:
+            return _cuda_us(fn, device, max(reps, 1))
+        us = _cuda_us(fn, device, 1)
+        more = min(MAX_REPS, math.ceil(COVER_US / max(us, 1e-3)))
+        return us if more <= 1 else _cuda_us(fn, device, more)
+    reps = max(reps or 3, 1)
     t0 = time.perf_counter()
     for _ in range(reps):
         fn()

@@ -2,15 +2,26 @@
 kernel `repro.kernels.matmul.kernel.blocked_matmul` (body
 ``_matmul_kernel``).
 
-The work is done by the hand-written CUDA kernel
-``csrc/blocked_matmul.cu``; `ref.matmul_ref` is its plain PyTorch
-version.  The wrapper takes the plain version only when every operand
-lies on the CPU; a CUDA tensor launches the kernel or raises.
-``launches`` counts kernel launches.
+The work is done by hand-written CUDA kernels; `ref.matmul_ref` is their
+plain PyTorch version.  The wrapper takes the plain version only when
+every operand lies on the CPU; a CUDA tensor launches the kernel that
+`design` names or raises.  Three designs:
 
-Unlike the Pallas kernel, the CUDA one masks ragged M, N and K itself,
-so operands are never padded.  It is built for the tiles of
-`core.tiling.HOPPER_TILES`.
+- ``"wgmma+TMA"`` (``csrc/blocked_matmul_wgmma.cu``): bf16 operands that
+  TMA can read, a 16-byte aligned base and row strides of a multiple of
+  16 bytes.  A ring of TMA-fed stages, a producer warpgroup and one or two
+  consumer warpgroups on ``wgmma``; a persistent grid of one block per
+  SM walks the output tiles (measured faster on the H100 than one block
+  a tile: PERF.md, B6).
+- ``"mma.sync"`` (``csrc/blocked_matmul.cu``): any other bf16 operands,
+  such as a strided view, on ``mma.sync`` fed by ``cp.async``.
+- ``"cuda cores"`` (``csrc/blocked_matmul.cu``): f32 operands, exact FMAs,
+  never TF32.
+
+``launches`` counts kernel launches, ``design_launches`` the same by
+design.  Unlike the Pallas kernel the CUDA ones mask ragged M, N and K
+themselves, so operands are never padded.  They are built for the tiles
+of `core.tiling.HOPPER_TILES`.
 """
 
 from __future__ import annotations
@@ -25,9 +36,11 @@ from repro_torch.kernels.matmul import ref
 
 ACTIVATION_CODES = {None: 0, "relu": 1, "gelu": 2, "silu": 3, "tanh": 4}
 TILES = tiling.HOPPER_TILES
+DESIGNS = ("wgmma+TMA", "mma.sync", "cuda cores")
 _DTYPES = (torch.float32, torch.bfloat16)
 
 launches = 0
+design_launches = dict.fromkeys(DESIGNS, 0)
 
 
 def _check(a, b, bias, activation, out_dtype) -> None:
@@ -50,14 +63,58 @@ def _check(a, b, bias, activation, out_dtype) -> None:
                          f"(float32 or bfloat16)")
 
 
-def _entry():
-    fn = _build.library("blocked_matmul").blocked_matmul
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
-                       + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 7
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return fn
+def _tma_readable(t: torch.Tensor) -> bool:
+    """Whether TMA can read ``t`` by rows: a contiguous last axis, and a
+    base address and row stride that are multiples of 16 bytes."""
+    return (t.stride(1) == 1 and t.data_ptr() % 16 == 0
+            and t.stride(0) * t.element_size() % 16 == 0)
+
+
+def design(a: torch.Tensor, b: torch.Tensor,
+           tile: tiling.Tile | None = None) -> str:
+    """The kernel that computes ``a @ b`` on the card: "wgmma+TMA" for
+    bf16 operands TMA can read, "mma.sync" for any other bf16 operands,
+    "cuda cores" for f32.  Every built tile runs on each design, so
+    ``tile`` does not move the choice."""
+    if a.dtype != torch.bfloat16:
+        return "cuda cores"
+    return "wgmma+TMA" if _tma_readable(a) and _tma_readable(b) \
+        else "mma.sync"
+
+
+def _lib():
+    lib = _build.library("blocked_matmul")
+    if lib.blocked_matmul.argtypes is None:
+        lib.blocked_matmul.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+            + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 7
+            + [ctypes.c_void_p])
+        lib.blocked_matmul.restype = ctypes.c_int
+        lib.blocked_matmul_smem.argtypes = [ctypes.c_int] * 4
+        lib.blocked_matmul_smem.restype = ctypes.c_longlong
+    return lib
+
+
+def _wgmma_lib():
+    lib = _build.library("blocked_matmul_wgmma")
+    if lib.blocked_matmul_wgmma.argtypes is None:
+        lib.blocked_matmul_wgmma.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+            + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 6
+            + [ctypes.c_void_p])
+        lib.blocked_matmul_wgmma.restype = ctypes.c_int
+        lib.blocked_matmul_wgmma_smem.argtypes = [ctypes.c_int] * 3
+        lib.blocked_matmul_wgmma_smem.restype = ctypes.c_longlong
+    return lib
+
+
+def launch_smem_bytes(tile: tiling.Tile, kind: str) -> int:
+    """Dynamic shared memory a launch of design ``kind`` takes at
+    ``tile``, as the built kernel reports it (needs the CUDA build)."""
+    if kind == "wgmma+TMA":
+        return _wgmma_lib().blocked_matmul_wgmma_smem(tile.y, tile.x, tile.z)
+    return _lib().blocked_matmul_smem(tile.y, tile.x, tile.z,
+                                      int(kind == "mma.sync"))
 
 
 def blocked_matmul(a: torch.Tensor, b: torch.Tensor, tile: tiling.Tile,
@@ -85,21 +142,33 @@ def blocked_matmul(a: torch.Tensor, b: torch.Tensor, tile: tiling.Tile,
         raise ValueError("a and b need a contiguous last axis")
     m, k = a.shape
     n = b.shape[1]
-    elt = a.element_size()
-    vec = all(t.data_ptr() % 16 == 0 and t.stride(0) * elt % 16 == 0
-              for t in (a, b)) and k * elt % 16 == 0 and n * elt % 16 == 0
+    kind = design(a, b, tile)
     bias_f32 = None if bias is None else bias.reshape(n).float().contiguous()
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
-    err = _entry()(a.data_ptr(), b.data_ptr(),
-                   None if bias_f32 is None else bias_f32.data_ptr(),
-                   out.data_ptr(), m, n, k, a.stride(0), b.stride(0), n,
-                   tile.y, tile.x, tile.z, int(a.dtype == torch.bfloat16),
-                   int(out_dtype == torch.bfloat16),
-                   ACTIVATION_CODES[activation], int(vec),
-                   torch.cuda.current_stream(a.device).cuda_stream)
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    bias_ptr = None if bias_f32 is None else bias_f32.data_ptr()
+    if kind == "wgmma+TMA":
+        sms = torch.cuda.get_device_properties(a.device) \
+            .multi_processor_count
+        err = _wgmma_lib().blocked_matmul_wgmma(
+            a.data_ptr(), b.data_ptr(), bias_ptr, out.data_ptr(), m, n, k,
+            a.stride(0), b.stride(0), n, tile.y, tile.x, tile.z,
+            int(out_dtype == torch.bfloat16), ACTIVATION_CODES[activation],
+            sms, stream)
+    else:
+        elt = a.element_size()
+        vec = all(t.data_ptr() % 16 == 0 and t.stride(0) * elt % 16 == 0
+                  for t in (a, b)) and k * elt % 16 == 0 \
+            and n * elt % 16 == 0
+        err = _lib().blocked_matmul(
+            a.data_ptr(), b.data_ptr(), bias_ptr, out.data_ptr(), m, n, k,
+            a.stride(0), b.stride(0), n, tile.y, tile.x, tile.z,
+            int(a.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
+            ACTIVATION_CODES[activation], int(vec), stream)
     if err != 0:
-        raise RuntimeError(f"blocked_matmul kernel launch failed: CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"blocked_matmul kernel ({kind}) launch failed: "
+                           f"CUDA error {err}")
     global launches
     launches += 1
+    design_launches[kind] += 1
     return out

@@ -1,12 +1,14 @@
 """KernelSpec of the blocked dense-matmul family.  Counterpart of
 `repro.kernels.matmul.spec`.
 
-The candidates are the tiles the CUDA kernel is built for
-(`core.tiling.HOPPER_TILES`) that fit the H100's budgets: two stages of
-A and B tiles in a block's shared memory and the f32 C tile in half an
-SM's registers.  Each is scored by `cost_model.matmul_time_model`; the
-`solve_hopper` seed is always among them, so the winner is never worse
-than the eq. 2 tile under the model.
+The candidates are the tiles the CUDA kernels are built for
+(`core.tiling.HOPPER_TILES`) that fit the H100's budgets: the shared
+memory a launch takes (`tiling.hopper_smem_bytes`: in bf16 the wgmma
+kernel's ring of at least three TMA stages and their mbarriers, 197-231
+KB for every built tile; in f32 two padded stages) within a block's, and
+the f32 C tile in half an SM's registers.  Each is scored by
+`cost_model.matmul_time_model`; the `solve_hopper` seed is always among
+them, so the winner is never worse than the eq. 2 tile under the model.
 """
 
 from __future__ import annotations

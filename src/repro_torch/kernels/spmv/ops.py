@@ -42,6 +42,13 @@ class EllMatrix:
     def device(self) -> torch.device:
         return self.cols.device
 
+    @functools.cached_property
+    def lens(self) -> torch.Tensor:
+        """`row_lens` as int32 on cols' device, copied there once: the
+        length-aware kernel reads each row's entries below it."""
+        return torch.from_numpy(np.asarray(self.row_lens, np.int32)).to(
+            self.device)
+
     @property
     def padding_waste(self) -> float:
         """fetched / active — 1.0 is perfect (the balance-quality metric)."""
@@ -129,21 +136,28 @@ def pack_csr(indptr: np.ndarray, indices: np.ndarray, data: np.ndarray,
                      torch.from_numpy(np.asarray(perm, np.int64)).to(device))
 
 
+def packed_spmv(mat: EllMatrix, x: torch.Tensor, block_rows: int = 32,
+                block_cols: int | None = None) -> torch.Tensor:
+    """y = A @ x in the packed row order (padded rows included): the
+    kernel call alone.  ``block_cols=None`` keeps all of x in shared
+    memory and reads each row's entries only (`ell_spmv` with the row
+    lengths; n bounded by shared memory); an integer streams x in slabs of
+    that many columns (`ell_spmv_blocked`).  On CPU tensors the plain
+    versions run."""
+    if block_cols is None:
+        return kernel.ell_spmv(x, mat.cols, mat.vals, block_rows=block_rows,
+                               row_lens=mat.lens)
+    return kernel.ell_spmv_blocked(x, mat.cols, mat.vals,
+                                   block_rows=block_rows,
+                                   block_cols=block_cols)
+
+
 def spmv(mat: EllMatrix, x: torch.Tensor, block_rows: int = 32,
          block_cols: int | None = None) -> torch.Tensor:
-    """y = A @ x in the original row order.
-
-    ``block_cols=None`` keeps all of x in shared memory (`ell_spmv`, n
-    bounded by it); an integer streams x in slabs of that many columns
-    (`ell_spmv_blocked`).  On CPU tensors the plain versions run.
-    """
-    if block_cols is None:
-        y_packed = kernel.ell_spmv(x, mat.cols, mat.vals,
-                                   block_rows=block_rows)
-    else:
-        y_packed = kernel.ell_spmv_blocked(x, mat.cols, mat.vals,
-                                           block_rows=block_rows,
-                                           block_cols=block_cols)
+    """y = A @ x in the original row order (`packed_spmv`, then the
+    scatter back through the permutation)."""
+    y_packed = packed_spmv(mat, x, block_rows=block_rows,
+                           block_cols=block_cols)
     m = mat.shape[0]
     y = torch.empty(m, dtype=y_packed.dtype, device=y_packed.device)
     y[mat.perm_index] = y_packed[:m]

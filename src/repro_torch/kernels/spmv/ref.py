@@ -18,9 +18,21 @@ def spmv_csr_ref(indptr, indices, data, x, num_rows: int) -> torch.Tensor:
                        device=x.device).index_add_(0, row_ids, prods)
 
 
-def spmv_ell_ref(ell_cols, ell_vals, x) -> torch.Tensor:
-    """y = A @ x on the padded ELL arrays (pads have value 0)."""
-    return (ell_vals * x[ell_cols.long()]).sum(1)
+def _live(ell_cols, row_lens) -> torch.Tensor:
+    """(rows, W) mask of each row's first row_lens[r] entries."""
+    width = torch.arange(ell_cols.shape[1], device=ell_cols.device)
+    return width < row_lens.to(ell_cols.device)[:, None]
+
+
+def spmv_ell_ref(ell_cols, ell_vals, x, row_lens=None) -> torch.Tensor:
+    """y = A @ x on the padded ELL arrays (pads have value 0).  With
+    ``row_lens``, row r sums only its first row_lens[r] products, so a
+    pad's 0 * x[0] is never added (it is NaN where x[0] is not finite);
+    without, every entry is, as in the JAX package's `spmv_ell_ref`."""
+    prods = ell_vals * x[ell_cols.long()]
+    if row_lens is not None:
+        prods = torch.where(_live(ell_cols, row_lens), prods, 0.0)
+    return prods.sum(1)
 
 
 def spmv_blocked_ref(ell_cols, ell_vals, x, block_cols: int) -> torch.Tensor:
@@ -41,11 +53,14 @@ def spmv_blocked_ref(ell_cols, ell_vals, x, block_cols: int) -> torch.Tensor:
     return acc.to(ell_vals.dtype)
 
 
-def row_tolerance(ell_cols, ell_vals, x) -> torch.Tensor:
+def row_tolerance(ell_cols, ell_vals, x, row_lens=None) -> torch.Tensor:
     """How far a kernel's y may lie from these plain versions, per row:
     the kernels sum the same f32 products in another order (lanes, then
     a shuffle tree; slab by slab), which moves a sum by a few f32 ulps
-    of the sum of the |products| at these widths; 1e-5 of that sum, and
-    exact zeros for rows with no product."""
-    mags = (ell_vals.abs() * x.abs()[ell_cols.long()]).float().sum(1)
-    return 1e-5 * mags
+    of the sum of the |products| at these widths; 1e-5 of that sum (over
+    each row's first row_lens[r] entries, when given), and exact zeros
+    for rows with no product."""
+    mags = ell_vals.abs() * x.abs()[ell_cols.long()]
+    if row_lens is not None:
+        mags = torch.where(_live(ell_cols, row_lens), mags, 0.0)
+    return 1e-5 * mags.float().sum(1)

@@ -8,6 +8,13 @@ entries fit the registers.  Each is scored by `spmv_time_model` fed with
 the packing's fetched/active balance metric (`EllMatrix.sliced_waste`).
 The problem carries the live `EllMatrix`; the cache key uses its scalars
 and its layout fingerprint.
+
+Only the best-ranked of the resident candidates that launch alike is
+kept: `ell_spmv` sizes its launch from the matrix
+(`kernel.launch_geometry`), so on few long rows several block_rows give
+one launch, and the tuner would time one kernel several times.  On the
+card a candidate is timed as the kernel call alone (`ops.packed_spmv`,
+without the scatter back to row order; `autotune.measure`).
 """
 
 from __future__ import annotations
@@ -91,6 +98,12 @@ def _enumerate(problem: dict, dtype_bytes: int, smem_bytes: int | None,
                                         block_rows=16, block_cols=4096,
                                         waste=mat.padding_waste)
         ranked = [(fb["time_s"], 16, 4096, mat.padding_waste)]
+    rows, width = mat.cols.shape
+    _, n = mat.shape
+    launched = kernel.distinct_block_rows(
+        rows, width, n, hardware.H100_SXM.sms,
+        [br for _, br, bc, _ in ranked if bc is None])
+    ranked = [r for r in ranked if r[2] is not None or r[1] in launched]
     return [dse.Candidate({"block_rows": br, "block_cols": bc}, score,
                           {"waste": waste})
             for score, br, bc, waste in ranked]
@@ -114,8 +127,9 @@ def _make_inputs(problem: dict, dtype: torch.dtype, device) -> tuple:
 
 def _build_launcher(problem: dict, knobs: dict):
     mat = problem["mat"]
-    return lambda x: spmv_ops.spmv(mat, x, block_rows=knobs["block_rows"],
-                                   block_cols=knobs["block_cols"])
+    return lambda x: spmv_ops.packed_spmv(mat, x,
+                                          block_rows=knobs["block_rows"],
+                                          block_cols=knobs["block_cols"])
 
 
 def _problem_fn(mat, x) -> tuple[dict, torch.dtype]:

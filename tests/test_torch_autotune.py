@@ -17,9 +17,11 @@ from repro.core import dse as jdse  # noqa: E402
 from repro.kernels import autotune as jautotune  # noqa: E402
 from repro.kernels import registry as jregistry  # noqa: E402
 
-from repro_torch.core import dse  # noqa: E402
+from repro_torch.core import dse, hardware  # noqa: E402
 from repro_torch.kernels import autotune, registry  # noqa: E402
+from repro_torch.kernels.spmv import kernel as spmv_kernel  # noqa: E402
 from repro_torch.kernels.spmv import ops as spmv_ops  # noqa: E402
+from repro_torch.kernels.spmv import spec as spmv_spec  # noqa: E402
 
 
 @pytest.fixture
@@ -342,3 +344,87 @@ def test_dispatch_reraises_a_failing_launch_after_poisoning(cache,
 def test_measure_times_on_the_host_for_the_cpu():
     us = autotune.measure(lambda: torch.ones(10).sum(), "cpu", reps=2)
     assert us > 0
+
+
+def test_spmv_tuning_times_each_distinct_kernel_launch(cache, monkeypatch):
+    """The SpMV family times a candidate as the kernel call alone
+    (`ops.packed_spmv`: packed rows, no scatter back), through the one
+    timing policy of `autotune.measure`, and never two resident
+    candidates that `ell_spmv` would launch alike."""
+    monkeypatch.setattr(autotune, "_backend", lambda device: "cuda:fake")
+    seen = []
+
+    def fake_measure(fn, device):
+        seen.append(tuple(fn().shape))
+        return float(len(seen))
+
+    monkeypatch.setattr(autotune, "measure", fake_measure)
+    rng = np.random.default_rng(4)
+    dense = (rng.random((203, 90)) < 0.1) * rng.standard_normal((203, 90))
+    indptr = np.concatenate([[0], np.cumsum((dense != 0).sum(1))])
+    mat = spmv_ops.pack_csr(indptr.astype(np.int32),
+                            np.nonzero(dense)[1].astype(np.int32),
+                            dense[dense != 0].astype(np.float32), (203, 90),
+                            device="cpu")
+    plan = autotune.tune("spmv", {"mat": mat}, device="cpu", cache=cache)
+    cands = registry.get("spmv").enumerate_candidates(
+        {"mat": mat}, 4, None, 8)
+    # x of 90 columns: no slab; 208 rows give every block_rows one launch
+    assert [c.knobs for c in cands] == [plan.knobs]
+    assert plan.source == "measured" and seen == [(208,)]  # 203 rows packed
+    resident = [c.knobs["block_rows"] for c in cands
+                if c.knobs["block_cols"] is None]
+    rows, width = mat.cols.shape
+    geos = [tuple(sorted(spmv_kernel.launch_geometry(
+        rows, width, spmv_kernel.RESIDENT_THREADS // br, 90,
+        hardware.H100_SXM.sms).items())) for br in resident]
+    assert resident and len(set(geos)) == len(geos)
+    # the model's best resident candidate is the one kept of its launch
+    best = min((r for r in spmv_spec.rank_configs(mat) if r[2] is None),
+               key=lambda r: (r[0], r[1]))
+    assert best[1] in resident
+
+
+@pytest.mark.parametrize("call_us, reps, timed", [
+    (40.0, None, [1, 25]),        # 1000 us / 40 us, capped at 25 calls
+    (300.0, None, [1, 4]),        # ceil(1000 / 300)
+    (2000.0, None, [1]),          # one call covers a millisecond
+    (5.0, 7, [7]),                # the caller's count
+])
+def test_measure_spins_the_card_and_covers_a_millisecond(monkeypatch,
+                                                         call_us, reps,
+                                                         timed):
+    """On the card every timed run starts behind a spin of
+    `LEAD_CYCLES`, after one warm-up call; without ``reps`` one call is
+    timed, then as many as cover `COVER_US`, at most `MAX_REPS`."""
+    clock, log = [0.0], []
+
+    class FakeEvent:
+        def __init__(self, enable_timing=False):
+            self.t = None
+
+        def record(self):
+            log.append("record")
+            self.t = clock[0]
+
+        def synchronize(self):
+            pass
+
+        def elapsed_time(self, other):            # ms, as CUDA events
+            return (other.t - self.t) / 1e3
+
+    def fn():
+        log.append("call")
+        clock[0] += call_us
+
+    monkeypatch.setattr(torch.cuda, "Event", FakeEvent)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda device=None: None)
+    monkeypatch.setattr(torch.cuda, "_sleep",
+                        lambda cycles: log.append(("spin", cycles)))
+    assert autotune.measure(fn, "cuda", reps=reps) == pytest.approx(call_us)
+    want = ["call"]
+    for n in timed:
+        want += [("spin", autotune.LEAD_CYCLES), "record"] + ["call"] * n \
+            + ["record"]
+    assert log == want
+    assert autotune.MAX_REPS == 25 and autotune.COVER_US == 1000.0

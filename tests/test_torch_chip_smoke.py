@@ -168,8 +168,12 @@ def test_bytes_and_operations_bounds():
     assert by32 == "operations" and ms32 == pytest.approx(ops / 67e12 * 1e3)
     nbytes, _, ms, by = chip_smoke.matmul_bound(1, 128, 256, 2, 2, False)
     assert by == "bytes" and nbytes == (256 + 256 * 128 + 128) * 2
-    nbytes, ops, ms, by = chip_smoke.spmv_bound(1 << 20, 128, 32768, 5 * 10**7)
-    assert nbytes == (1 << 20) * 128 * 8 + 32768 * 4 + (1 << 20) * 4
+    # SpMV: the function's bytes are the nonzeros' cols and vals, x and
+    # y; the padded ELL's bytes (the walk of earlier kernels) beside them
+    nbytes, ops, ms, by, padded = chip_smoke.spmv_bound(
+        1_000_000, 32768, 5 * 10**7, 1 << 20, 128)
+    assert nbytes == 5 * 10**7 * 8 + 32768 * 4 + 1_000_000 * 4
+    assert padded == (1 << 20) * 128 * 8 + 32768 * 4 + (1 << 20) * 4
     assert ops == 10 ** 8 and by == "bytes"
     assert ms == pytest.approx(nbytes / 3.35e12 * 1e3)
 

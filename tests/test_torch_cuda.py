@@ -5,10 +5,13 @@ int8 (`paged_quantized_decode_attention`), the prefill flash-attention
 kernels (`flash_attention`: TMA and `wgmma` for bf16 at head_dim 128,
 `mma.sync` and CUDA cores otherwise) against `ref.attention_ref` with
 every mask kind, ragged tails and query rows with no key, the blocked
-matmul (`blocked_matmul`) against `matmul_ref` at ragged shapes with
-every activation, and the ELL SpMV kernels (`ell_spmv`,
-`ell_spmv_blocked` with slabs staged, gathered and skipped) against
-`spmv_ell_ref`, the slab walk `spmv_blocked_ref` and each other.  Every test here is marked
+matmul (`blocked_matmul`: wgmma and TMA on every built tile for bf16
+operands TMA can read, mma.sync for other bf16 operands, CUDA cores for
+f32, as `kernel.design` routes them) against `matmul_ref` at ragged
+shapes with every activation, and the ELL SpMV kernels (`ell_spmv` with
+and without the row lengths, `ell_spmv_blocked` with slabs staged,
+gathered and skipped) against `spmv_ell_ref`, `spmv_csr_ref`, the slab
+walk `spmv_blocked_ref` and each other.  Every test here is marked
 ``cuda`` and skips on a host without a card; this file imports no JAX, so
 it also runs where only the port is installed:
 
@@ -487,6 +490,129 @@ def test_matmul_kernel_refuses_what_it_cannot_take(cuda):
         mm_ops.matmul(a.t(), b, tile=tiling.Tile(64, 64, 32))
 
 
+# B6's three designs: wgmma+TMA for bf16 operands TMA can read, mma.sync
+# for other bf16 operands, CUDA cores for f32 (`kernel.design`).
+# (m, n, k): ragged M, N and K with rows of a multiple of 16 bytes, M = 1,
+# and more 64 x 64 tiles than SMs, so the persistent grid walks.
+WGMMA_SHAPES = [(130, 72, 56), (1, 128, 256), (200, 264, 40),
+                (1030, 1048, 264)]
+
+
+def _launched(before):
+    return {d: v - before[d] for d, v in mm_kernel.design_launches.items()
+            if v != before[d]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", tiling.HOPPER_TILES, ids=str)
+@pytest.mark.parametrize("m, n, k", WGMMA_SHAPES)
+def test_wgmma_kernel_on_every_tile(cuda, m, n, k, tile):
+    a, b, _ = _mm_operands(m, n, k, "bf16", cuda, seed=m + n + k)
+    assert mm_kernel.design(a, b, tile) == "wgmma+TMA"
+    want = mm_ref.matmul_ref(a, b)
+    before = dict(mm_kernel.design_launches)
+    out = mm_kernel.blocked_matmul(a, b, tile)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and out.shape == (m, n)
+    _assert_within_row_tolerance(out, want)
+    assert _launched(before) == {"wgmma+TMA": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dt", ["bf16", "f32"])
+@pytest.mark.parametrize("activation", list(mm_ref.ACTIVATIONS))
+@pytest.mark.parametrize("tile", [tiling.Tile(128, 256, 64),
+                                  tiling.Tile(256, 128, 32),
+                                  tiling.Tile(64, 64, 32)], ids=str)
+def test_wgmma_kernel_epilogue(cuda, tile, activation, out_dt):
+    """Bias, activation and one cast from the accumulators, into f32 and
+    bf16, on ragged M, N and K; with an odd N (B a view of a wider
+    matrix) the row stride of C is odd and the epilogue stores singly."""
+    for m, n, k in [(130, 264, 72), (70, 75, 64)]:
+        a, b, bias = _mm_operands(m, n, k, "bf16", cuda, seed=n)
+        if n % 2:
+            wide = torch.zeros((k, 80), dtype=b.dtype, device=cuda)
+            wide[:, :n] = b
+            b = wide[:, :n]
+        assert mm_kernel.design(a, b, tile) == "wgmma+TMA"
+        for bb in (None, bias):
+            before = dict(mm_kernel.design_launches)
+            out = mm_ops.matmul(a, b, tile=tile, bias=bb,
+                                activation=activation,
+                                out_dtype=DTYPES[out_dt])
+            want = mm_ref.matmul_ref(
+                a, b, bias=None if bb is None else bb[None],
+                activation=activation, out_dtype=DTYPES[out_dt])
+            torch.cuda.synchronize()
+            assert _launched(before) == {"wgmma+TMA": 1}
+            assert out.dtype == DTYPES[out_dt]
+            _assert_within_row_tolerance(out, want)
+
+
+@pytest.mark.cuda
+def test_unaligned_bf16_view_runs_mma_sync(cuda):
+    """A view whose base lies 8 bytes past 16 cannot be read by TMA: it
+    runs the mma.sync kernel, f32 the CUDA cores."""
+    a, b, _ = _mm_operands(96, 80, 64, "bf16", cuda)
+    wide = torch.zeros((96, 72), dtype=a.dtype, device=cuda)
+    wide[:, 4:68] = a
+    view = wide[:, 4:68]
+    tile = tiling.Tile(64, 64, 32)
+    assert mm_kernel.design(view, b, tile) == "mma.sync"
+    before = dict(mm_kernel.design_launches)
+    out = mm_ops.matmul(view, b, tile=tile)
+    torch.cuda.synchronize()
+    assert _launched(before) == {"mma.sync": 1}
+    _assert_within_row_tolerance(out, mm_ref.matmul_ref(a, b))
+    a32, b32 = a.float(), b.float()
+    assert mm_kernel.design(a32, b32, tile) == "cuda cores"
+    before = dict(mm_kernel.design_launches)
+    out = mm_ops.matmul(a32, b32, tile=tile)
+    torch.cuda.synchronize()
+    assert _launched(before) == {"cuda cores": 1}
+    _assert_within_row_tolerance(out, mm_ref.matmul_ref(a32, b32))
+
+
+@pytest.mark.cuda
+def test_launch_smem_is_hopper_smem_bytes(cuda):
+    """The dynamic shared memory each built kernel launches with is what
+    `tiling.hopper_smem_bytes` (which the tuner's budget checks read)
+    says: the wgmma ring in bf16, two padded stages in f32."""
+    from repro_torch.core import hardware
+    for t in tiling.HOPPER_TILES:
+        assert mm_kernel.launch_smem_bytes(t, "wgmma+TMA") == \
+            tiling.hopper_smem_bytes(t, 2)
+        assert mm_kernel.launch_smem_bytes(t, "cuda cores") == \
+            tiling.hopper_smem_bytes(t, 4)
+        assert 0 < mm_kernel.launch_smem_bytes(t, "mma.sync") <= \
+            hardware.H100_SXM.smem_bytes
+
+
+@pytest.mark.cuda
+def test_failed_wgmma_launch_raises(cuda, monkeypatch):
+    """A launch that fails raises and no other design runs in its place;
+    the C entry refuses operands TMA cannot read without launching."""
+    a, b, _ = _mm_operands(128, 128, 64, "bf16", cuda)
+    tile = tiling.Tile(128, 128, 64)
+    entry = mm_kernel._wgmma_lib().blocked_matmul_wgmma
+    out = torch.empty((127, 128), dtype=torch.bfloat16, device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+    assert entry(a.data_ptr() + 2, b.data_ptr(), None, out.data_ptr(), 127,
+                 128, 64, 64, 128, 128, 128, 128, 64, 1, 0, 0, stream) != 0
+
+    class Failing:
+        @staticmethod
+        def blocked_matmul_wgmma(*args):
+            return 700                      # cudaErrorIllegalAddress
+
+    monkeypatch.setattr(mm_kernel, "_wgmma_lib", lambda: Failing)
+    before, total = dict(mm_kernel.design_launches), mm_kernel.launches
+    with pytest.raises(RuntimeError, match=r"wgmma\+TMA.*700"):
+        mm_ops.matmul(a, b, tile=tile)
+    assert mm_kernel.design_launches == before
+    assert mm_kernel.launches == total
+
+
 def _ell(seed, m, n, density, device, scheme="round_robin"):
     rng = np.random.default_rng(seed)
     dense = (rng.random((m, n)) < density) * rng.standard_normal((m, n))
@@ -523,6 +649,154 @@ def test_ell_spmv_matches_spmv_ell_ref(cuda, m, n, density, block_rows):
     torch.cuda.synchronize()
     assert spmv_kernel.launches == before + 1
     _assert_spmv_close(y, want, mat, x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_rows", spmv_kernel.RESIDENT_ROWS)
+@pytest.mark.parametrize("m, n, density", SPMV_SHAPES)
+def test_ell_spmv_with_row_lens_matches_both_refs(cuda, m, n, density,
+                                                  block_rows):
+    mat, x, dense = _ell(m + n, m, n, density, cuda)
+    before = spmv_kernel.launches
+    y = spmv_kernel.ell_spmv(x, mat.cols, mat.vals, block_rows=block_rows,
+                             row_lens=mat.lens)
+    torch.cuda.synchronize()
+    assert spmv_kernel.launches == before + 1
+    _assert_spmv_close(y, spmv_ref.spmv_ell_ref(mat.cols, mat.vals, x), mat,
+                       x)
+    _assert_spmv_close(y, spmv_ref.spmv_ell_ref(mat.cols, mat.vals, x,
+                                                mat.lens), mat, x)
+    _assert_csr_close(y, mat, x)
+
+
+def _assert_csr_close(y, mat, x):
+    """y (packed order) against `spmv_csr_ref` in the original order."""
+    m = mat.shape[0]
+    order = torch.from_numpy(np.argsort(mat.perm)).to(x.device)
+    got = y[:m][order]
+    tol = spmv_ref.row_tolerance(mat.cols, mat.vals, x, mat.lens)[:m][order]
+    rows = np.asarray(mat.perm)
+    lens = np.asarray(mat.row_lens[:m])
+    indptr = np.zeros(m + 1, np.int64)
+    indptr[rows + 1] = lens
+    indptr = np.cumsum(indptr)
+    cols = mat.cols[:m].cpu().numpy()
+    vals = mat.vals[:m].cpu().numpy()
+    idx = np.concatenate([cols[r, :lens[r]] for r in np.argsort(rows)])
+    dat = np.concatenate([vals[r, :lens[r]] for r in np.argsort(rows)])
+    want = spmv_ref.spmv_csr_ref(torch.from_numpy(indptr).to(x.device),
+                                 torch.from_numpy(idx).to(x.device),
+                                 torch.from_numpy(dat).to(x.device), x, m)
+    err = (got - want).abs()
+    assert bool((err <= tol).all()), float(err.max())
+
+
+def _rows_csr(rows, n, seed):
+    """CSR of rows given as lists of distinct columns, random values."""
+    rng = np.random.default_rng(seed)
+    indptr = np.concatenate([[0], np.cumsum([len(r) for r in rows])])
+    indices = np.concatenate([np.sort(np.asarray(r, np.int64))
+                              for r in rows]).astype(np.int32)
+    data = rng.standard_normal(len(indices)).astype(np.float32)
+    return indptr.astype(np.int32), indices, data, (len(rows), n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_rows", [32, 128, 1024])
+@pytest.mark.parametrize("kind", ["equal_91x793", "empty_and_full"])
+def test_ell_spmv_row_lens_on_long_equal_and_empty_rows(cuda, kind,
+                                                        block_rows):
+    """BIBD_14_7's shape (91 rows of 792 of 793 columns: few long rows,
+    spread over the SMs by `launch_geometry`), and rows of length 0 next
+    to rows at the full ELL width and rows in between."""
+    rng = np.random.default_rng(5)
+    if kind == "equal_91x793":
+        n = 793
+        rows = [rng.choice(n, 792, replace=False) for _ in range(91)]
+    else:
+        n = 700
+        rows = [[] if r % 3 == 0 else
+                rng.choice(n, 256 if r % 3 == 1 else int(rng.integers(1, 256)),
+                           replace=False) for r in range(300)]
+    mat = spmv_ops.pack_csr(*_rows_csr(rows, n, 6), scheme="none",
+                            device=cuda)
+    width = mat.cols.shape[1]
+    lens = mat.row_lens
+    if kind == "equal_91x793":
+        assert width == 896 and set(lens[:91]) == {792}
+        geo = spmv_kernel.launch_geometry(91, width, 1024 // block_rows, n,
+                                          132)
+        assert geo["grid"] == 91 and geo["lanes"] == 32
+    else:
+        assert width == 256 and lens.max() == 256 and (lens[:300] == 0).any()
+    x = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(cuda)
+    y = spmv_kernel.ell_spmv(x, mat.cols, mat.vals, block_rows=block_rows,
+                             row_lens=mat.lens)
+    torch.cuda.synchronize()
+    _assert_spmv_close(y, spmv_ref.spmv_ell_ref(mat.cols, mat.vals, x), mat,
+                       x)
+    _assert_csr_close(y, mat, x)
+    assert bool((y[torch.from_numpy(lens == 0).to(cuda)] == 0).all())
+
+
+@pytest.mark.cuda
+def test_row_lens_kernel_ignores_padding_where_x0_is_inf(cuda):
+    """Where x[0] is not finite, the padded reference (`spmv_ell_ref`, as
+    the JAX package's) adds a pad's 0 * x[0] = NaN to every row with
+    padding; the length-aware kernel uses no pad, so it gives the CSR
+    product, finite on the rows that do not hold column 0 (ROADMAP queue
+    C).  Without row lengths the kernel walks the pads as the reference
+    does."""
+    rng = np.random.default_rng(8)
+    n = 500
+    rows = [rng.choice(np.arange(1, n), int(rng.integers(1, 200)),
+                       replace=False) for _ in range(400)]
+    mat = spmv_ops.pack_csr(*_rows_csr(rows, n, 9), scheme="sorted",
+                            device=cuda)
+    x = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(cuda)
+    x[0] = float("inf")
+    padded = torch.from_numpy(mat.row_lens < mat.cols.shape[1]).to(cuda)
+    want_padded = spmv_ref.spmv_ell_ref(mat.cols, mat.vals, x)
+    assert bool(torch.isnan(want_padded[padded]).all())
+    y = spmv_kernel.ell_spmv(x, mat.cols, mat.vals, block_rows=64,
+                             row_lens=mat.lens)
+    y_full = spmv_kernel.ell_spmv(x, mat.cols, mat.vals, block_rows=64)
+    torch.cuda.synchronize()
+    live = mat.lens > 0
+    assert bool(torch.isfinite(y).all())
+    assert bool(torch.isnan(y_full[padded]).all())
+    want = spmv_ref.spmv_ell_ref(mat.cols, mat.vals, x, mat.lens)
+    tol = spmv_ref.row_tolerance(mat.cols, mat.vals, x, mat.lens)
+    assert bool(((y - want).abs() <= tol)[live].all())
+    _assert_csr_close(y, mat, x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_lens", [True, False])
+def test_ell_spmv_at_a_width_of_no_whole_vectors(cuda, with_lens):
+    """A width of 125 entries (`pack_csr`'s align is the caller's) leaves
+    rows off 16 bytes: the kernel takes 4-byte loads."""
+    mat, x, _ = _ell(11, 300, 200, 0.05, cuda)
+    assert int(mat.lens.max()) <= 125
+    cols = mat.cols[:, :125].contiguous()
+    vals = mat.vals[:, :125].contiguous()
+    lens = mat.lens if with_lens else None
+    y = spmv_kernel.ell_spmv(x, cols, vals, block_rows=64, row_lens=lens)
+    torch.cuda.synchronize()
+    _assert_spmv_close(y, spmv_ref.spmv_ell_ref(mat.cols, mat.vals, x), mat,
+                       x)
+
+
+@pytest.mark.cuda
+def test_ell_spmv_refuses_bad_row_lens(cuda):
+    mat, x, _ = _ell(3, 200, 300, 0.05, cuda)
+    lens = mat.lens
+    for bad, match in [(lens[:-1], "is not"), (lens.long(), "int32"),
+                       (lens.cpu(), "lies on"),
+                       (lens + mat.cols.shape[1], "outside"),
+                       (lens - 1 - lens.max(), "outside")]:
+        with pytest.raises(ValueError, match=match):
+            spmv_kernel.ell_spmv(x, mat.cols, mat.vals, row_lens=bad)
 
 
 @pytest.mark.cuda

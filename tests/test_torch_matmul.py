@@ -147,3 +147,35 @@ def test_clamp_and_pick_give_built_tiles():
         assert c.y >= min(m, 64) and c.x >= min(n, 64) and c.z >= min(k, 32)
     assert ops.clamp_tile(tiling.Tile(256, 128, 64), 1, 128, 256) == \
         tiling.Tile(64, 128, 64)
+
+
+def _strided_bf16(offset: int, row: int) -> torch.Tensor:
+    """A (64, 64) bf16 view into a wider matrix: ``offset`` elements past
+    a 64-byte aligned base, ``row`` elements a row."""
+    wide = torch.zeros((64, row + 8), dtype=torch.bfloat16)
+    assert wide.data_ptr() % 16 == 0
+    return wide[:, offset:offset + 64]
+
+
+@pytest.mark.parametrize("a, b, want", [
+    (torch.zeros((64, 64), dtype=torch.bfloat16),
+     torch.zeros((64, 32), dtype=torch.bfloat16), "wgmma+TMA"),
+    (_strided_bf16(0, 72), torch.zeros((64, 8), dtype=torch.bfloat16),
+     "wgmma+TMA"),                    # 144-byte rows from an aligned base
+    (_strided_bf16(4, 72), torch.zeros((64, 8), dtype=torch.bfloat16),
+     "mma.sync"),                     # a base 8 bytes past 16
+    (torch.zeros((64, 50), dtype=torch.bfloat16),
+     torch.zeros((50, 64), dtype=torch.bfloat16), "mma.sync"),   # 100-byte rows
+    (torch.zeros((64, 64), dtype=torch.bfloat16),
+     torch.zeros((64, 70), dtype=torch.bfloat16), "mma.sync"),   # B's rows
+    (torch.zeros((64, 64)), torch.zeros((64, 32)), "cuda cores"),
+], ids=["aligned", "aligned_view", "unaligned_view", "a_rows_100_bytes",
+        "b_rows_140_bytes", "f32"])
+def test_design_routes_by_dtype_and_alignment(a, b, want):
+    """`kernel.design` is the one routing decision of B6 on the card:
+    bf16 operands TMA can read run wgmma, other bf16 operands mma.sync,
+    f32 the CUDA cores; every built tile takes each route."""
+    from repro_torch.kernels.matmul import kernel
+    for tile in tiling.HOPPER_TILES:
+        assert kernel.design(a, b, tile) == want
+    assert want in kernel.DESIGNS

@@ -157,6 +157,9 @@ def test_solve_hopper_fits_is_built_and_moves_least(smem_kb, dtype_bytes):
                if tiling.hopper_fits(c, dtype_bytes, budget,
                                      chip.accum_regs_bytes())]
     if not fitting:
+        # below the least footprint of the smallest built tile only
+        assert budget < tiling.hopper_min_smem_bytes(tiling.HOPPER_TILES[0],
+                                                     dtype_bytes)
         assert t == tiling.HOPPER_TILES[0]
         return
     assert t in fitting
@@ -177,6 +180,62 @@ def test_hopper_budgets_leave_out_the_full_register_tile():
         2 * (256 * 68 + 64 * 132) * 4
     assert all(tiling.hopper_smem_bytes(t, 4) <= hardware.H100_SXM.smem_bytes
                for t in tiling.HOPPER_TILES)
+
+
+def test_hopper_smem_bytes_is_each_kernels_layout():
+    """bf16: the wgmma kernel's ring, as many stages of unpadded A (y, z),
+    B (z, x) and two 8-byte mbarriers as fit after 1,024 bytes of
+    alignment slack, at least 3 (4 at 128 x 256 x 64: 48 KB stages); its
+    least footprint is 3 of them.  f32: two stages padded by 16 bytes a
+    row, launched and least alike.  Every built tile fits a block's
+    232,448 bytes."""
+    limit = 232_448
+    assert hardware.H100_SXM.smem_bytes == limit
+    t = tiling.Tile(128, 256, 64)
+    assert tiling.wgmma_stages(t) == 4
+    assert tiling.hopper_smem_bytes(t, 2) == 4 * (49_152 + 16) + 1024
+    assert tiling.hopper_min_smem_bytes(t, 2) == 3 * (49_152 + 16) + 1024
+    for t in tiling.HOPPER_TILES:
+        stage = (t.y * t.z + t.z * t.x) * 2 + 16
+        s = tiling.wgmma_stages(t)
+        assert s >= 3 and (s + 1) * stage + 1024 > limit
+        assert tiling.hopper_smem_bytes(t, 2) == s * stage + 1024 <= limit
+        assert tiling.hopper_min_smem_bytes(t, 2) == 3 * stage + 1024
+        assert tiling.hopper_smem_bytes(t, 4) == \
+            tiling.hopper_min_smem_bytes(t, 4) == \
+            2 * (t.y * (t.z + 4) + t.z * (t.x + 4)) * 4 <= limit
+        assert tiling.hopper_fits(t, 2, limit,
+                                  hardware.H100_SXM.accum_regs_bytes())
+
+
+@pytest.mark.parametrize("dtype_bytes", [2, 4])
+def test_smem_sweep_picks_fitting_tiles_that_grow_with_the_budget(
+        dtype_bytes):
+    """The paper's local-memory axis L: from the least footprint of the
+    smallest tile up, `solve_hopper` and the model's ranking pick a tile
+    whose least footprint fits L, the C tile never shrinks as L grows,
+    and the sweep of Table I moves through several tiles."""
+    from repro_torch.benchmarks import table1_matmul
+    regs = hardware.H100_SXM.accum_regs_bytes()
+    least = tiling.hopper_min_smem_bytes(tiling.HOPPER_TILES[0], dtype_bytes)
+    budgets = sorted({kb * 1024 for kb, _ in table1_matmul.SMEM_SWEEP}
+                     | {least, 40 << 10, 80 << 10, 160 << 10, 200 << 10})
+    picks = []
+    for budget in budgets:
+        if budget < least:
+            continue
+        t = tiling.solve_hopper(budget, dtype_bytes)
+        assert tiling.hopper_fits(t, dtype_bytes, budget, regs)
+        ranked = dse.rank_matmul_tiles(8192, 8192, 8192, smem_bytes=budget,
+                                       dtype_bytes=dtype_bytes, top=16)
+        assert ranked and all(
+            tiling.hopper_fits(c.detail["tile"], dtype_bytes, budget, regs)
+            for c in ranked)
+        picks.append(t)
+    areas = [t.y * t.x for t in picks]
+    assert areas == sorted(areas)
+    assert len(set(picks)) >= 4
+    assert picks[-1] == tiling.Tile(128, 256, 64)
 
 
 def test_chip_rates_by_operand_width():

@@ -19,6 +19,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels.spmv import pack_csr as jpack_csr  # noqa: E402
 from repro.kernels.spmv import spmv as jspmv  # noqa: E402
 from repro.kernels.spmv.ref import spmv_csr_ref as jspmv_csr_ref  # noqa: E402
+from repro.kernels.spmv.ref import spmv_ell_ref as jspmv_ell_ref  # noqa: E402
 
 from repro_torch.benchmarks import table2_spmv  # noqa: E402
 from repro_torch.kernels.spmv import kernel, ops, ref  # noqa: E402
@@ -252,3 +253,146 @@ def test_banded_matrix_keeps_its_band():
     again = table2_spmv.synthesize_banded(5000, 5000, seed=5)
     assert all(np.array_equal(a, b) for a, b in zip(again[:3],
                                                       (indptr, indices, data)))
+
+
+# ---------------------------------------------------------------------------
+# B7 with row lengths: the plain path, the wrapper's checks, the geometry
+# ---------------------------------------------------------------------------
+
+def _rows_with_empty_and_full(seed):
+    """CSR of 300 rows over 700 columns: every third row empty, every
+    third at 256 entries (the full ELL width at align 128), the rest 1-255
+    entries."""
+    rng = np.random.default_rng(seed)
+    rows = [np.array([], np.int64) if r % 3 == 0 else
+            np.sort(rng.choice(700, 256 if r % 3 == 1
+                               else int(rng.integers(1, 256)),
+                               replace=False)) for r in range(300)]
+    indptr = np.concatenate([[0], np.cumsum([len(r) for r in rows])])
+    indices = np.concatenate(rows).astype(np.int32)
+    data = rng.standard_normal(len(indices)).astype(np.float32)
+    return indptr.astype(np.int32), indices, data, (300, 700)
+
+
+@pytest.mark.parametrize("scheme", ["sorted", "none", "round_robin"])
+@pytest.mark.parametrize("kind", ["empty_and_full", "random", "table2"])
+def test_length_aware_plain_path_matches_the_reference(kind, scheme):
+    """`kernel.ell_spmv` with the row lengths on the CPU (the plain
+    version honours them) against the JAX package's `spmv_csr_ref` and
+    `spmv_ell_ref`, on rows of length 0, rows at the full width and rows
+    in between; in packed order and through `ops.spmv`.  Tolerance: the
+    reference test's rtol and atol of 1e-4 (the same f32 products, summed
+    in another order, up to 792 a row)."""
+    if kind == "empty_and_full":
+        indptr, indices, data, shape = _rows_with_empty_and_full(3)
+    elif kind == "random":
+        rng = np.random.default_rng(17)
+        _, indptr, indices, data = _random_csr(rng, 555, 300, 0.02)
+        shape = (555, 300)
+    else:
+        indptr, indices, data, shape = _table2("BIBD_14_7")
+    mat = ops.pack_csr(indptr, indices, data, shape, scheme=scheme,
+                       device="cpu")
+    if kind == "empty_and_full":
+        assert mat.cols.shape[1] == 256 and mat.row_lens.max() == 256
+        assert (mat.row_lens == 0).sum() >= 100
+    assert mat.lens.dtype == torch.int32
+    np.testing.assert_array_equal(mat.lens.numpy(), mat.row_lens)
+    x = np.random.default_rng(2).standard_normal(shape[1]).astype(np.float32)
+    tx = torch.from_numpy(x)
+    y_packed = kernel.ell_spmv(tx, mat.cols, mat.vals, row_lens=mat.lens)
+    theirs_ell = np.asarray(jspmv_ell_ref(jnp.asarray(mat.cols.numpy()),
+                                          jnp.asarray(mat.vals.numpy()),
+                                          jnp.asarray(x)))
+    np.testing.assert_allclose(y_packed.numpy(), theirs_ell, rtol=1e-4,
+                               atol=1e-4)
+    want = np.asarray(jspmv_csr_ref(jnp.asarray(indptr),
+                                    jnp.asarray(indices), jnp.asarray(data),
+                                    jnp.asarray(x), shape[0]))
+    np.testing.assert_allclose(ops.spmv(mat, tx).numpy(), want, rtol=1e-4,
+                               atol=1e-4)
+    assert bool((y_packed[torch.from_numpy(mat.row_lens == 0)] == 0).all())
+
+
+def test_length_aware_plain_path_uses_no_padding_where_x0_is_inf():
+    """The padded reference (the JAX package's `spmv_ell_ref`) adds a
+    pad's 0 * x[0] to every row: NaN where x[0] is inf.  With the row
+    lengths no pad is used, so rows that do not hold column 0 stay
+    finite and equal the CSR product (ROADMAP queue C)."""
+    indptr, indices, data, shape = _rows_with_empty_and_full(4)
+    keep = indices != 0
+    row_ids = np.repeat(np.arange(shape[0]), np.diff(indptr))
+    lens = np.bincount(row_ids[keep], minlength=shape[0])
+    indptr = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+    indices, data = indices[keep], data[keep]
+    mat = ops.pack_csr(indptr, indices, data, shape, scheme="sorted",
+                       device="cpu")
+    x = np.random.default_rng(5).standard_normal(shape[1]).astype(np.float32)
+    x[0] = np.inf
+    padded = mat.row_lens < mat.cols.shape[1]
+    theirs = np.asarray(jspmv_ell_ref(jnp.asarray(mat.cols.numpy()),
+                                      jnp.asarray(mat.vals.numpy()),
+                                      jnp.asarray(x)))
+    assert np.isnan(theirs[padded]).all() and padded.sum() > 100
+    ours = kernel.ell_spmv(torch.from_numpy(x), mat.cols, mat.vals,
+                           row_lens=mat.lens).numpy()
+    assert np.isfinite(ours).all()
+    want = np.asarray(jspmv_csr_ref(jnp.asarray(indptr),
+                                    jnp.asarray(indices), jnp.asarray(data),
+                                    jnp.asarray(x), shape[0]))
+    np.testing.assert_allclose(ops.spmv(mat, torch.from_numpy(x)).numpy(),
+                               want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("bad, match", [
+    (lambda lens: lens[:-1], "is not"),
+    (lambda lens: lens[:, None], "is not"),
+    (lambda lens: lens.long(), "int32"),
+    (lambda lens: lens.float(), "int32"),
+    (lambda lens: lens.to("meta"), "lies on"),
+], ids=["short", "2d", "int64", "float", "other_device"])
+def test_ell_spmv_refuses_bad_row_lens(bad, match):
+    rng = np.random.default_rng(1)
+    _, indptr, cols, vals = _random_csr(rng, 91, 91, 0.5)
+    mat = ops.pack_csr(indptr, cols, vals, (91, 91), device="cpu")
+    x = torch.from_numpy(rng.standard_normal(91).astype(np.float32))
+    with pytest.raises(ValueError, match=match):
+        kernel.ell_spmv(x, mat.cols, mat.vals, row_lens=bad(mat.lens))
+
+
+@pytest.mark.parametrize("lanes", [1, 4, 8, 32])
+def test_launch_geometry_spreads_few_long_rows_and_fills_the_card(lanes):
+    """BIBD_14_7's 91 rows of 792 entries (width 896): 32 lanes a row,
+    one-warp blocks, a block per row, so 91 SMs work (a row needs a warp;
+    the card's residency is far above 91).  A 1M-row matrix of width 128
+    keeps the tuner's lanes and 1024-thread blocks, one per SM (x of 128
+    KB leaves room for one), on all 132 SMs."""
+    geo = kernel.launch_geometry(91, 896, lanes, 3432, 132)
+    assert geo == {"threads": 32, "lanes": 32, "rows_per_block": 1,
+                   "grid": 91}
+    geo = kernel.launch_geometry(1 << 20, 128, lanes, 32768, 132)
+    assert geo["threads"] == 1024 and geo["lanes"] == lanes
+    assert geo["grid"] == 132
+    # Maragal_2's 555 rows of width 128: a lane keeps one 16-byte vector
+    # of a full row, and blocks of 4 warps give every SM one
+    geo = kernel.launch_geometry(555, 128, lanes, 128, 132)
+    assert geo == {"threads": 128, "lanes": 32, "rows_per_block": 4,
+                   "grid": 139}
+    geo = kernel.launch_geometry(555, 8, 1, 128, 132)
+    assert geo["lanes"] == 2                   # width 8: two vectors a row
+    # the residency caps the grid: x of 80 KB leaves room for two blocks
+    geo = kernel.launch_geometry(500_000, 8, lanes, 20_000, 132)
+    assert geo["threads"] == 1024 and geo["grid"] == 132 * 2
+
+
+def test_distinct_block_rows_keeps_the_first_of_each_launch():
+    """Few long rows launch alike whatever block_rows asks (BIBD_14_7,
+    Maragal_2); a 1M-row matrix launches differently on each; the order
+    given is kept, so the best-ranked of a launch is the one kept."""
+    assert kernel.distinct_block_rows(91, 896, 3432, 132) == [32]
+    assert kernel.distinct_block_rows(555, 128, 128, 132,
+                                      [256, 32, 1024]) == [256]
+    assert kernel.distinct_block_rows(1 << 20, 128, 32768, 132) == \
+        list(kernel.RESIDENT_ROWS)
+    assert kernel.distinct_block_rows(1 << 20, 128, 32768, 132,
+                                      [128, 32]) == [128, 32]
