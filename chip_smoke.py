@@ -12,16 +12,22 @@ Phases, each printed as one JSON line:
 2. ``build``: every kernel under ``src/repro_torch/csrc`` compiled with
    ``nvcc`` for ``sm_90a`` (B1-B8 in nine sources: B6's wgmma kernel in
    its own, its mma.sync and f32 kernels in another, the two SpMV kernels
-   in one), one ``nvcc`` per source, all at once, and the seconds.
+   in one), and ``decode_attention.cu`` once more for each other span of
+   `SPLIT_SPANS`, one ``nvcc`` per build, all at once, and the seconds.
 3. ``kernel_cases``: each CUDA decode-attention kernel against its plain
    PyTorch version on the card at Qwen3-14B decode shapes (Hq 40, Hkv 8,
-   dh 128): contiguous (``decode_ref``, with PyTorch SDPA timed as the
-   library yardstick), paged (``paged_decode_ref``; its output must also
-   equal the contiguous kernel's bit for bit over the same rows), int8
-   and paged int8 (``quantized_decode_ref``, ``paged_quantized_decode_ref``;
-   no single PyTorch call computes attention through a page table or over
-   int8 codes, so they have no library time).  Paged tables are a
-   shuffled permutation of the pool, at page sizes 16 and 48.
+   dh 128), up to its 32,768-key context at batch 1 and 4: contiguous
+   (``decode_ref``, with PyTorch SDPA timed as the library yardstick),
+   paged (``paged_decode_ref``; its output must also equal the contiguous
+   kernel's bit for bit over the same rows), int8 and paged int8
+   (``quantized_decode_ref``, ``paged_quantized_decode_ref``; no single
+   PyTorch call computes attention through a page table or over int8
+   codes, so they have no library time).  Paged tables are a shuffled
+   permutation of the pool, at page sizes 16 and 48.  Each case has the
+   call's event time and the kernel's own device time from
+   `torch.profiler`, its split span and its blocks.
+   ``split_sweep``: B1 with each span of `SPLIT_SPANS` at the serve shape,
+   4,096 and 32,768 keys, in turns.
 4. ``decode_vs_teacher_forcing`` and ``decode_vs_teacher_forcing_paged``:
    a small model decoded token by token through the contiguous and the
    paged kernel agrees with its own full-sequence forward.
@@ -113,6 +119,7 @@ exits non-zero without it; so does a host without a CUDA card.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import gc
@@ -149,10 +156,12 @@ SERVE_PHASES = [
 ]
 # Each kernel's design on the card, as the kernels line names it.
 DESIGNS = {
-    "decode_attention": "cp.async tile walk, f32 CUDA cores",
-    "paged_decode_attention": "cp.async tile walk, f32 CUDA cores",
-    "quantized_decode_attention": "cp.async tile walk, f32 CUDA cores",
-    "paged_quantized_decode_attention": "cp.async tile walk, f32 CUDA cores",
+    **dict.fromkeys(
+        ("decode_attention", "paged_decode_attention",
+         "quantized_decode_attention", "paged_quantized_decode_attention"),
+        "flash-decoding: keys split in decode.SPLIT_KEYS spans across "
+        "blocks, 8-key warp tiles on cp.async, f32 CUDA cores, splits "
+        "combined in the kernel by the last block of each row"),
     "flash_attention": {"wgmma": "wgmma+TMA", "mma.sync": "mma.sync",
                         "f32": "f32 CUDA cores"},
     "blocked_matmul": "wgmma+TMA (bf16 read by TMA), mma.sync (other "
@@ -187,6 +196,13 @@ KERNELS = {
 NO_LIBRARY = ("none: no single PyTorch call computes attention through a "
               "page table or over int8 codes")
 MIXED = [0, 1, 511, 512, 513, 2048, 3000, 4096]
+LONG = 32768                         # Qwen3-14B's context
+# split_sweep: each candidate span, built with -DDECODE_SPLIT_KEYS, timed
+# on B1 at the serve shape, 4,096 and 32,768 keys
+SPLIT_SPANS = (128, 256, 512, 1024)
+SWEEP_SHAPES = [("serve_shape", SERVE_LENGTHS, SERVE_LEN),
+                ("b1_l4096", [4096], 4096), ("b8_l4096", MIXED, 4096),
+                ("b1_l32768", [LONG], LONG), ("b4_l32768", [LONG] * 4, LONG)]
 STEP_BATCH, STEP_DEPTH = 4, 600      # decode_step: the serve run's shape
 STEP_WARMUP, STEP_COUNT = 2, 8       # untraced steps, then as many traced
 TOP_KERNELS = 12
@@ -257,6 +273,33 @@ def row_errors(torch, out, ref, f32: bool):
     return float(err.max()), float(ratio.max())
 
 
+def decode_kernel_ms(torch, fn, flush, n: int = 5):
+    """Mean device time of the decode kernel itself over ``n`` calls, each
+    after an L2-evicting write, by kernel name from `torch.profiler`: a
+    call's event time also holds the wrapper's own small operations.
+    None when the trace holds no time of the kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    us = sum(_device_us(e) for e in prof.key_averages()
+             if "decode_kernel" in e.key)
+    return us / 1e3 / n if us > 0 else None
+
+
+def split_plan(decode, lengths, rows: int, hkv: int) -> dict:
+    """The split span, the blocks of the grid (sized from the rows) and
+    those of them that hold keys (from the lengths)."""
+    return {"split_keys": decode.SPLIT_KEYS,
+            "grid_blocks": decode.num_splits(rows) * len(lengths) * hkv,
+            "blocks_with_keys": hkv * sum(len(decode.split_bounds(n, rows))
+                                          for n in lengths)}
+
+
 def kernel_case(torch, decode, flush, *, name, lengths, q_dtype, kv_dtype,
                 cache_len, hq=40, hkv=8, dh=128, seed=0):
     """One shape: error of the kernel against `decode_ref`, and times."""
@@ -286,8 +329,10 @@ def kernel_case(torch, decode, flush, *, name, lengths, q_dtype, kv_dtype,
             q.to(kv_dtype)[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
             attn_mask=mask, scale=scale, enable_gqa=True)
 
-    ms = median_ms(torch, lambda: decode.gqa_decode_attention(
-        q, k, v, length=lv, scale=scale), 21, flush)
+    def kernel():
+        return decode.gqa_decode_attention(q, k, v, length=lv, scale=scale)
+    ms = median_ms(torch, kernel, 21, flush)
+    kernel_ms = decode_kernel_ms(torch, kernel, flush)
     plain_ms = median_ms(torch, lambda: decode.decode_ref(
         q, k, v, length=lv, scale=scale), 5, flush)
     library_ms = median_ms(torch, library, 11, flush)
@@ -308,10 +353,11 @@ def kernel_case(torch, decode, flush, *, name, lengths, q_dtype, kv_dtype,
                           else "2^-7 x the row's max |ref|"),
             "max_err_over_tol": err_over_tol,
             "zero_rows_ok": zeros_ok, "ok": err_over_tol <= 1 and zeros_ok,
-            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": max(t_bytes, t_ops),
+            "ms": ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": nbytes, "operations": ops}
+            "bytes": nbytes, "operations": ops,
+            **split_plan(decode, lengths, cache_len, hkv)}
 
 
 def shuffled_pool(torch, lengths, rows, page_size, hkv, dh, seed):
@@ -391,6 +437,8 @@ def new_kernel_case(torch, mods, flush, *, kernel, name, lengths, q_dtype,
         bitwise = bool(torch.equal(out, contiguous))
     ms = median_ms(torch, lambda: fn(q, *args, length=lv, scale=scale), 21,
                    flush)
+    kernel_ms = decode_kernel_ms(
+        torch, lambda: fn(q, *args, length=lv, scale=scale), flush)
     plain_ms = median_ms(torch, lambda: ref_fn(q, *args, length=lv,
                                                scale=scale), 5, flush)
 
@@ -414,16 +462,20 @@ def new_kernel_case(torch, mods, flush, *, kernel, name, lengths, q_dtype,
                           else "2^-7 x the row's max |ref|"),
             "max_err_over_tol": err_over_tol, "zero_rows_ok": zeros_ok,
             "bitwise_contiguous": bitwise, "ok": ok,
-            "ms": ms, "plain_ms": plain_ms, "library_ms": None,
-            "bound_ms": max(t_bytes, t_ops),
+            "ms": ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+            "library_ms": None, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": nbytes, "operations": ops}
+            "bytes": nbytes, "operations": ops,
+            **split_plan(decode, lengths,
+                         pages.shape[1] * page_size if paged else rows, hkv)}
 
 
 def new_kernel_cases(torch, mods, flush):
     """B2-B4 at the serve shape, at batch 1 and 4096 rows, and at the mixed
     lengths and 4096 rows: B2 with bf16 q and an f32 or bf16 pool, B3 and
-    B4 with bf16 and f32 q, the paged ones at page sizes 16 and 48."""
+    B4 with bf16 and f32 q, the paged ones at page sizes 16 and 48.  At
+    32,768 keys, batch 1 and 4: B2 at page 16 with an f32 or bf16 pool, B3
+    and B4 (page 16) with bf16 q."""
     bf16, f32, i8 = torch.bfloat16, torch.float32, torch.int8
     shapes = [("serve_shape", SERVE_LENGTHS, SERVE_LEN),
               ("b1_l4096", [4096], 4096), ("b8_l4096", MIXED, 4096)]
@@ -446,7 +498,73 @@ def new_kernel_cases(torch, mods, flush):
                     kernel="paged_quantized_decode_attention", name=name,
                     lengths=lengths, q_dtype=q_dtype, kv_dtype=i8, rows=rows,
                     page_size=page_size))
+    for name, lengths in (("b1_l32768", [LONG]), ("b4_l32768", [LONG] * 4)):
+        for kv_dtype in (f32, bf16):
+            cases.append(new_kernel_case(
+                torch, mods, flush, kernel="paged_decode_attention",
+                name=name, lengths=lengths, q_dtype=bf16, kv_dtype=kv_dtype,
+                rows=LONG, page_size=16))
+        for kernel, page_size in (("quantized_decode_attention", None),
+                                  ("paged_quantized_decode_attention", 16)):
+            cases.append(new_kernel_case(
+                torch, mods, flush, kernel=kernel, name=name,
+                lengths=lengths, q_dtype=bf16, kv_dtype=i8, rows=LONG,
+                page_size=page_size))
+        gc.collect()
+        torch.cuda.empty_cache()
     return cases
+
+
+def split_sweep(torch, decode, build, variants, flush):
+    """B1 with each candidate span of `SPLIT_SPANS` (the other spans'
+    libraries built with -DDECODE_SPLIT_KEYS) at the `SWEEP_SHAPES`, f32
+    and bf16 caches, bf16 q: the spans in turns, forward then back, each
+    turn the median of 11 calls; each span's output is held to
+    `decode_ref` (the per-row tolerance of `row_errors`)."""
+    import ctypes
+    dev = torch.device("cuda")
+    libs = {s: (build.library("decode_attention") if s == decode.SPLIT_KEYS
+                else ctypes.CDLL(str(variants[s]))) for s in SPLIT_SPANS}
+    saved = build._libs["decode_attention"]
+    res = []
+    try:
+        for name, lengths, rows in SWEEP_SHAPES:
+            for kv_dtype in (torch.float32, torch.bfloat16):
+                gen = torch.Generator(device=dev).manual_seed(7)
+                b = len(lengths)
+                q = torch.randn((b, 40, 128), generator=gen, device=dev,
+                                dtype=torch.bfloat16)
+                k, v = (torch.randn((b, rows, 8, 128), generator=gen,
+                                    device=dev, dtype=kv_dtype)
+                        for _ in range(2))
+                lv = torch.tensor(lengths, dtype=torch.int32, device=dev)
+                ref = decode.decode_ref(q, k, v, length=lv)
+
+                def call():
+                    return decode.gqa_decode_attention(q, k, v, length=lv)
+                ms = {s: [] for s in SPLIT_SPANS}
+                worst = 0.0
+                for s in SPLIT_SPANS + SPLIT_SPANS[::-1]:
+                    build._libs["decode_attention"] = libs[s]
+                    if not ms[s]:
+                        out = call()
+                        torch.cuda.synchronize()
+                        worst = max(worst, row_errors(torch, out, ref,
+                                                      False)[1])
+                    ms[s].append(median_ms(torch, call, 11, flush))
+                res.append({
+                    "name": name, "kv_dtype": str(kv_dtype)[6:],
+                    "ms_by_span": {str(s): t for s, t in ms.items()},
+                    "grid_blocks_by_span": {
+                        str(s): decode.num_splits(rows, s) * b * 8
+                        for s in SPLIT_SPANS},
+                    "fastest": min(SPLIT_SPANS, key=lambda s: sum(ms[s])),
+                    "max_err_over_tol": worst, "ok": worst <= 1})
+                del q, k, v, ref
+                torch.cuda.empty_cache()
+    finally:
+        build._libs["decode_attention"] = saved
+    return res
 
 
 def decode_vs_teacher_forcing(torch, configs, transformer):
@@ -1495,10 +1613,18 @@ def main() -> int:
          python=sys.version.split()[0])
 
     t0 = time.time()
-    built = _build.build()
+    spans = [s for s in SPLIT_SPANS if s != decode.SPLIT_KEYS]
+    with concurrent.futures.ThreadPoolExecutor(len(spans) + 1) as pool:
+        jobs = [pool.submit(_build.build)] + [
+            pool.submit(_build.build, ["decode_attention"],
+                        {"DECODE_SPLIT_KEYS": s}) for s in spans]
+        built = jobs[0].result()
+        variants = {s: j.result()["decode_attention"]
+                    for s, j in zip(spans, jobs[1:])}
     sources = {pathlib.Path(src).stem for src, _ in KERNELS.values()}
     emit("build", seconds=round(time.time() - t0, 3),
          libraries=sorted(p.name for p in built.values()),
+         split_variants={s: p.name for s, p in variants.items()},
          kernels=list(KERNELS), flags=" ".join(_build.NVCC_FLAGS))
     check(sources <= set(built), f"not built: {sources - set(built)}")
 
@@ -1513,15 +1639,29 @@ def main() -> int:
                 torch, decode, flush, name=f"b{len(lengths)}_l4096",
                 lengths=lengths, q_dtype=q_dtype, kv_dtype=kv_dtype,
                 cache_len=4096))
+    for kv_dtype in (f32, bf16):
+        for lengths in ([LONG], [LONG] * 4):
+            cases.append(kernel_case(
+                torch, decode, flush, name=f"b{len(lengths)}_l{LONG}",
+                lengths=lengths, q_dtype=bf16, kv_dtype=kv_dtype,
+                cache_len=LONG))
+            gc.collect()
+            torch.cuda.empty_cache()
     for c in cases:
         c["kernel"] = "decode_attention"
     cases += new_kernel_cases(torch, mods, flush)
-    del flush
-    torch.cuda.empty_cache()
     emit("kernel_cases", cases=cases)
     check(all(c["ok"] for c in cases),
           "a kernel disagrees with its plain version: "
           + json.dumps([c for c in cases if not c["ok"]]))
+
+    sweep = split_sweep(torch, decode, _build, variants, flush)
+    del flush
+    torch.cuda.empty_cache()
+    emit("split_sweep", split_keys=decode.SPLIT_KEYS, rows=sweep)
+    check(all(r["ok"] for r in sweep),
+          "a split span disagrees with decode_ref: "
+          + json.dumps([r for r in sweep if not r["ok"]]))
 
     tf = decode_vs_teacher_forcing(torch, configs, transformer)
     emit("decode_vs_teacher_forcing", **tf)

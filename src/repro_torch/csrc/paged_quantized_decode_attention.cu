@@ -11,23 +11,23 @@
 // Bound: device-memory bytes, 2 * (dh + 4) per valid key and KV head plus
 // the page table, about 3.9x fewer than an f32 cache at dh 128.  The design
 // is the contiguous int8 kernel's (quantized_decode_attention.cu) with the
-// page walk of paged_decode_attention.cu: each block reads the page table
-// itself as it copies each key row's codes and scale into its 64-key tile,
-// so any page_size >= 1 works and the keys are read in the contiguous
-// order.  The serial 64-key walk and the SM underfill (B * Hkv blocks) are
-// inherited.
+// page walk of paged_decode_attention.cu: each warp reads the page table
+// itself as it copies each key row's codes and scale into its tile, so any
+// page_size >= 1 works, and the split keys and in-kernel combine of
+// decode_body.cuh read the keys in the contiguous order.
 
 #include "decode_body.cuh"
 
 namespace {
 
-template <typename QT>
 int run(const void* q, const void* kq, const void* ks, const void* vq,
         const void* vs, const void* pages, const void* lengths, void* out,
-        int batch, int hkv, int g, int dh, int num_pages, int page_size,
-        int max_pages, long long q_sb, long long q_sh, Layout kl, Layout ksl,
-        Layout vl, Layout vsl, float scale, cudaStream_t stream) {
-  Args<int8_t> a = make_args<int8_t>(q, out, kq, vq, lengths, hkv, g, dh,
+        void* part, void* tickets, int q_bf16, int batch, int hkv, int g,
+        int dh, int num_pages, int page_size, int max_pages, long long q_sb,
+        long long q_sh, Layout kl, Layout ksl, Layout vl, Layout vsl,
+        float scale, cudaStream_t stream) {
+  Args<int8_t> a = make_args<int8_t>(q, out, q_bf16, kq, vq, lengths, part,
+                                     tickets, hkv, g, dh,
                                      max_pages * page_size, q_sb, q_sh, kl,
                                      vl, scale);
   a.ks = static_cast<const float*>(ks);
@@ -36,7 +36,7 @@ int run(const void* q, const void* kq, const void* ks, const void* vq,
   a.vsl = vsl;
   a.pages = {static_cast<const int*>(pages), max_pages, page_size,
              num_pages};
-  return launch<QT, int8_t, true>(a, batch, stream);
+  return launch<int8_t, true>(a, batch, stream);
 }
 
 }  // namespace
@@ -46,28 +46,27 @@ int run(const void* q, const void* kq, const void* ks, const void* vq,
 // sh, 1), 16-byte aligned rows; ks, vs: f32 pools (num_pages, page_size,
 // Hkv) with strides (sp, sl, sh); pages: contiguous (B, max_pages) int32,
 // -1 = no page; lengths: (B,) int32; out: contiguous (B, Hq, dh) of q's
-// type, q_bf16 selecting bfloat16 (1) or float32 (0).  Returns the CUDA
-// error of the launch.
+// type, q_bf16 selecting bfloat16 (1) or float32 (0); part, part_floats and
+// tickets as for decode_attention, with L = max_pages * page_size.  Returns
+// the CUDA error of the launch.
 extern "C" int paged_quantized_decode_attention(
     const void* q, const void* kq, const void* ks, const void* vq,
     const void* vs, const void* pages, const void* lengths, void* out,
-    int q_bf16, int batch, int hkv, int g, int dh, int num_pages,
-    int page_size, int max_pages, long long q_sb, long long q_sh,
-    long long k_sp, long long k_sl, long long k_sh, long long ks_sp,
-    long long ks_sl, long long ks_sh, long long v_sp, long long v_sl,
-    long long v_sh, long long vs_sp, long long vs_sl, long long vs_sh,
-    float scale, void* stream) {
-  if (int err = check_shape(batch, hkv, g, dh, 1)) return err;
-  if (num_pages < 1 || page_size < 1 || max_pages < 1)
+    void* part, void* tickets, int q_bf16, int batch, int hkv, int g, int dh,
+    int num_pages, int page_size, int max_pages, long long q_sb,
+    long long q_sh, long long k_sp, long long k_sl, long long k_sh,
+    long long ks_sp, long long ks_sl, long long ks_sh, long long v_sp,
+    long long v_sl, long long v_sh, long long vs_sp, long long vs_sl,
+    long long vs_sh, long long part_floats, float scale, void* stream) {
+  if (num_pages < 1 || page_size < 1 || max_pages < 1 ||
+      static_cast<long long>(max_pages) * page_size > (1ll << 31) - 1)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (int err = check_shape(batch, hkv, g, dh, 1, max_pages * page_size,
+                            part_floats))
+    return err;
   const Layout kl{k_sp, k_sl, k_sh}, ksl{ks_sp, ks_sl, ks_sh};
   const Layout vl{v_sp, v_sl, v_sh}, vsl{vs_sp, vs_sl, vs_sh};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (q_bf16)
-    return run<__nv_bfloat16>(q, kq, ks, vq, vs, pages, lengths, out, batch,
-                              hkv, g, dh, num_pages, page_size, max_pages,
-                              q_sb, q_sh, kl, ksl, vl, vsl, scale, s);
-  return run<float>(q, kq, ks, vq, vs, pages, lengths, out, batch, hkv, g,
-                    dh, num_pages, page_size, max_pages, q_sb, q_sh, kl, ksl,
-                    vl, vsl, scale, s);
+  return run(q, kq, ks, vq, vs, pages, lengths, out, part, tickets, q_bf16,
+             batch, hkv, g, dh, num_pages, page_size, max_pages, q_sb, q_sh,
+             kl, ksl, vl, vsl, scale, static_cast<cudaStream_t>(stream));
 }

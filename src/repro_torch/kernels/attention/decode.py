@@ -7,6 +7,14 @@ CUDA kernels ``csrc/decode_attention.cu`` and
 ``csrc/paged_decode_attention.cu``; ``decode_ref`` and ``paged_decode_ref``
 are their plain PyTorch versions, ports of the JAX oracles.
 
+The kernels split each row's keys into spans of ``SPLIT_KEYS`` keys, one
+block each, and the last block of a row to finish combines the spans'
+partial softmaxes (``csrc/decode_body.cuh``).  That law is here in plain
+PyTorch too: `split_bounds`, `combine_partials` and `split_decode_ref`.
+A call allocates the spans' workspace from the caching allocator and
+shares one zeroed array of ticket counters per device and stream
+(`_launch`); the kernel leaves it zero.
+
 A wrapper takes the plain version only for tensors that lie on the CPU.
 A CUDA tensor launches the kernel or raises: there is no fallback.
 ``launches`` and ``paged_launches`` count kernel launches, so a run can
@@ -27,15 +35,24 @@ NEG_INF = -1e30
 # output columns and copy K/V rows in 16-byte pieces.
 HEAD_DIMS = (8, 16, 80, 96, 128)
 MAX_GROUP = 16                      # query heads per KV head (kMaxGroup)
+SPLIT_KEYS = 256                    # keys per split (kSplitKeys)
 _DTYPES = (torch.float32, torch.bfloat16)
 
 launches = 0          # decode_attention.cu
 paged_launches = 0    # paged_decode_attention.cu
+_tickets: dict = {}   # (device index, stream) -> zeroed int32 counters
 
 
 def _lengths(length, b: int, kl: int, device) -> torch.Tensor:
     """``length`` (int, 0-d or (B,) tensor) as a clamped (B,) int32 tensor
-    on ``device`` — `_row_lengths` of the JAX kernel, before the fold."""
+    on ``device`` — `_row_lengths` of the JAX kernel, before the fold.  A
+    contiguous (B,) int32 tensor on a card is passed as it is, with no
+    device operation: the kernels clamp each length to [0, rows]."""
+    if (isinstance(length, torch.Tensor) and length.is_cuda
+            and length.device == torch.device(device)
+            and length.dtype == torch.int32 and length.shape == (b,)
+            and length.is_contiguous()):
+        return length
     lv = torch.as_tensor(length, dtype=torch.int32, device=device)
     if lv.ndim == 0:
         lv = lv.expand(b)
@@ -45,16 +62,114 @@ def _lengths(length, b: int, kl: int, device) -> torch.Tensor:
     return torch.clamp(lv, 0, kl).to(torch.int32).contiguous()
 
 
-def _entry(name: str, n_ptrs: int, n_ints: int, n_strides: int):
-    """The C entry ``name`` of ``csrc/<name>.cu`` (built on first use): its
-    pointers, ints and 64-bit strides, then the f32 scale and the stream."""
-    fn = getattr(_build.library(name), name)
+def num_splits(rows: int, span: int = SPLIT_KEYS) -> int:
+    """Splits of the kernels' grid for a cache of ``rows`` rows: sized from
+    the shape alone, never from the lengths, and at least one."""
+    return max(1, -(-rows // span))
+
+
+def split_bounds(length: int, rows: int, span: int = SPLIT_KEYS
+                 ) -> list[tuple[int, int]]:
+    """The key ranges [lo, hi) of the splits that hold keys of a row of
+    ``length`` valid keys (clamped to [0, rows]): split s holds keys
+    [s * span, (s + 1) * span) cut at the length.  The grid's other
+    splits, of `num_splits` (rows), start at or past the length and write
+    nothing.  The bounds follow key positions alone, so a paged cache
+    (rows = max_pages * page_size) splits a row as a contiguous one does."""
+    n = min(max(int(length), 0), rows)
+    return [(lo, min(lo + span, n)) for lo in range(0, n, span)]
+
+
+def combine_partials(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor
+                     ) -> torch.Tensor:
+    """The kernels' combine of split partials, in f32: splits along dim 0
+    (m, l: (S, ...); acc: (S, ..., dh)).  With M = max m_i, the output is
+    sum_i acc_i e^(m_i - M) / sum_i l_i e^(m_i - M), both sums taken in
+    ascending split order; an empty partial (l = 0, m = -1e30) weighs 0,
+    and a row with no key gives 0."""
+    mx = m.amax(0)
+    o = torch.zeros_like(acc[0])
+    lsum = torch.zeros_like(l[0])
+    for i in range(m.shape[0]):
+        w = torch.exp(m[i] - mx)
+        lsum = lsum + l[i] * w
+        o = o + acc[i] * w[..., None]
+    return o / lsum.clamp_min(1e-30)[..., None]
+
+
+def split_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     length, scale: float | None = None,
+                     span: int = SPLIT_KEYS) -> torch.Tensor:
+    """Plain version of the kernels' split law: `decode_ref` computed as
+    the kernels compute it, each split's partial softmax (its max m, sum l
+    and unnormalised p @ V) on its own, then `combine_partials`.  Shapes as
+    `decode_ref`; f32 throughout, q's dtype out."""
+    b, hq, dh = q.shape
+    _, kl, hkv, _ = k.shape
+    g = hq // hkv
+    if scale is None:
+        scale = 1.0 / (dh ** 0.5)
+    ns = num_splits(kl, span)
+    pad = ns * span - kl
+    kr, vr = (torch.nn.functional.pad(x.float(), (0, 0, 0, 0, 0, pad))
+              .transpose(1, 2).reshape(b, hkv, ns, span, dh) for x in (k, v))
+    qr = q.reshape(b, hkv, g, dh).float()
+    s = torch.einsum("bhgd,bhsjd->bhsgj", qr, kr) * scale
+    lv = torch.as_tensor(length, dtype=torch.int32, device=q.device)
+    lv = lv.expand(b) if lv.ndim == 0 else lv
+    pos = torch.arange(ns * span, device=q.device).reshape(ns, span)
+    valid = (pos[None] < lv.clamp(0, kl)[:, None, None])[:, None, :, None]
+    s = torch.where(valid, s, NEG_INF)
+    m = s.amax(-1)
+    p = torch.where(valid, torch.exp(s - m[..., None]), 0.0)
+    acc = torch.einsum("bhsgj,bhsjd->bhsgd", p, vr)
+    out = combine_partials(m.movedim(2, 0), p.sum(-1).movedim(2, 0),
+                           acc.movedim(2, 0))
+    return out.reshape(b, hq, dh).to(q.dtype)
+
+
+def _split_keys(lib) -> int:
+    fn = lib.decode_split_keys
+    fn.restype = ctypes.c_int
+    return fn()
+
+
+def _launch(name: str, q: torch.Tensor, ptrs, ints, strides, *, batch: int,
+            hkv: int, g: int, dh: int, rows: int, scale: float
+            ) -> torch.Tensor:
+    """Launch the C entry ``name`` of ``csrc/<name>.cu`` (built on first
+    use): its pointers up to the lengths, then the output, the workspace
+    and the tickets; its ints; its 64-bit strides, then the workspace's
+    size, the f32 scale and the stream.  The workspace of the split
+    partials comes from the caching allocator; the ticket counters of q's
+    device and stream are one zeroed int32 array kept between calls
+    (every launch leaves it zero), replaced by a larger zeroed one when a
+    call needs more and dropped if a launch fails.  Returns the output."""
+    lib = _build.library(name)
+    fn = getattr(lib, name)
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
-                       + [ctypes.c_longlong] * n_strides
+        fn.argtypes = ([ctypes.c_void_p] * (len(ptrs) + 3)
+                       + [ctypes.c_int] * len(ints)
+                       + [ctypes.c_longlong] * (len(strides) + 1)
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
-    return fn
+    stream = _stream(q)
+    nsplit = num_splits(rows, _split_keys(lib))
+    part = torch.empty(batch * hkv * nsplit * g * (dh + 2),
+                       dtype=torch.float32, device=q.device)
+    key = (q.device.index, stream)
+    tickets = _tickets.get(key)
+    if tickets is None or tickets.numel() < batch * hkv:
+        tickets = torch.zeros(max(batch * hkv, 64), dtype=torch.int32,
+                              device=q.device)
+        _tickets[key] = tickets
+    out = torch.empty((batch, hkv * g, dh), dtype=q.dtype, device=q.device)
+    err = fn(*ptrs, out.data_ptr(), part.data_ptr(), tickets.data_ptr(),
+             *ints, *strides, part.numel(), float(scale), stream)
+    if err != 0:
+        _tickets.pop(key, None)
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    return out
 
 
 def check_gqa(q: torch.Tensor, hkv: int, dh: int) -> int:
@@ -112,11 +227,6 @@ def page_table(pages: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
 
 def _stream(q: torch.Tensor) -> int:
     return torch.cuda.current_stream(q.device).cuda_stream
-
-
-def _raise_on(err: int, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
 def decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -195,14 +305,13 @@ def gqa_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.dtype not in _DTYPES or v.dtype != k.dtype:
         raise ValueError(f"cache dtypes k={k.dtype}, v={v.dtype}: the cache "
                          f"must be float32 or bfloat16")
-    out = torch.empty((b, q.shape[1], dh), dtype=q.dtype, device=q.device)
-    fn = _entry("decode_attention", 5, 7, 8)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-             out.data_ptr(), int(q.dtype == torch.bfloat16),
-             int(k.dtype == torch.bfloat16), b, hkv, g, dh, kl,
-             q.stride(0), q.stride(1), *k.stride()[:3], *v.stride()[:3],
-             float(scale), _stream(q))
-    _raise_on(err, "decode_attention")
+    out = _launch(
+        "decode_attention", q,
+        (q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr()),
+        (int(q.dtype == torch.bfloat16), int(k.dtype == torch.bfloat16), b,
+         hkv, g, dh, kl),
+        (q.stride(0), q.stride(1), *k.stride()[:3], *v.stride()[:3]),
+        batch=b, hkv=hkv, g=g, dh=dh, rows=kl, scale=scale)
     global launches
     launches += 1
     return out
@@ -241,16 +350,16 @@ def paged_gqa_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
         raise ValueError(f"pool dtypes k={k_pool.dtype}, v={v_pool.dtype}: "
                          f"the pools must be float32 or bfloat16")
     table = page_table(pages, q)
-    out = torch.empty((b, q.shape[1], dh), dtype=q.dtype, device=q.device)
-    fn = _entry("paged_decode_attention", 6, 9, 8)
-    err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-             table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-             int(q.dtype == torch.bfloat16),
-             int(k_pool.dtype == torch.bfloat16), b, hkv, g, dh, num_pages,
-             page_size, max_pages, q.stride(0), q.stride(1),
-             *k_pool.stride()[:3], *v_pool.stride()[:3], float(scale),
-             _stream(q))
-    _raise_on(err, "paged_decode_attention")
+    out = _launch(
+        "paged_decode_attention", q,
+        (q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+         table.data_ptr(), lengths.data_ptr()),
+        (int(q.dtype == torch.bfloat16), int(k_pool.dtype == torch.bfloat16),
+         b, hkv, g, dh, num_pages, page_size, max_pages),
+        (q.stride(0), q.stride(1), *k_pool.stride()[:3],
+         *v_pool.stride()[:3]),
+        batch=b, hkv=hkv, g=g, dh=dh, rows=max_pages * page_size,
+        scale=scale)
     global paged_launches
     paged_launches += 1
     return out

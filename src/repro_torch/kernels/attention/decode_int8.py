@@ -100,14 +100,14 @@ def quantized_gqa_decode_attention(q: torch.Tensor, kq: torch.Tensor,
                                     scale=scale)
     _d.check_cuda(q, (kq, vq), g)
     _check_cuda_scales((ks, vs))
-    out = torch.empty((b, q.shape[1], dh), dtype=q.dtype, device=q.device)
-    fn = _d._entry("quantized_decode_attention", 7, 6, 14)
-    err = fn(q.data_ptr(), kq.data_ptr(), ks.data_ptr(), vq.data_ptr(),
-             vs.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-             int(q.dtype == torch.bfloat16), b, hkv, g, dh, kl,
-             q.stride(0), q.stride(1), *kq.stride()[:3], *ks.stride(),
-             *vq.stride()[:3], *vs.stride(), float(scale), _d._stream(q))
-    _d._raise_on(err, "quantized_decode_attention")
+    out = _d._launch(
+        "quantized_decode_attention", q,
+        (q.data_ptr(), kq.data_ptr(), ks.data_ptr(), vq.data_ptr(),
+         vs.data_ptr(), lengths.data_ptr()),
+        (int(q.dtype == torch.bfloat16), b, hkv, g, dh, kl),
+        (q.stride(0), q.stride(1), *kq.stride()[:3], *ks.stride(),
+         *vq.stride()[:3], *vs.stride()),
+        batch=b, hkv=hkv, g=g, dh=dh, rows=kl, scale=scale)
     global launches
     launches += 1
     return out
@@ -141,17 +141,17 @@ def paged_quantized_gqa_decode_attention(
     _d.check_cuda(q, (kq_pool, vq_pool), g)
     _check_cuda_scales((ks_pool, vs_pool))
     table = _d.page_table(pages, q)
-    out = torch.empty((b, q.shape[1], dh), dtype=q.dtype, device=q.device)
-    fn = _d._entry("paged_quantized_decode_attention", 8, 8, 14)
-    err = fn(q.data_ptr(), kq_pool.data_ptr(), ks_pool.data_ptr(),
-             vq_pool.data_ptr(), vs_pool.data_ptr(), table.data_ptr(),
-             lengths.data_ptr(), out.data_ptr(),
-             int(q.dtype == torch.bfloat16), b, hkv, g, dh, num_pages,
-             page_size, max_pages, q.stride(0), q.stride(1),
-             *kq_pool.stride()[:3], *ks_pool.stride(),
-             *vq_pool.stride()[:3], *vs_pool.stride(), float(scale),
-             _d._stream(q))
-    _d._raise_on(err, "paged_quantized_decode_attention")
+    out = _d._launch(
+        "paged_quantized_decode_attention", q,
+        (q.data_ptr(), kq_pool.data_ptr(), ks_pool.data_ptr(),
+         vq_pool.data_ptr(), vs_pool.data_ptr(), table.data_ptr(),
+         lengths.data_ptr()),
+        (int(q.dtype == torch.bfloat16), b, hkv, g, dh, num_pages, page_size,
+         max_pages),
+        (q.stride(0), q.stride(1), *kq_pool.stride()[:3], *ks_pool.stride(),
+         *vq_pool.stride()[:3], *vs_pool.stride()),
+        batch=b, hkv=hkv, g=g, dh=dh, rows=max_pages * page_size,
+        scale=scale)
     global paged_launches
     paged_launches += 1
     return out

@@ -1,19 +1,22 @@
-"""The CUDA kernels on the card, against their plain PyTorch versions:
-the decode-attention kernels, contiguous (`decode_attention`), paged
+"""The CUDA kernels on the card, against their plain PyTorch versions: the
+decode-attention kernels, contiguous (`decode_attention`), paged
 (`paged_decode_attention`), int8 (`quantized_decode_attention`) and paged
-int8 (`paged_quantized_decode_attention`), the prefill flash-attention
-kernels (`flash_attention`: TMA and `wgmma` for bf16 at head_dim 128,
-`mma.sync` and CUDA cores otherwise) against `ref.attention_ref` with
-every mask kind, ragged tails and query rows with no key, the blocked
-matmul (`blocked_matmul`: wgmma and TMA on every built tile for bf16
-operands TMA can read, mma.sync for other bf16 operands, CUDA cores for
-f32, as `kernel.design` routes them) against `matmul_ref` at ragged
-shapes with every activation, and the ELL SpMV kernels (`ell_spmv` with
-and without the row lengths, `ell_spmv_blocked` with slabs staged,
-gathered and skipped) against `spmv_ell_ref`, `spmv_csr_ref`, the slab
-walk `spmv_blocked_ref` and each other.  Every test here is marked
-``cuda`` and skips on a host without a card; this file imports no JAX, so
-it also runs where only the port is installed:
+int8 (`paged_quantized_decode_attention`), also at the edges of their key
+splits and at 32,768 keys, bitwise repeatable, one device kernel a call,
+paged bitwise the contiguous kernel whatever the two caches' rows, and
+lengths past the rows or below 0 clamped by the kernel; the prefill
+flash-attention kernels (`flash_attention`: TMA and `wgmma` for bf16 at
+head_dim 128, `mma.sync` and CUDA cores otherwise) against
+`ref.attention_ref` with every mask kind, ragged tails and query rows with
+no key, the blocked matmul (`blocked_matmul`: wgmma and TMA on every built
+tile for bf16 operands TMA can read, mma.sync for other bf16 operands,
+CUDA cores for f32, as `kernel.design` routes them) against `matmul_ref`
+at ragged shapes with every activation, and the ELL SpMV kernels
+(`ell_spmv` with and without the row lengths, `ell_spmv_blocked` with
+slabs staged, gathered and skipped) against `spmv_ell_ref`,
+`spmv_csr_ref`, the slab walk `spmv_blocked_ref` and each other. Every
+test here is marked ``cuda`` and skips on a host without a card; this file
+imports no JAX, so it also runs where only the port is installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
@@ -45,7 +48,7 @@ from repro_torch.kernels.attention import kernel as flash  # noqa: E402
 from repro_torch.kernels.attention import ref as flash_ref  # noqa: E402
 from repro_torch.runtime import quantize  # noqa: E402
 
-TILE = 64                     # keys per tile of the CUDA kernel
+TILE = 64                     # keys a decode block's eight warps take a round
 L = 160
 LENGTHS = [0, 1, TILE - 1, TILE, TILE + 1, L]
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
@@ -243,6 +246,195 @@ def test_int8_kernels_refuse_rows_of_8_bytes(cuda):
         decode_int8.quantized_gqa_decode_attention(q, kq, ks, vq, vs,
                                                    length=32)
     assert decode_int8.launches == before
+
+
+# -- split keys and the in-kernel combine (B1-B4) -----------------------------
+
+SPAN = decode.SPLIT_KEYS
+SPLIT_ROWS = 3 * SPAN + 40
+SPLIT_LENGTHS = [0, 1, TILE - 1, TILE, TILE + 1, SPAN - 1, SPAN, SPAN + 1,
+                 2 * SPAN + 7, SPLIT_ROWS]
+DECODE_KERNELS = ("decode_attention", "paged_decode_attention",
+                  "quantized_decode_attention",
+                  "paged_quantized_decode_attention")
+
+
+def _decode_case(kernel, lengths, rows, device, *, q_dt, kv_dt, hkv=2, g=5,
+                 dh=128, page_size=16, seed=11):
+    """One of B1-B4 with its plain version and operands for ``lengths``: a
+    contiguous (B, rows, Hkv, dh) cache, or a shuffled pool (-1 past each
+    slot's last page); int8 kernels get the rows' codes and scales."""
+    paged = kernel.startswith("paged")
+    quant = "quantized" in kernel
+    if paged:
+        k, v, pages = _pool(seed, lengths, page_size, hkv, dh, device)
+    else:
+        _, k, v = _inputs(seed, len(lengths), 1, hkv, dh, rows, "f32", device)
+    cache = _int8(k, v) if quant else (k.to(DTYPES[kv_dt]),
+                                       v.to(DTYPES[kv_dt]))
+    del k, v
+    q = torch.randn((len(lengths), g * hkv, dh), device=device,
+                    generator=torch.Generator(device).manual_seed(seed + 1)
+                    ).to(DTYPES[q_dt])
+    fn, ref = {
+        "decode_attention": (decode.gqa_decode_attention, decode.decode_ref),
+        "paged_decode_attention": (decode.paged_gqa_decode_attention,
+                                   decode.paged_decode_ref),
+        "quantized_decode_attention": (
+            decode_int8.quantized_gqa_decode_attention,
+            decode_int8.quantized_decode_ref),
+        "paged_quantized_decode_attention": (
+            decode_int8.paged_quantized_gqa_decode_attention,
+            decode_int8.paged_quantized_decode_ref),
+    }[kernel]
+    args = (q, *cache, *((pages,) if paged else ()))
+    lv = torch.tensor(lengths, dtype=torch.int32, device=device)
+    return fn, ref, args, lv
+
+
+def _launch_counts():
+    return (decode.launches, decode.paged_launches, decode_int8.launches,
+            decode_int8.paged_launches)
+
+
+# (q dtype, cache dtype) per kernel: the cache type of B1/B2, q of B3/B4
+SPLIT_DTYPES = [("f32", "f32"), ("bf16", "bf16")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dt, kv_dt", SPLIT_DTYPES)
+@pytest.mark.parametrize("kernel", DECODE_KERNELS)
+def test_kernels_match_their_refs_at_split_edges(cuda, kernel, q_dt, kv_dt):
+    """Lengths on both sides of a tile and of a split, two splits and a
+    ragged third: each kernel against its plain version, one launch."""
+    fn, ref, args, lv = _decode_case(kernel, SPLIT_LENGTHS, SPLIT_ROWS, cuda,
+                                     q_dt=q_dt, kv_dt=kv_dt)
+    before = sum(_launch_counts())
+    out = fn(*args, length=lv)
+    want = ref(*args, length=lv)
+    torch.cuda.synchronize()
+    assert sum(_launch_counts()) == before + 1
+    _assert_rows_close(out, want, q_dt == "f32")
+    assert not out[0].any(), "length 0 must give zeros"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", DECODE_KERNELS)
+def test_kernels_match_their_refs_at_32k_keys(cuda, kernel):
+    """Qwen3-14B's 32k context (Hkv 8, g 5, dh 128): 128 splits a row."""
+    lengths = [32768, 1, 20000]
+    fn, ref, args, lv = _decode_case(kernel, lengths, 32768, cuda,
+                                     q_dt="f32", kv_dt="f32", hkv=8)
+    out = fn(*args, length=lv)
+    want = ref(*args, length=lv)
+    torch.cuda.synchronize()
+    _assert_rows_close(out, want, True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dt", list(DTYPES))
+def test_paged_is_bitwise_contiguous_with_more_contiguous_rows(cuda, kv_dt):
+    """The split bounds follow key positions alone: a contiguous cache of
+    many more rows (so many more splits in its grid) than the pool's pages
+    still gives bitwise the paged kernel's output."""
+    k, v, pages = _pool(12, SPLIT_LENGTHS, 16, 8, 128, cuda)
+    k, v = k.to(DTYPES[kv_dt]), v.to(DTYPES[kv_dt])
+    q = torch.randn((len(SPLIT_LENGTHS), 40, 128), device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(13))
+    lv = torch.tensor(SPLIT_LENGTHS, dtype=torch.int32, device=cuda)
+    paged = decode.paged_gqa_decode_attention(q, k, v, pages, length=lv)
+    rows = pages.shape[1] * 16
+    wide = 4 * SPAN + rows
+
+    def widen(pool):
+        x = torch.zeros((len(SPLIT_LENGTHS), wide, 8, 128), dtype=pool.dtype,
+                        device=cuda)
+        x[:, :rows] = decode.gather_pages(pool, pages)
+        return x
+    contiguous = decode.gqa_decode_attention(q, widen(k), widen(v), length=lv)
+    assert decode.num_splits(wide) > decode.num_splits(rows)
+    torch.testing.assert_close(paged, contiguous, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", DECODE_KERNELS)
+def test_calls_repeat_bitwise_and_leave_the_tickets_zero(cuda, kernel):
+    """The last block of a row resets its ticket: a second call combines as
+    the first did, and the counters are zero after each."""
+    fn, _, args, lv = _decode_case(kernel, SPLIT_LENGTHS, SPLIT_ROWS, cuda,
+                                   q_dt="bf16", kv_dt="bf16")
+    first = fn(*args, length=lv)
+    second = fn(*args, length=lv)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    key = (cuda.index if cuda.index is not None
+           else torch.cuda.current_device(),
+           torch.cuda.current_stream(cuda).cuda_stream)
+    assert not decode._tickets[key].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", DECODE_KERNELS)
+def test_one_device_kernel_per_call(cuda, kernel):
+    """With (B,) int32 lengths on the card, a call is one kernel and
+    nothing else (no clamp, no second pass for the combine), and it needs
+    no host read: captured in a CUDA graph it is one kernel node, and two
+    replays give the direct call's output bit for bit, each leaving the
+    ticket counters at zero for the next."""
+    import ctypes
+    fn, _, args, lv = _decode_case(kernel, SPLIT_LENGTHS, SPLIT_ROWS, cuda,
+                                   q_dt="bf16", kv_dt="bf16")
+    want = fn(*args, length=lv)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):      # the capture stream's counters
+        fn(*args, length=lv)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, stream=stream):
+        out = fn(*args, length=lv)
+    driver = ctypes.CDLL("libcuda.so.1")
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    assert driver.cuGraphGetNodes(handle, None, ctypes.byref(n)) == 0
+    nodes = (ctypes.c_void_p * n.value)()
+    assert driver.cuGraphGetNodes(handle, nodes, ctypes.byref(n)) == 0
+    kinds = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        assert driver.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                         ctypes.byref(kind)) == 0
+        kinds.append(kind.value)
+    assert kinds == [0], f"graph node types {kinds} (0 = kernel)"
+    graph.instantiate()
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+
+
+@pytest.mark.cuda
+def test_kernel_clamps_lengths_past_the_rows_and_below_0(cuda):
+    """The wrapper hands (B,) int32 lengths to the kernel as they are; the
+    kernel clamps them to [0, rows] as `_lengths` does on the CPU."""
+    q, k, v = _inputs(14, 3, 10, 2, 128, SPLIT_ROWS, "f32", cuda)
+    wild = torch.tensor([-5, SPLIT_ROWS + 100, 3], dtype=torch.int32,
+                        device=cuda)
+    tame = torch.tensor([0, SPLIT_ROWS, 3], dtype=torch.int32, device=cuda)
+    out = decode.gqa_decode_attention(q, k, v, length=wild)
+    assert decode._lengths(wild, 3, SPLIT_ROWS, q.device) is wild
+    torch.testing.assert_close(
+        out, decode.gqa_decode_attention(q, k, v, length=tame), rtol=0,
+        atol=0)
+    _assert_rows_close(out, decode.decode_ref(q, k, v, length=tame), True)
+    assert not out[0].any()
+
+
+@pytest.mark.cuda
+def test_every_decode_library_splits_at_split_keys(cuda):
+    from repro_torch.kernels import _build
+    for name in DECODE_KERNELS:
+        assert decode._split_keys(_build.library(name)) == decode.SPLIT_KEYS
 
 
 # name: (Sq, Sk, causal, window); lengths not multiples of the 64-row tile

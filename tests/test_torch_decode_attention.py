@@ -7,6 +7,10 @@ tile (64).  Tolerances: with an f32 cache both sides compute in f32 and
 differ in summation order only: 1e-5.  With a bf16 cache the output is
 bf16 (2^-8 relative per rounding) and the JAX kernel also rounds the
 probabilities to bf16 before p @ V: 2e-2 for outputs of order 1.
+
+The CUDA kernels' split law in plain PyTorch (`split_bounds`,
+`combine_partials`, `split_decode_ref`) is held to the JAX `decode_ref`
+at lengths 0, 1, 63-65, one split, a split plus 1 and 4096, in f32: 1e-5.
 """
 
 import pytest
@@ -193,3 +197,61 @@ def test_paged_equals_contiguous_over_the_same_rows():
     wild[5, 0] = 10 ** 6
     np.testing.assert_array_equal(
         tdecode.gather_pages(k, wild)[5, :16].numpy(), k[-1].numpy())
+
+
+# -- the split law of the CUDA kernels (plain PyTorch) -----------------------
+
+SPAN = tdecode.SPLIT_KEYS
+SPLIT_L = 4096
+SPLIT_LENGTHS = np.array([0, 1, BLOCK - 1, BLOCK, BLOCK + 1, SPAN, SPAN + 1,
+                          SPLIT_L], np.int32)
+
+
+@pytest.mark.parametrize("g", [1, 5, 16])
+@pytest.mark.parametrize("dh", [8, 128])
+def test_split_then_combine_matches_jax_decode_ref(dh, g):
+    """Each split's partial softmax, then the kernels' combine, against the
+    JAX oracle in f32: summation order only, 1e-5."""
+    hkv = 2
+    q, k, v = _inputs(7, SPLIT_LENGTHS.size, g * hkv, hkv, dh, kl=SPLIT_L)
+    out_t = tdecode.split_decode_ref(
+        *(torch.from_numpy(a) for a in (q, k, v)),
+        length=torch.from_numpy(SPLIT_LENGTHS))
+    out_j = jdecode.decode_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                               length=jnp.asarray(SPLIT_LENGTHS))
+    np.testing.assert_allclose(_np(out_t), _np(out_j), rtol=1e-5, atol=1e-5)
+    assert not _np(out_t)[0].any(), "length 0 must give zeros"
+
+
+@pytest.mark.parametrize("length", [int(n) for n in SPLIT_LENGTHS])
+def test_split_bounds_follow_key_positions_only(length):
+    """Spans of SPLIT_KEYS keys from 0, the last cut at the length; the same
+    whatever the cache's rows (so its grid) or a pool's page size, as
+    bitwise paged == contiguous needs."""
+    want = tdecode.split_bounds(length, SPLIT_L)
+    assert [lo for lo, _ in want] == list(range(0, length, SPAN))
+    assert all(hi - lo == SPAN for lo, hi in want[:-1])
+    assert (want[-1][1] if want else 0) == length
+    for rows in (length, length + 1, 2 * SPLIT_L, 32768):
+        assert tdecode.split_bounds(length, rows) == want
+        assert tdecode.num_splits(rows) >= max(len(want), 1)
+    for page_size in (1, 3, 16, 48):
+        max_pages = -(-length // page_size) + 1
+        assert tdecode.split_bounds(length, max_pages * page_size) == want
+    assert tdecode.split_bounds(length + 100, length) == want
+
+
+def test_combine_weighs_an_empty_partial_zero():
+    """A split with no key (l = 0, m = -1e30) changes nothing, and a row
+    whose splits are all empty gives zeros."""
+    rng = np.random.default_rng(8)
+    m = torch.from_numpy(rng.standard_normal((3, 4)).astype(np.float32))
+    l = torch.from_numpy(rng.uniform(1, 3, (3, 4)).astype(np.float32))
+    acc = torch.from_numpy(rng.standard_normal((3, 4, 16)).astype(np.float32))
+    base = tdecode.combine_partials(m, l, acc)
+    empty = (torch.full((1, 4), tdecode.NEG_INF), torch.zeros((1, 4)),
+             torch.zeros((1, 4, 16)))
+    with_empty = tdecode.combine_partials(
+        *(torch.cat([x[:2], e, x[2:]]) for x, e in zip((m, l, acc), empty)))
+    torch.testing.assert_close(with_empty, base, rtol=0, atol=0)
+    assert not tdecode.combine_partials(*empty).any()

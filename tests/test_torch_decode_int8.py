@@ -7,7 +7,9 @@ they differ in summation order only: 1e-5.  With bf16 q each side rounds
 its f32 output to bf16 once, so outputs of order 1 may differ by one bf16
 ulp (2^-7 relative at most): 1e-2.  Lengths mix 0, one key, and lengths
 on both sides of a key block and of a page; paged tables are shuffled
-permutations of the pool with -1 past each slot's last page.
+permutations of the pool with -1 past each slot's last page.  The CUDA
+kernels' split law (`decode.split_decode_ref` over the dequantized codes)
+is held to the JAX `quantized_decode_ref` in f32: 1e-5.
 """
 
 import pytest
@@ -20,11 +22,14 @@ import numpy as np  # noqa: E402
 from repro.kernels.attention import decode_int8 as jint8  # noqa: E402
 from repro.runtime import quantize as jq  # noqa: E402
 from repro_torch.convert import disable_tf32  # noqa: E402
+from repro_torch.kernels.attention import decode as tdecode  # noqa: E402
 from repro_torch.kernels.attention import decode_int8 as tint8  # noqa: E402
+from repro_torch.runtime import quantize as tquant  # noqa: E402
 
 BLOCK = 64
 L = 160
 LENGTHS = np.array([0, 1, BLOCK - 1, BLOCK, BLOCK + 1, L], np.int32)
+SPLIT_KEYS = tdecode.SPLIT_KEYS
 TOL = {"f32": 1e-5, "bf16": 1e-2}
 JDT = {"f32": jnp.float32, "bf16": jnp.bfloat16}
 TDT = {"f32": torch.float32, "bf16": torch.bfloat16}
@@ -145,3 +150,31 @@ def test_wrappers_check_their_operands():
     over = tint8.quantized_gqa_decode_attention(q, kq, ks, kq, ks, length=99)
     full = tint8.quantized_gqa_decode_attention(q, kq, ks, kq, ks, length=8)
     torch.testing.assert_close(over, full, rtol=0, atol=0)
+
+
+# -- the split law of the CUDA kernels over int8 codes -----------------------
+
+SPLIT_L = 4096
+SPLIT_LENGTHS = np.array([0, 1, BLOCK - 1, BLOCK, BLOCK + 1, SPLIT_KEYS,
+                          SPLIT_KEYS + 1, SPLIT_L], np.int32)
+
+
+@pytest.mark.parametrize("g", [1, 5, 16])
+@pytest.mark.parametrize("dh", [8, 128])
+def test_split_then_combine_matches_jax_quantized_decode_ref(dh, g):
+    """The codes dequantized in f32, then each split's partial softmax and
+    the kernels' combine with q in f32, against the JAX oracle: 1e-5."""
+    rng = np.random.default_rng(9)
+    b, hkv = SPLIT_LENGTHS.size, 2
+    kq, ks = _codes(rng, (b, SPLIT_L, hkv, dh))
+    vq, vs = _codes(rng, (b, SPLIT_L, hkv, dh))
+    q = rng.standard_normal((b, g * hkv, dh)).astype(np.float32)
+    k = tquant.dequantize_rows(torch.from_numpy(kq), torch.from_numpy(ks))
+    v = tquant.dequantize_rows(torch.from_numpy(vq), torch.from_numpy(vs))
+    out_t = tdecode.split_decode_ref(torch.from_numpy(q), k, v,
+                                     length=torch.from_numpy(SPLIT_LENGTHS))
+    out_j = jint8.quantized_decode_ref(
+        *(jnp.asarray(a) for a in (q, kq, ks, vq, vs)),
+        length=jnp.asarray(SPLIT_LENGTHS))
+    np.testing.assert_allclose(_np(out_t), _np(out_j), rtol=1e-5, atol=1e-5)
+    assert not _np(out_t)[0].any(), "length 0 must give zeros"
