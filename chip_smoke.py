@@ -12,8 +12,7 @@ Phases, each printed as one JSON line:
 2. ``build``: every kernel under ``src/repro_torch/csrc`` compiled with
    ``nvcc`` for ``sm_90a`` (B1-B8 in nine sources: B6's wgmma kernel in
    its own, its mma.sync and f32 kernels in another, the two SpMV kernels
-   in one), and ``decode_attention.cu`` once more for each other span of
-   `SPLIT_SPANS`, one ``nvcc`` per build, all at once, and the seconds.
+   in one), one ``nvcc`` per source, all at once, and the seconds.
 3. ``kernel_cases``: each CUDA decode-attention kernel against its plain
    PyTorch version on the card at Qwen3-14B decode shapes (Hq 40, Hkv 8,
    dh 128), up to its 32,768-key context at batch 1 and 4: contiguous
@@ -26,8 +25,10 @@ Phases, each printed as one JSON line:
    permutation of the pool, at page sizes 16 and 48.  Each case has the
    call's event time and the kernel's own device time from
    `torch.profiler`, its split span and its blocks.
-   ``split_sweep``: B1 with each span of `SPLIT_SPANS` at the serve shape,
-   4,096 and 32,768 keys, in turns.
+   ``split_sweep``: B1 (f32 and bf16 cache) and B3 at each span of the
+   decode tuner's candidate set, the default 256 and the tuner's pick,
+   passed at run time, at the serve shape, 4,096 and 32,768 keys, in
+   turns; each row with the tuned span's time against 256's.
 4. ``decode_vs_teacher_forcing`` and ``decode_vs_teacher_forcing_paged``:
    a small model decoded token by token through the contiguous and the
    paged kernel agrees with its own full-sequence forward.
@@ -59,17 +60,26 @@ Phases, each printed as one JSON line:
    bf16 weights from a seeded generator) serves 6 requests through each
    cache layout (``--paged --sched spf``, ``--kv-dtype int8``, and both in
    a pool of 100 pages under ``--sched paged-aware``, where at most two
-   requests fit at once).  Each summary must conserve all 6, pass
-   ``tools/check_serve.py``, and its layout's kernel must have launched
-   40 times (once per layer) per decode forward, the other kernels never;
-   a paged run must end with no page allocated and no pool overflow; the
-   flash kernel must not launch (serving prefill with a cache runs
-   `attention_core`).
+   requests fit at once), at ``--batch 4``.  Each summary must conserve
+   all 6, pass ``tools/check_serve.py``, and its layout's kernel must have
+   launched 40 times (once per layer) per decode forward, the other
+   kernels never, and at the server's decode span only (a contiguous
+   cache: its plan's; a paged one: the default); a paged run must end
+   with no page allocated and no pool overflow; the flash kernel must not
+   launch (serving prefill with a cache runs `attention_core`).
+   ``serve_autobatch`` and ``serve_autobatch_int8``: the default CLI
+   (``--batch 0``) with an f32 and an int8 cache, the same checks; each
+   ``*_plan`` line prints the sweep's batch, predicted step, decode plan,
+   the kernel plan, the predicted step against the measured per-token
+   p50 and the kernel's launches; the decode kernel (B1, B3) must run at
+   the plan's span, and when the sweep picks 4 the token streams must
+   equal the ``--batch 4`` run's.
 8. ``paged_vs_contiguous``: one set of full-width weights serves the same
-   4 requests through a contiguous and a paged f32 cache; the greedy
-   token streams must be equal.
+   4 requests through a contiguous and a paged f32 cache, both at the
+   kernels' default span; the greedy token streams must be equal.
 9. ``decode_step``: where one decode step of the contiguous serve shape
-   goes (batch 4, depth 600): host-clock time of untraced steps, then
+   goes (batch 4, depth 600), at the span the server resolved from its
+   plan and at the default span: host-clock time of untraced steps, then
    device time by kernel from `torch.profiler` over traced steps.
 10. ``matmul_cases``: the blocked matmul B6, with the tile the tuner
    measures fastest among the model's top ``TABLE1_MEASURE_K``, against
@@ -108,10 +118,15 @@ Phases, each printed as one JSON line:
    model; the Table-II rows (dense
    baseline against the tuned sparse path) and the tuned plans of the
    four matrices and both 1M-row ones, the wide one on B8.
-13. ``kernels``: one entry per ported kernel, with its TPU counterpart,
-   its design, launches on its main-path run (a serve run; B5: the
-   ``prefill`` phase; B6: ``table1``; B7, B8: ``table2``), error and
-   times.
+   ``attention_report``: `repro_torch.benchmarks.run`'s report with its
+   attention rows measured at full Qwen3-14B shapes (B5, B1, B3) and the
+   Table I and Table II records of the two phases before (not timed
+   again); it must pass ``tools/check_bench.py``.
+13. ``total``: the script's seconds.  ``kernels``: one entry per ported
+   kernel, with its TPU counterpart, its design, launches on its
+   main-path run (B1, B3: the default CLI, ``serve_autobatch*``; B2, B4:
+   their serve runs; B5: the ``prefill`` phase; B6: ``table1``; B7, B8:
+   ``table2``), error and times.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed phase
 exits non-zero without it; so does a host without a CUDA card.
@@ -119,7 +134,6 @@ exits non-zero without it; so does a host without a CUDA card.
 
 from __future__ import annotations
 
-import concurrent.futures
 import contextlib
 import dataclasses
 import gc
@@ -154,14 +168,29 @@ SERVE_PHASES = [
                                        "int8", "--sched", "paged-aware"],
      "paged_quantized_decode_attention", 2),
 ]
+# The default CLI run (--batch 0): the tuner's batch and decode span.
+AUTOBATCH_BASE = ["--arch", "qwen3_14b", "--requests", "6",
+                  "--prompt-len", "600", "--gen", "16"]
+# (phase, argv, the kernel its decode steps run, the --batch 4 phase whose
+# token streams it must equal when the sweep picks 4)
+AUTOBATCH_PHASES = [
+    ("serve_autobatch", AUTOBATCH_BASE + ["--kv-dtype", "f32"],
+     "decode_attention", "serve"),
+    ("serve_autobatch_int8", AUTOBATCH_BASE + ["--kv-dtype", "int8"],
+     "quantized_decode_attention", "serve_int8"),
+]
+# The decode kernel of each serve phase.
+KERNELS_OF_SERVE = {p: k for p, _, k, _ in SERVE_PHASES + AUTOBATCH_PHASES}
 # Each kernel's design on the card, as the kernels line names it.
 DESIGNS = {
     **dict.fromkeys(
         ("decode_attention", "paged_decode_attention",
          "quantized_decode_attention", "paged_quantized_decode_attention"),
-        "flash-decoding: keys split in decode.SPLIT_KEYS spans across "
-        "blocks, 8-key warp tiles on cp.async, f32 CUDA cores, splits "
-        "combined in the kernel by the last block of each row"),
+        "flash-decoding: keys split in spans across blocks (a runtime "
+        "argument: decode.SPLIT_KEYS by default, the tuner's span on a "
+        "contiguous serving cache), 8-key warp tiles on cp.async, f32 CUDA "
+        "cores, splits combined in the kernel by the last block of each "
+        "row"),
     "flash_attention": {"wgmma": "wgmma+TMA", "mma.sync": "mma.sync",
                         "f32": "f32 CUDA cores"},
     "blocked_matmul": "wgmma+TMA (bf16 read by TMA), mma.sync (other "
@@ -197,9 +226,10 @@ NO_LIBRARY = ("none: no single PyTorch call computes attention through a "
               "page table or over int8 codes")
 MIXED = [0, 1, 511, 512, 513, 2048, 3000, 4096]
 LONG = 32768                         # Qwen3-14B's context
-# split_sweep: each candidate span, built with -DDECODE_SPLIT_KEYS, timed
-# on B1 at the serve shape, 4,096 and 32,768 keys
-SPLIT_SPANS = (128, 256, 512, 1024)
+# split_sweep: B1 and B3 at every span of the decode tuner's candidate
+# set (`spec.DECODE_BLOCKS`, clamped to the rows), the default span and
+# the span the tuner picks, each passed at run time, at the serve shape,
+# 4,096 and 32,768 keys
 SWEEP_SHAPES = [("serve_shape", SERVE_LENGTHS, SERVE_LEN),
                 ("b1_l4096", [4096], 4096), ("b8_l4096", MIXED, 4096),
                 ("b1_l32768", [LONG], LONG), ("b4_l32768", [LONG] * 4, LONG)]
@@ -515,55 +545,95 @@ def new_kernel_cases(torch, mods, flush):
     return cases
 
 
-def split_sweep(torch, decode, build, variants, flush):
-    """B1 with each candidate span of `SPLIT_SPANS` (the other spans'
-    libraries built with -DDECODE_SPLIT_KEYS) at the `SWEEP_SHAPES`, f32
-    and bf16 caches, bf16 q: the spans in turns, forward then back, each
-    turn the median of 11 calls; each span's output is held to
-    `decode_ref` (the per-row tolerance of `row_errors`)."""
-    import ctypes
+def sweep_spans(spec, rows: int, tuned: int) -> list[int]:
+    """The spans `split_sweep` times at a cache of ``rows`` rows: the
+    tuner's candidates clamped to the rows, the default span and the
+    tuner's pick."""
+    from repro_torch.kernels.attention import decode
+    return sorted({min(b, rows) for b in spec.DECODE_BLOCKS}
+                  | {decode.SPLIT_KEYS, tuned})
+
+
+def split_sweep(torch, mods, flush):
+    """B1 (f32 and bf16 cache) and B3 (int8 cache) at each span of
+    `sweep_spans` at the `SWEEP_SHAPES`, bf16 q, the span passed at run
+    time: the spans in turns, forward then back, each turn the median of
+    11 calls; each span's output held to its plain version (the per-row
+    tolerance of `row_errors`).  The tuner's pick is its model ranking
+    for the shape's problem with its lengths (`autotune.tune`, no
+    measurement), as the server ranks it; each row has the tuned span's
+    time over the default span's."""
+    import tempfile
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.attention import spec
+    decode, decode_int8, quantize, _ = mods
     dev = torch.device("cuda")
-    libs = {s: (build.library("decode_attention") if s == decode.SPLIT_KEYS
-                else ctypes.CDLL(str(variants[s]))) for s in SPLIT_SPANS}
-    saved = build._libs["decode_attention"]
+    kernels = {
+        "float32": ("decode", decode.gqa_decode_attention, decode.decode_ref),
+        "bfloat16": ("decode", decode.gqa_decode_attention,
+                     decode.decode_ref),
+        "int8": ("decode_int8", decode_int8.quantized_gqa_decode_attention,
+                 decode_int8.quantized_decode_ref)}
     res = []
-    try:
+    with tempfile.TemporaryDirectory() as tmp:
+        cache = autotune.TuneCache(pathlib.Path(tmp) / "autotune.json")
         for name, lengths, rows in SWEEP_SHAPES:
-            for kv_dtype in (torch.float32, torch.bfloat16):
+            for kv_name, (family, fn, ref_fn) in kernels.items():
                 gen = torch.Generator(device=dev).manual_seed(7)
                 b = len(lengths)
                 q = torch.randn((b, 40, 128), generator=gen, device=dev,
                                 dtype=torch.bfloat16)
-                k, v = (torch.randn((b, rows, 8, 128), generator=gen,
-                                    device=dev, dtype=kv_dtype)
-                        for _ in range(2))
+                kv = [torch.randn((b, rows, 8, 128), generator=gen,
+                                  device=dev) for _ in range(2)]
+                if kv_name == "int8":
+                    (kq, ks), (vq, vs) = map(quantize.quantize_rows, kv)
+                    cache_args = (kq, ks, vq, vs)
+                else:
+                    dt = getattr(torch, kv_name)
+                    cache_args = tuple(x.to(dt) for x in kv)
+                del kv
                 lv = torch.tensor(lengths, dtype=torch.int32, device=dev)
-                ref = decode.decode_ref(q, k, v, length=lv)
+                ref = ref_fn(q, *cache_args, length=lv)
+                problem = {"bkv": b * 8, "g": 5, "cache_len": rows,
+                           "dh": 128, "lengths": tuple(lengths)}
+                tuned = autotune.tune(
+                    family, problem,
+                    torch.bfloat16 if kv_name == "int8"
+                    else getattr(torch, kv_name),
+                    device=dev, measure_k=0, cache=cache).knobs["block_k"]
+                spans = sweep_spans(spec, rows, tuned)
 
-                def call():
-                    return decode.gqa_decode_attention(q, k, v, length=lv)
-                ms = {s: [] for s in SPLIT_SPANS}
+                def call(span):
+                    return fn(q, *cache_args, length=lv, block_k=span)
+                ms = {sp: [] for sp in spans}
                 worst = 0.0
-                for s in SPLIT_SPANS + SPLIT_SPANS[::-1]:
-                    build._libs["decode_attention"] = libs[s]
-                    if not ms[s]:
-                        out = call()
+                for sp in spans + spans[::-1]:
+                    if not ms[sp]:
+                        out = call(sp)
                         torch.cuda.synchronize()
                         worst = max(worst, row_errors(torch, out, ref,
                                                       False)[1])
-                    ms[s].append(median_ms(torch, call, 11, flush))
+                    ms[sp].append(median_ms(torch, lambda sp=sp: call(sp),
+                                            11, flush))
+                mean = {sp: sum(t) / len(t) for sp, t in ms.items()}
                 res.append({
-                    "name": name, "kv_dtype": str(kv_dtype)[6:],
-                    "ms_by_span": {str(s): t for s, t in ms.items()},
+                    "name": name, "kv_dtype": kv_name,
+                    "kernel": ("quantized_decode_attention"
+                               if kv_name == "int8" else "decode_attention"),
+                    "ms_by_span": {str(sp): t for sp, t in ms.items()},
                     "grid_blocks_by_span": {
-                        str(s): decode.num_splits(rows, s) * b * 8
-                        for s in SPLIT_SPANS},
-                    "fastest": min(SPLIT_SPANS, key=lambda s: sum(ms[s])),
+                        str(sp): decode.num_splits(rows, sp) * b * 8
+                        for sp in spans},
+                    "fastest": min(spans, key=lambda sp: mean[sp]),
+                    "tuned_span": tuned,
+                    "tuned_ms": mean[tuned],
+                    "default_span": decode.SPLIT_KEYS,
+                    "default_ms": mean[decode.SPLIT_KEYS],
+                    "tuned_over_default": (mean[tuned]
+                                           / mean[decode.SPLIT_KEYS]),
                     "max_err_over_tol": worst, "ok": worst <= 1})
-                del q, k, v, ref
+                del q, cache_args, ref
                 torch.cuda.empty_cache()
-    finally:
-        build._libs["decode_attention"] = saved
     return res
 
 
@@ -662,16 +732,33 @@ def reset_launch_counts(mods) -> None:
 
 
 def serve_phase(torch, serve, check_serve, mods, *, phase, argv, kernel,
-                most_at_once, layers) -> int:
+                most_at_once, layers) -> dict:
     """One serve run through `serve.main`, with every kernel's launch count
     set to 0 just before it and read just after.  Returns the launches of
-    the layout's kernel."""
+    the layout's kernel, each request's token stream, the spans the decode
+    kernels were launched with, the serving plan and the summary."""
+    decode = mods[0]
     reset_launch_counts(mods)
     torch.cuda.reset_peak_memory_stats()
     buf = io.StringIO()
+    streams, spans = {}, set()
+    run_loop, launch = serve.serve_loop, decode._launch
+
+    def loop(server, lc, **kw):
+        stats = run_loop(server, lc, **kw)
+        streams.update({rid: list(r.tokens) for rid, r in lc.requests.items()})
+        return stats
+
+    def spy(*a, span, **kw):
+        spans.add(span)
+        return launch(*a, span=span, **kw)
+    serve.serve_loop, decode._launch = loop, spy
     t0 = time.time()
-    with contextlib.redirect_stdout(buf):
-        rc = serve.main(argv)
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = serve.main(argv)
+    finally:
+        serve.serve_loop, decode._launch = run_loop, launch
     seconds = time.time() - t0
     counts = launch_counts(mods)
     log = buf.getvalue()
@@ -679,10 +766,13 @@ def serve_phase(torch, serve, check_serve, mods, *, phase, argv, kernel,
     summary = check_serve._json_lines(log)[-1]
     problems = check_serve.check(log, requests=6, min_tokens=6 * 16)
     launches = counts.pop(kernel)
+    plan = check_serve._json_lines(log)[0]["serving_plan"]
     emit(phase, argv=argv, rc=rc, seconds=round(seconds, 3),
          decode_forwards=summary.get("decode_forwards"), kernel=kernel,
          kernel_launches=launches, other_kernel_launches=counts,
-         layers=layers, check_serve_problems=problems,
+         decode_span=summary.get("decode_span"),
+         spans_launched=sorted(spans), layers=layers,
+         check_serve_problems=problems,
          tok_per_s=summary.get("tok_per_s"),
          per_token_ms=summary.get("per_token_ms"),
          max_concurrent=summary.get("max_concurrent"),
@@ -707,25 +797,72 @@ def serve_phase(torch, serve, check_serve, mods, *, phase, argv, kernel,
         check(summary["max_concurrent"] <= most_at_once,
               f"{phase}: {summary['max_concurrent']} requests at once in a "
               f"pool that holds {most_at_once}")
+    check(spans == {summary["decode_span"] or decode.SPLIT_KEYS},
+          f"{phase}: decode kernels launched at spans {sorted(spans)}, the "
+          f"server's span is {summary['decode_span']}")
     gc.collect()                      # the run's weights and cache
     torch.cuda.empty_cache()
-    return launches
+    return {"launches": launches, "streams": streams, "plan": plan,
+            "summary": summary}
+
+
+def autobatch_phase(torch, serve, check_serve, mods, *, phase, argv, kernel,
+                    layers, flagged) -> dict:
+    """The default CLI run, ``--batch 0``: the batch from the tuner's
+    sweep, the decode kernel at the span of the server's plan.  Prints the
+    serving plan, the kernel plan, the predicted step against the
+    measured per-token time and the kernel's launches; when the sweep
+    picks 4 the token streams must equal those of ``flagged`` (the
+    ``--batch 4`` run of the same layout)."""
+    run = serve_phase(torch, serve, check_serve, mods, phase=phase,
+                      argv=argv, kernel=kernel, most_at_once=None,
+                      layers=layers)
+    plan, summary = run["plan"], run["summary"]
+    decode_plan = plan["decode_plan"]
+    check(plan["source"] == "autotune",
+          f"{phase}: serving plan not from the sweep: {plan}")
+    check(summary["decode_span"] == decode_plan["knobs"]["block_k"],
+          f"{phase}: the server ran span {summary['decode_span']}, the "
+          f"sweep's decode plan has {decode_plan['knobs']}")
+    same = (run["streams"] == flagged["streams"] if plan["batch"] == 4
+            else None)
+    check(same is not False,
+          f"{phase}: the sweep picked batch 4 but the token streams differ "
+          f"from the --batch 4 run's")
+    per_token = summary["per_token_ms"]
+    out = {"batch": plan["batch"],
+           "predicted_step_us": plan["predicted_step_us"],
+           "chip": plan["chip"], "decode_plan": decode_plan,
+           "sweep": [{k: r[k] for k in ("batch", "step_us", "feasible")}
+                     for r in plan["sweep"]],
+           "kernel_plan": summary["kernel_plan"],
+           "decode_span": summary["decode_span"],
+           "watchdog": summary["watchdog"],
+           "per_token_ms": per_token,
+           "predicted_over_measured_p50": (
+               plan["predicted_step_us"] / 1e3 / per_token["p50"]
+               if per_token.get("p50") else None),
+           "kernel": kernel, "launches": run["launches"],
+           "streams_equal_batch4": same}
+    emit(phase + "_plan", **out)
+    return {**out, "run": run}
 
 
 def paged_vs_contiguous(torch, configs, serve, paging, lifecycle):
     """One set of full-width weights, the same 4 requests of 600 + 16
-    tokens through a contiguous and a paged (16-token pages) f32 cache:
-    the greedy token streams must be equal, since the paged kernel reads
-    the same keys in the same order as the contiguous one."""
+    tokens through a contiguous and a paged (16-token pages) f32 cache,
+    both decoding at the kernels' default span (no plans): the greedy
+    token streams must be equal, since the paged kernel reads the same
+    keys in the same splits and order as the contiguous one."""
     import numpy as np
     cfg = configs.get("qwen3_14b")
     rng = np.random.default_rng(1)
     reqs = [(rid, rng.integers(0, cfg.vocab_size, 600), 16)
             for rid in range(4)]
-    contiguous = serve.Server(cfg, 4, SERVE_LEN)
+    contiguous = serve.Server(cfg, 4, SERVE_LEN, autotune_kernels=False)
     spec = paging.PageSpec.build(4, SERVE_LEN, 16)
     paged = serve.Server(cfg, 4, SERVE_LEN, params=contiguous.params,
-                         paged=spec)
+                         paged=spec, autotune_kernels=False)
     shared = all(a is b for a, b in zip(
         _leaves(contiguous.params), _leaves(paged.params)))
     streams = []
@@ -763,42 +900,52 @@ def _device_us(evt) -> float:
 
 
 def decode_step_breakdown(torch, configs, serve):
-    """One decode step of the serve shape at full width: host-clock ms of
-    ``STEP_COUNT`` untraced steps (each ends in its host synchronisation,
-    the copy of the next tokens), then device time by kernel over as many
-    steps traced by `torch.profiler`.  The profiler slows the host, so the
-    busy share of an untraced step is the traced device time per step over
-    the median untraced step."""
+    """One decode step of the serve shape at full width, with the decode
+    span the server resolved from its plan and then with the kernels'
+    default span, on one server (the span rides the cache): for each,
+    host-clock ms of ``STEP_COUNT`` untraced steps (each ends in its host
+    synchronisation, the copy of the next tokens), then device time by
+    kernel over as many steps traced by `torch.profiler`.  The profiler
+    slows the host, so the busy share of an untraced step is the traced
+    device time per step over the median untraced step."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
     cfg = configs.get("qwen3_14b")
-    steps = STEP_WARMUP + 2 * STEP_COUNT
+    steps = 2 * (STEP_WARMUP + 2 * STEP_COUNT)
     server = serve.Server(cfg, STEP_BATCH, STEP_DEPTH + steps + 8)
     rng = np.random.default_rng(0)
     server.admit_chunk([(s, s, rng.integers(0, cfg.vocab_size, STEP_DEPTH),
                          steps + 1) for s in range(STEP_BATCH)])
-    for _ in range(STEP_WARMUP):
-        server.decode_step()
-    host_ms = []
-    for _ in range(STEP_COUNT):
-        t0 = time.perf_counter()
-        server.decode_step()
-        host_ms.append((time.perf_counter() - t0) * 1e3)
-    median = float(np.median(host_ms))
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(STEP_COUNT):
+    out = {"batch": STEP_BATCH, "depth": STEP_DEPTH,
+           "cache_rows": server.max_len}
+    for label, span in (("tuned", server.decode_span), ("default", None)):
+        server.cache.pop("decode_span", None)
+        if span is not None:
+            server.cache["decode_span"] = span
+        for _ in range(STEP_WARMUP):
             server.decode_step()
+        host_ms = []
+        for _ in range(STEP_COUNT):
+            t0 = time.perf_counter()
+            server.decode_step()
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+        median = float(np.median(host_ms))
+
         torch.cuda.synchronize()
-    kernels = [(e.key, e.count, _device_us(e)) for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    kernels = sorted((k for k in kernels if k[2] > 0), key=lambda k: -k[2])
-    busy_ms = sum(k[2] for k in kernels) / 1e3 / STEP_COUNT
-    attn_ms = sum(k[2] for k in kernels          # the kernels' shared body
-                  if "decode_kernel" in k[0]) / 1e3 / STEP_COUNT
-    return {"batch": STEP_BATCH, "depth": STEP_DEPTH,
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(STEP_COUNT):
+                server.decode_step()
+            torch.cuda.synchronize()
+        kernels = [(e.key, e.count, _device_us(e))
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        kernels = sorted((k for k in kernels if k[2] > 0), key=lambda k: -k[2])
+        busy_ms = sum(k[2] for k in kernels) / 1e3 / STEP_COUNT
+        attn_ms = sum(k[2] for k in kernels      # the kernels' shared body
+                      if "decode_kernel" in k[0]) / 1e3 / STEP_COUNT
+        out[label] = {
+            "decode_span": span,
             "host_ms": host_ms, "host_median_ms": median,
             "device_time_measured": bool(kernels),
             "device_ms_per_step": busy_ms,
@@ -809,6 +956,9 @@ def decode_step_breakdown(torch, configs, serve):
             "top_kernels": [{"name": n[:120], "calls": c,
                              "ms_per_step": us / 1e3 / STEP_COUNT}
                             for n, c, us in kernels[:TOP_KERNELS]]}
+    out["decode_attention_ms_per_step"] = min(
+        out[k]["decode_attention_ms_per_step"] for k in ("tuned", "default"))
+    return out
 
 
 def keys_per_row(sq: int, sk: int, causal: bool, window):
@@ -1504,8 +1654,8 @@ def paper_phases(torch, mods):
     """The paper's slice: ``matmul_cases`` and ``spmv_cases`` (B6-B8
     against their plain versions), then ``table1`` and ``table2`` (the
     port's benchmarks on the card, the main path of B6-B8).  Emits a line
-    per phase and fails on any; returns the cases and each kernel's
-    launches on its main path."""
+    per phase and fails on any; returns the cases, each kernel's launches
+    on its main path, and the two tables' records."""
     from repro_torch.benchmarks import table1_matmul as table1
     from repro_torch.benchmarks import table2_spmv as table2
     from repro_torch.kernels import autotune
@@ -1560,7 +1710,36 @@ def paper_phases(torch, mods):
                 "blocked_matmul_by_design": t1["launches_by_design"],
                 "ell_spmv": t2["launches"]["ell_spmv"],
                 "ell_spmv_blocked": t2["launches"]["ell_spmv_blocked"]}
-    return mcases + scases, launches
+    return mcases + scases, launches, (t1, t2)
+
+
+def attention_report(torch, mods, t1, t2) -> dict:
+    """`repro_torch.benchmarks.run`'s report on the card: its attention
+    rows measured here at full Qwen3-14B shapes (B5, B1 and B3 launched,
+    counts set to 0 just before and read just after; the decode rows at
+    the tuner's spans), its Table I and Table II rows the records the
+    ``table1`` and ``table2`` phases made (B6-B8 are not timed again).
+    The report must pass ``tools/check_bench.py`` unchanged."""
+    import tempfile
+    import check_bench
+    from repro_torch.benchmarks import run
+    reset_launch_counts(mods)
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        rows = run.attention_rows("cuda", smoke=False)
+        counts = launch_counts(mods)
+        report = run.kernel_report(
+            "cuda", tuned_recs=t1["tuned_vs_fixed"],
+            matmul_measured=t1["measured"], spmv_recs=t2["tuned_records"],
+            attention=rows)
+        path = pathlib.Path(tmp) / "report.json"
+        path.write_text(json.dumps(report))
+        problems = check_bench.check(path)
+    return {"seconds": time.time() - t0, "report": report,
+            "launches": counts, "check_bench_problems": problems,
+            "ok": (not problems and counts["flash_attention"] > 0
+                   and counts["decode_attention"] > 0
+                   and counts["quantized_decode_attention"] > 0)}
 
 
 def main_path_case(kernel: str, cases: list) -> dict:
@@ -1600,6 +1779,7 @@ def main() -> int:
     from repro_torch.runtime import lifecycle, paging, quantize
     mods = (decode, decode_int8, quantize, flash)
 
+    started = time.time()
     disable_tf32()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1613,18 +1793,10 @@ def main() -> int:
          python=sys.version.split()[0])
 
     t0 = time.time()
-    spans = [s for s in SPLIT_SPANS if s != decode.SPLIT_KEYS]
-    with concurrent.futures.ThreadPoolExecutor(len(spans) + 1) as pool:
-        jobs = [pool.submit(_build.build)] + [
-            pool.submit(_build.build, ["decode_attention"],
-                        {"DECODE_SPLIT_KEYS": s}) for s in spans]
-        built = jobs[0].result()
-        variants = {s: j.result()["decode_attention"]
-                    for s, j in zip(spans, jobs[1:])}
+    built = _build.build()
     sources = {pathlib.Path(src).stem for src, _ in KERNELS.values()}
     emit("build", seconds=round(time.time() - t0, 3),
          libraries=sorted(p.name for p in built.values()),
-         split_variants={s: p.name for s, p in variants.items()},
          kernels=list(KERNELS), flags=" ".join(_build.NVCC_FLAGS))
     check(sources <= set(built), f"not built: {sources - set(built)}")
 
@@ -1655,12 +1827,12 @@ def main() -> int:
           "a kernel disagrees with its plain version: "
           + json.dumps([c for c in cases if not c["ok"]]))
 
-    sweep = split_sweep(torch, decode, _build, variants, flush)
+    sweep = split_sweep(torch, mods, flush)
     del flush
     torch.cuda.empty_cache()
     emit("split_sweep", split_keys=decode.SPLIT_KEYS, rows=sweep)
     check(all(r["ok"] for r in sweep),
-          "a split span disagrees with decode_ref: "
+          "a split span disagrees with its plain version: "
           + json.dumps([r for r in sweep if not r["ok"]]))
 
     tf = decode_vs_teacher_forcing(torch, configs, transformer)
@@ -1709,10 +1881,22 @@ def main() -> int:
 
     layers = configs.get("qwen3_14b").num_layers
     launches = {"flash_attention": prefill_launches["prefill"]}
+    serve_runs, serve_launches, main_spans = {}, {}, {}
     for phase, argv, kernel, most_at_once in SERVE_PHASES:
-        launches[kernel] = serve_phase(
+        serve_runs[phase] = serve_phase(
             torch, serve, check_serve, mods, phase=phase, argv=argv,
             kernel=kernel, most_at_once=most_at_once, layers=layers)
+        launches[kernel] = serve_runs[phase]["launches"]
+        serve_launches[phase] = launches[kernel]
+    # The default CLI (--batch 0) is the main path of B1 and B3.
+    for phase, argv, kernel, flagged in AUTOBATCH_PHASES:
+        auto = autobatch_phase(torch, serve, check_serve, mods, phase=phase,
+                               argv=argv, kernel=kernel, layers=layers,
+                               flagged=serve_runs[flagged])
+        launches[kernel] = auto["launches"]
+        serve_launches[phase] = auto["launches"]
+        main_spans[kernel] = auto["decode_span"]
+    del serve_runs
 
     pvc = paged_vs_contiguous(torch, configs, serve, paging, lifecycle)
     emit("paged_vs_contiguous", **pvc)
@@ -1723,9 +1907,15 @@ def main() -> int:
     check(step["decode_attention_ms_per_step"] > 0,
           "decode_step found no device time of the decode kernel")
 
-    paper_cases, paper_launches = paper_phases(torch, mods)
+    paper_cases, paper_launches, (t1, t2) = paper_phases(torch, mods)
     cases += paper_cases
     launches.update(paper_launches)
+    rep = attention_report(torch, mods, t1, t2)
+    emit("attention_report", **rep)
+    check(rep["ok"], "attention_report failed: " + json.dumps(
+        {"problems": rep["check_bench_problems"],
+         "launches": rep["launches"]}))
+    del t1, t2
 
     entries = []
     for name, (source, replaces) in KERNELS.items():
@@ -1742,9 +1932,24 @@ def main() -> int:
             entry["library"] = serve_case.get("library", NO_LIBRARY)
         if name == "flash_attention":
             entry["launches_by_phase"] = prefill_launches
+        if name in KERNELS_OF_SERVE.values():
+            entry["launches_by_phase"] = {
+                phase: n for phase, n in serve_launches.items()
+                if KERNELS_OF_SERVE[phase] == name}
+        if name in main_spans:
+            # ms above is the default span's; the default CLI ran this one
+            span = main_spans[name]
+            row = next(r for r in sweep if r["name"] == "serve_shape"
+                       and r["kernel"] == name
+                       and r["kv_dtype"] in ("float32", "int8"))
+            times = row["ms_by_span"].get(str(span))
+            entry["main_path_span"] = span
+            entry["main_path_span_ms"] = (sum(times) / len(times) if times
+                                          else None)
         if name == "blocked_matmul":
             entry["launches_by_design"] = launches["blocked_matmul_by_design"]
         entries.append(entry)
+    emit("total", seconds=round(time.time() - started, 3))
     print(json.dumps({"kernels": entries}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -33,6 +33,7 @@ from repro_torch.core import loadbalance
 from repro_torch.kernels import autotune
 from repro_torch.kernels.spmv import kernel as spmv_kernel
 from repro_torch.kernels.spmv import ops as spmv_ops
+from repro_torch.kernels.spmv import ref as spmv_ref
 
 # Published stats: name -> (NNZ, M(rows), nnz_per_row range)
 MATRICES = {
@@ -194,15 +195,14 @@ def tuned_records(device="cuda", names=tuple(MATRICES),
                   check_blocked_on: str = "Maragal_2") -> list[dict]:
     """Tuner plans for ``names`` (any of `MATRICES` and `LARGE`), each
     packed under the sorted law.  For ``check_blocked_on`` the blocked
-    path (x in two slabs) is also run and compared with the resident
-    one."""
+    path (x in two slabs) is also run and compared with the resident one
+    and with the plain CSR product (`ref.spmv_csr_ref`)."""
     device = resolve_device(device)
     recs = []
     for name in names:
         indptr, indices, data, shape = build(name)
         mat = spmv_ops.pack_csr(indptr, indices, data, shape,
                                 scheme="sorted", device=device)
-        del indices, data
         plan = autotune.tune("spmv", {"mat": mat}, device=device,
                              cache=cache)
         rec = {
@@ -223,10 +223,14 @@ def tuned_records(device="cuda", names=tuple(MATRICES),
             y_blk = spmv_ops.spmv(mat, x, block_rows=br,
                                   block_cols=max(128, (n // 2) // 128 * 128))
             y_res = spmv_ops.spmv(mat, x)
+            y_ref = spmv_ref.spmv_csr_ref(
+                *(torch.from_numpy(a).to(device)
+                  for a in (indptr, indices, data)), x, shape[0])
             rec["blocked_vs_resident_err"] = float((y_blk - y_res).abs()
                                                    .max())
+            rec["blocked_vs_ref_err"] = float((y_blk - y_ref).abs().max())
         recs.append(rec)
-        del mat
+        del mat, indices, data
     return recs
 
 

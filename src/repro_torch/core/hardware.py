@@ -39,7 +39,9 @@ class Chip:
 
     ``peak_flops`` is the rate of 2-byte (bf16) operands on the tensor
     cores, ``peak_flops_f32`` that of f32 on the CUDA cores (the f32
-    kernels never use TF32).  ``smem_bytes`` is the shared memory one
+    kernels never use TF32).  ``link_bw`` is one direction of the NVLink
+    between two cards of a host (the roofline's collective term).
+    ``smem_bytes`` is the shared memory one
     thread block may take (all of it may hold staged tiles: nothing else
     of these kernels lives there), ``regs_bytes`` one SM's register
     file.
@@ -51,6 +53,7 @@ class Chip:
     peak_flops_f32: float = 67e12
     hbm_bw: float = 3.35e12
     hbm_bytes: int = 80 * 10**9
+    link_bw: float = 450e9
     smem_bytes: int = 232_448          # 227 KB
     l2_bytes: int = 50 * 2**20
     regs_bytes: int = 65_536 * 4       # 64K 32-bit registers per SM

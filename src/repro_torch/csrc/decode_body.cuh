@@ -14,13 +14,18 @@
 // every SM and at no chain of latencies between them.
 //
 // Split keys (flash-decoding).  The grid is (split, b * Hkv + h): split s
-// owns keys [s * kSplitKeys, (s + 1) * kSplitKeys) of its row, so a row of
-// n keys runs on ceil(n / kSplitKeys) blocks spread over the SMs.  The
-// grid is sized from the shapes alone (the cache's rows), never from the
-// lengths, so the host reads nothing back; a block whose span starts at or
-// past its row's length has no keys and exits without writing, and block
-// 0 of a row of length 0 writes its zeros.  The bounds depend on key
-// positions only, not on the rows, the page size or the layout.
+// owns keys [s * span, (s + 1) * span) of its row, so a row of n keys runs
+// on ceil(n / span) blocks spread over the SMs.  The span is an argument
+// of each call (Args::span, any span >= 1: a block's walk stops at the
+// end of its span wherever that falls in a round of 64 keys), the
+// counterpart of the TPU kernel's block_k; the caller picks it (the
+// wrappers' default, or the decode tuner's plan for the cache depth).
+// The grid is sized from the shapes and the span alone (the cache's
+// rows), never from the lengths, so the host reads nothing back; a block
+// whose span starts at or past its row's length has no keys and exits
+// without writing, and block 0 of a row of length 0 writes its zeros.
+// The bounds depend on key positions only, not on the rows, the page size
+// or the layout.
 //
 // Inside a block: eight warps, each walking its own 8-key tiles of the
 // span (warp w takes tiles w, w + 8, ...) with no block barrier.  A warp
@@ -66,8 +71,10 @@
 //
 // Known gap: a block pays a fixed cost outside its stream of copies (its
 // length and q loads, the first copy's wait, the fence and the ticket), so
-// at 32,768 keys, with 128 splits a row, the kernel reads about 2 TB/s; a
-// persistent grid that walks several splits per block would hide it.
+// at 32,768 keys, with 128 splits of 256 keys a row, the kernel reads
+// about 2 TB/s; a longer span pays it fewer times and fills fewer SMs
+// (PERF.md), and a persistent grid that walks several splits per block
+// would hide it.
 
 #pragma once
 
@@ -78,13 +85,6 @@
 #include <atomic>
 #include <type_traits>
 
-// Keys per split.  Picked by measuring every candidate at the serve shape
-// and at 4,096 and 32,768 keys (PERF.md); the definition on the command
-// line is how that measurement builds the other candidates.
-#ifndef DECODE_SPLIT_KEYS
-#define DECODE_SPLIT_KEYS 256
-#endif
-
 namespace {
 
 constexpr int kWarps = 8;
@@ -92,13 +92,10 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kTileKeys = 8;              // keys per warp tile
 constexpr int kLanesPerKey = 32 / kTileKeys;
 constexpr int kStages = 2;                // per-warp cp.async ring
-constexpr int kSplitKeys = DECODE_SPLIT_KEYS;
 constexpr int kMaxGroup = 16;             // query rows per KV head
 constexpr int kMaxDh = 128;               // four output columns per lane
 constexpr int kCombineChunk = 128;        // split weights held at once
 constexpr float kNegInf = -1e30f;
-static_assert(kSplitKeys % (kWarps * kTileKeys) == 0 && kSplitKeys > 0,
-              "a split is a whole number of rounds of the block");
 
 template <typename KT>
 constexpr bool kQuant = std::is_same<KT, int8_t>::value;
@@ -229,22 +226,26 @@ struct Args {
   int* tickets;              // (B * Hkv,) int32, 0 between calls
   int hkv, g, dh;
   int rows;                  // rows a sequence holds: L or pages * page_size
-  int nsplit;                // splits of the grid: split_count(rows)
+  int span;                  // keys per split, >= 1
+  int nsplit;                // splits of the grid: split_count(rows, span)
   long long q_sb, q_sh;
   float scale;
 };
 
-// Splits of the grid for a cache of ``rows`` rows (at least one, so a cache
-// of no rows still writes its zeros).
-__host__ __device__ constexpr int split_count(int rows) {
-  return rows > kSplitKeys ? (rows + kSplitKeys - 1) / kSplitKeys : 1;
+// Splits of the grid for a cache of ``rows`` rows in spans of ``span``
+// keys (at least one, so a cache of no rows still writes its zeros).
+__host__ __device__ constexpr int split_count(int rows, int span) {
+  return rows > span ? static_cast<int>(
+                           (static_cast<long long>(rows) + span - 1) / span)
+                     : 1;
 }
 
 // Floats of the workspace: per (b, h) and split, the g x dh accumulator
 // and the g (m, l) pairs.
 __host__ __device__ constexpr long long part_floats(int batch, int hkv, int g,
-                                                   int dh, int rows) {
-  return static_cast<long long>(batch) * hkv * split_count(rows) * g *
+                                                   int dh, int rows,
+                                                   int span) {
+  return static_cast<long long>(batch) * hkv * split_count(rows, span) * g *
          (dh + 2);
 }
 
@@ -323,15 +324,17 @@ __global__ void __launch_bounds__(kThreads)
   const int b = bh / a.hkv, h = bh - b * a.hkv;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int len = min(max(a.lengths[b], 0), a.rows);
-  const int nact = (len + kSplitKeys - 1) / kSplitKeys;  // splits with keys
+  const int span = a.span;
+  const int nact = static_cast<int>(
+      (static_cast<long long>(len) + span - 1) / span);  // splits with keys
   const long long ob = static_cast<long long>(bh) * g * dh;  // output row 0
   if (s >= nact) {
     if (s == 0)
       for (int i = tid; i < g * dh; i += kThreads) store_out(a, ob + i, 0.f);
     return;
   }
-  const int begin = s * kSplitKeys;
-  const int end = min(begin + kSplitKeys, len);
+  const int begin = s * span;               // < len: s < nact
+  const int end = len - begin > span ? begin + span : len;
 
   const int stride = row_stride(dh, sizeof(KT));
   const int tile = kTileKeys * stride;
@@ -616,7 +619,7 @@ cudaError_t allow_max_smem() {
 template <typename KT>
 Args<KT> make_args(const void* q, void* out, int q_bf16, const void* k,
                    const void* v, const void* lengths, void* part,
-                   void* tickets, int hkv, int g, int dh, int rows,
+                   void* tickets, int hkv, int g, int dh, int rows, int span,
                    long long q_sb, long long q_sh, Layout kl, Layout vl,
                    float scale) {
   Args<KT> a{};
@@ -634,7 +637,8 @@ Args<KT> make_args(const void* q, void* out, int q_bf16, const void* k,
   a.g = g;
   a.dh = dh;
   a.rows = rows;
-  a.nsplit = split_count(rows);
+  a.span = span;
+  a.nsplit = split_count(rows, span);
   a.q_sb = q_sb;
   a.q_sh = q_sh;
   a.scale = scale;
@@ -642,13 +646,14 @@ Args<KT> make_args(const void* q, void* out, int q_bf16, const void* k,
 }
 
 // Checks the limits every entry shares, and that the workspace holds
-// ``have`` >= part_floats floats; 0 if the launch may go ahead.
+// ``have`` >= part_floats floats for this call's span; 0 if the launch may
+// go ahead.
 inline int check_shape(int batch, int hkv, int g, int dh, int kv_elt,
-                       int rows, long long have) {
+                       int rows, int span, long long have) {
   if (g < 1 || g > kMaxGroup || dh < 8 || dh > kMaxDh || dh % 8 ||
-      (dh * kv_elt) % 16 || batch < 0 || hkv < 1 || rows < 0 ||
+      (dh * kv_elt) % 16 || batch < 0 || hkv < 1 || rows < 0 || span < 1 ||
       static_cast<long long>(batch) * hkv > 65535 ||
-      have < part_floats(batch, hkv, g, dh, rows))
+      have < part_floats(batch, hkv, g, dh, rows, span))
     return static_cast<int>(cudaErrorInvalidValue);
   return 0;
 }
@@ -676,5 +681,3 @@ int launch(const Args<KT>& a, int batch, cudaStream_t stream) {
 
 }  // namespace
 
-// The span of a split, in keys; the wrappers size the workspace with it.
-extern "C" int decode_split_keys() { return kSplitKeys; }

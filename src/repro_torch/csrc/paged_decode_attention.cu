@@ -26,11 +26,11 @@ template <typename KT>
 int run(const void* q, const void* k, const void* v, const void* pages,
         const void* lengths, void* out, void* part, void* tickets, int q_bf16,
         int batch, int hkv, int g, int dh, int num_pages, int page_size,
-        int max_pages, long long q_sb, long long q_sh, Layout kl, Layout vl,
-        float scale, cudaStream_t stream) {
+        int max_pages, int span, long long q_sb, long long q_sh, Layout kl,
+        Layout vl, float scale, cudaStream_t stream) {
   Args<KT> a = make_args<KT>(q, out, q_bf16, k, v, lengths, part, tickets,
-                             hkv, g, dh, max_pages * page_size, q_sb, q_sh,
-                             kl, vl, scale);
+                             hkv, g, dh, max_pages * page_size, span, q_sb,
+                             q_sh, kl, vl, scale);
   a.pages = {static_cast<const int*>(pages), max_pages, page_size,
              num_pages};
   return launch<KT, true>(a, batch, stream);
@@ -42,14 +42,14 @@ int run(const void* q, const void* k, const void* v, const void* pages,
 // k, v: pools (num_pages, page_size, Hkv, dh) with strides (sp, sl, sh, 1),
 // 16-byte aligned rows; pages: contiguous (B, max_pages) int32, -1 = no
 // page; lengths: (B,) int32; out: contiguous (B, Hq, dh) of q's type;
-// part, part_floats and tickets as for decode_attention, with L =
+// span, part, part_floats and tickets as for decode_attention, with L =
 // max_pages * page_size.  q_bf16 / kv_bf16 select bfloat16 (1) or float32
 // (0).  Returns the CUDA error of the launch (0 on success).
 extern "C" int paged_decode_attention(
     const void* q, const void* k, const void* v, const void* pages,
     const void* lengths, void* out, void* part, void* tickets, int q_bf16,
     int kv_bf16, int batch, int hkv, int g, int dh, int num_pages,
-    int page_size, int max_pages, long long q_sb, long long q_sh,
+    int page_size, int max_pages, int span, long long q_sb, long long q_sh,
     long long k_sp, long long k_sl, long long k_sh, long long v_sp,
     long long v_sl, long long v_sh, long long part_floats, float scale,
     void* stream) {
@@ -57,12 +57,12 @@ extern "C" int paged_decode_attention(
       static_cast<long long>(max_pages) * page_size > (1ll << 31) - 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if (int err = check_shape(batch, hkv, g, dh, kv_bf16 ? 2 : 4,
-                            max_pages * page_size, part_floats))
+                            max_pages * page_size, span, part_floats))
     return err;
   const Layout kl{k_sp, k_sl, k_sh}, vl{v_sp, v_sl, v_sh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto go = kv_bf16 ? run<__nv_bfloat16> : run<float>;
   return go(q, k, v, pages, lengths, out, part, tickets, q_bf16, batch, hkv,
-            g, dh, num_pages, page_size, max_pages, q_sb, q_sh, kl, vl, scale,
-            s);
+            g, dh, num_pages, page_size, max_pages, span, q_sb, q_sh, kl, vl,
+            scale, s);
 }

@@ -23,13 +23,13 @@ namespace {
 int run(const void* q, const void* kq, const void* ks, const void* vq,
         const void* vs, const void* pages, const void* lengths, void* out,
         void* part, void* tickets, int q_bf16, int batch, int hkv, int g,
-        int dh, int num_pages, int page_size, int max_pages, long long q_sb,
-        long long q_sh, Layout kl, Layout ksl, Layout vl, Layout vsl,
-        float scale, cudaStream_t stream) {
+        int dh, int num_pages, int page_size, int max_pages, int span,
+        long long q_sb, long long q_sh, Layout kl, Layout ksl, Layout vl,
+        Layout vsl, float scale, cudaStream_t stream) {
   Args<int8_t> a = make_args<int8_t>(q, out, q_bf16, kq, vq, lengths, part,
                                      tickets, hkv, g, dh,
-                                     max_pages * page_size, q_sb, q_sh, kl,
-                                     vl, scale);
+                                     max_pages * page_size, span, q_sb, q_sh,
+                                     kl, vl, scale);
   a.ks = static_cast<const float*>(ks);
   a.vs = static_cast<const float*>(vs);
   a.ksl = ksl;
@@ -46,14 +46,15 @@ int run(const void* q, const void* kq, const void* ks, const void* vq,
 // sh, 1), 16-byte aligned rows; ks, vs: f32 pools (num_pages, page_size,
 // Hkv) with strides (sp, sl, sh); pages: contiguous (B, max_pages) int32,
 // -1 = no page; lengths: (B,) int32; out: contiguous (B, Hq, dh) of q's
-// type, q_bf16 selecting bfloat16 (1) or float32 (0); part, part_floats and
-// tickets as for decode_attention, with L = max_pages * page_size.  Returns
+// type, q_bf16 selecting bfloat16 (1) or float32 (0); span, part,
+// part_floats and tickets as for decode_attention, with L = max_pages *
+// page_size.  Returns
 // the CUDA error of the launch.
 extern "C" int paged_quantized_decode_attention(
     const void* q, const void* kq, const void* ks, const void* vq,
     const void* vs, const void* pages, const void* lengths, void* out,
     void* part, void* tickets, int q_bf16, int batch, int hkv, int g, int dh,
-    int num_pages, int page_size, int max_pages, long long q_sb,
+    int num_pages, int page_size, int max_pages, int span, long long q_sb,
     long long q_sh, long long k_sp, long long k_sl, long long k_sh,
     long long ks_sp, long long ks_sl, long long ks_sh, long long v_sp,
     long long v_sl, long long v_sh, long long vs_sp, long long vs_sl,
@@ -62,11 +63,11 @@ extern "C" int paged_quantized_decode_attention(
       static_cast<long long>(max_pages) * page_size > (1ll << 31) - 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if (int err = check_shape(batch, hkv, g, dh, 1, max_pages * page_size,
-                            part_floats))
+                            span, part_floats))
     return err;
   const Layout kl{k_sp, k_sl, k_sh}, ksl{ks_sp, ks_sl, ks_sh};
   const Layout vl{v_sp, v_sl, v_sh}, vsl{vs_sp, vs_sl, vs_sh};
   return run(q, kq, ks, vq, vs, pages, lengths, out, part, tickets, q_bf16,
-             batch, hkv, g, dh, num_pages, page_size, max_pages, q_sb, q_sh,
-             kl, ksl, vl, vsl, scale, static_cast<cudaStream_t>(stream));
+             batch, hkv, g, dh, num_pages, page_size, max_pages, span, q_sb,
+             q_sh, kl, ksl, vl, vsl, scale, static_cast<cudaStream_t>(stream));
 }

@@ -25,11 +25,11 @@ namespace {
 int run(const void* q, const void* kq, const void* ks, const void* vq,
         const void* vs, const void* lengths, void* out, void* part,
         void* tickets, int q_bf16, int batch, int hkv, int g, int dh,
-        int cache_len, long long q_sb, long long q_sh, Layout kl, Layout ksl,
-        Layout vl, Layout vsl, float scale, cudaStream_t stream) {
+        int cache_len, int span, long long q_sb, long long q_sh, Layout kl,
+        Layout ksl, Layout vl, Layout vsl, float scale, cudaStream_t stream) {
   Args<int8_t> a = make_args<int8_t>(q, out, q_bf16, kq, vq, lengths, part,
-                                     tickets, hkv, g, dh, cache_len, q_sb,
-                                     q_sh, kl, vl, scale);
+                                     tickets, hkv, g, dh, cache_len, span,
+                                     q_sb, q_sh, kl, vl, scale);
   a.ks = static_cast<const float*>(ks);
   a.vs = static_cast<const float*>(vs);
   a.ksl = ksl;
@@ -43,22 +43,23 @@ int run(const void* q, const void* kq, const void* ks, const void* vq,
 // kq, vq: int8 (B, L, Hkv, dh) with strides (sb, sl, sh, 1), 16-byte aligned
 // rows; ks, vs: f32 (B, L, Hkv) with strides (sb, sl, sh); lengths: (B,)
 // int32; out: contiguous (B, Hq, dh) of q's type, q_bf16 selecting
-// bfloat16 (1) or float32 (0); part, part_floats and tickets as for
+// bfloat16 (1) or float32 (0); span, part, part_floats and tickets as for
 // decode_attention.  Returns the CUDA error of the launch.
 extern "C" int quantized_decode_attention(
     const void* q, const void* kq, const void* ks, const void* vq,
     const void* vs, const void* lengths, void* out, void* part,
     void* tickets, int q_bf16, int batch, int hkv, int g, int dh,
-    int cache_len, long long q_sb, long long q_sh, long long k_sb,
+    int cache_len, int span, long long q_sb, long long q_sh, long long k_sb,
     long long k_sl, long long k_sh, long long ks_sb, long long ks_sl,
     long long ks_sh, long long v_sb, long long v_sl, long long v_sh,
     long long vs_sb, long long vs_sl, long long vs_sh, long long part_floats,
     float scale, void* stream) {
-  if (int err = check_shape(batch, hkv, g, dh, 1, cache_len, part_floats))
+  if (int err = check_shape(batch, hkv, g, dh, 1, cache_len, span,
+                            part_floats))
     return err;
   const Layout kl{k_sb, k_sl, k_sh}, ksl{ks_sb, ks_sl, ks_sh};
   const Layout vl{v_sb, v_sl, v_sh}, vsl{vs_sb, vs_sl, vs_sh};
   return run(q, kq, ks, vq, vs, lengths, out, part, tickets, q_bf16, batch,
-             hkv, g, dh, cache_len, q_sb, q_sh, kl, ksl, vl, vsl, scale,
+             hkv, g, dh, cache_len, span, q_sb, q_sh, kl, ksl, vl, vsl, scale,
              static_cast<cudaStream_t>(stream));
 }

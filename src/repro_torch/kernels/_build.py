@@ -42,8 +42,8 @@ def _nvcc() -> str:
     return str(path)
 
 
-def _target(name: str, defines: tuple[str, ...] = ()) -> pathlib.Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS + defines).encode())
+def _target(name: str) -> pathlib.Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in [CSRC / f"{name}.cu"] + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -55,23 +55,19 @@ def sources() -> list[str]:
     return sorted(p.stem for p in CSRC.glob("*.cu"))
 
 
-def build(names=None, defines: dict | None = None
-          ) -> dict[str, pathlib.Path]:
+def build(names=None) -> dict[str, pathlib.Path]:
     """Compile the named sources (default: all) that are not built yet,
-    one ``nvcc`` per source, all started together.  ``defines`` become
-    ``-D`` flags, and part of the libraries' names: a measurement builds a
-    kernel's candidate constants with them.  Raises with the compiler's
-    output if any build fails."""
+    one ``nvcc`` per source, all started together.  Raises with the
+    compiler's output if any build fails."""
     names = sources() if names is None else list(names)
-    flags = tuple(f"-D{k}={v}" for k, v in sorted((defines or {}).items()))
     BUILD.mkdir(parents=True, exist_ok=True)
-    targets = {n: _target(n, flags) for n in names}
+    targets = {n: _target(n) for n in names}
     procs = {}
     for n, out in targets.items():
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, *flags, "-o", str(tmp),
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
                str(CSRC / f"{n}.cu")]
         procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                      stderr=subprocess.STDOUT, text=True),

@@ -7,13 +7,15 @@ CUDA kernels ``csrc/decode_attention.cu`` and
 ``csrc/paged_decode_attention.cu``; ``decode_ref`` and ``paged_decode_ref``
 are their plain PyTorch versions, ports of the JAX oracles.
 
-The kernels split each row's keys into spans of ``SPLIT_KEYS`` keys, one
-block each, and the last block of a row to finish combines the spans'
-partial softmaxes (``csrc/decode_body.cuh``).  That law is here in plain
-PyTorch too: `split_bounds`, `combine_partials` and `split_decode_ref`.
-A call allocates the spans' workspace from the caching allocator and
-shares one zeroed array of ticket counters per device and stream
-(`_launch`); the kernel leaves it zero.
+The kernels split each row's keys into spans of ``block_k`` keys (an
+argument of every call, default ``SPLIT_KEYS``; the decode tuner picks it
+for the cache depth, `kernels.attention.spec`), one block each, and the
+last block of a row to finish combines the spans' partial softmaxes
+(``csrc/decode_body.cuh``).  That law is here in plain PyTorch too:
+`split_bounds`, `combine_partials` and `split_decode_ref`.  A call
+allocates the spans' workspace from the caching allocator, sized for its
+own span, and shares one zeroed array of ticket counters per device and
+stream (`_launch`); the kernel leaves it zero.
 
 A wrapper takes the plain version only for tensors that lie on the CPU.
 A CUDA tensor launches the kernel or raises: there is no fallback.
@@ -35,7 +37,7 @@ NEG_INF = -1e30
 # output columns and copy K/V rows in 16-byte pieces.
 HEAD_DIMS = (8, 16, 80, 96, 128)
 MAX_GROUP = 16                      # query heads per KV head (kMaxGroup)
-SPLIT_KEYS = 256                    # keys per split (kSplitKeys)
+SPLIT_KEYS = 256                    # keys per split unless a call says
 _DTYPES = (torch.float32, torch.bfloat16)
 
 launches = 0          # decode_attention.cu
@@ -128,20 +130,28 @@ def split_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(b, hq, dh).to(q.dtype)
 
 
-def _split_keys(lib) -> int:
-    fn = lib.decode_split_keys
-    fn.restype = ctypes.c_int
-    return fn()
+def split_span(block_k: int | None) -> int:
+    """The keys of one split for a call's ``block_k``: `SPLIT_KEYS` for
+    None, else ``block_k`` itself, which must be a positive int (the
+    kernels take any span: a block's walk stops at the end of its span)."""
+    if block_k is None:
+        return SPLIT_KEYS
+    if isinstance(block_k, bool) or int(block_k) != block_k or block_k < 1:
+        raise ValueError(f"block_k must be a positive int (keys per split) "
+                         f"or None, got {block_k!r}")
+    return int(block_k)
 
 
 def _launch(name: str, q: torch.Tensor, ptrs, ints, strides, *, batch: int,
-            hkv: int, g: int, dh: int, rows: int, scale: float
+            hkv: int, g: int, dh: int, rows: int, span: int, scale: float
             ) -> torch.Tensor:
     """Launch the C entry ``name`` of ``csrc/<name>.cu`` (built on first
     use): its pointers up to the lengths, then the output, the workspace
-    and the tickets; its ints; its 64-bit strides, then the workspace's
-    size, the f32 scale and the stream.  The workspace of the split
-    partials comes from the caching allocator; the ticket counters of q's
+    and the tickets; its ints and the span; its 64-bit strides, then the
+    workspace's size, the f32 scale and the stream.  The workspace of the
+    split partials comes from the caching allocator, sized for this call's
+    ``span`` (two calls of different spans never share a size); the
+    ticket counters of q's
     device and stream are one zeroed int32 array kept between calls
     (every launch leaves it zero), replaced by a larger zeroed one when a
     call needs more and dropped if a launch fails.  Returns the output."""
@@ -149,12 +159,12 @@ def _launch(name: str, q: torch.Tensor, ptrs, ints, strides, *, batch: int,
     fn = getattr(lib, name)
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * (len(ptrs) + 3)
-                       + [ctypes.c_int] * len(ints)
+                       + [ctypes.c_int] * (len(ints) + 1)
                        + [ctypes.c_longlong] * (len(strides) + 1)
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     stream = _stream(q)
-    nsplit = num_splits(rows, _split_keys(lib))
+    nsplit = num_splits(rows, span)
     part = torch.empty(batch * hkv * nsplit * g * (dh + 2),
                        dtype=torch.float32, device=q.device)
     key = (q.device.index, stream)
@@ -165,7 +175,7 @@ def _launch(name: str, q: torch.Tensor, ptrs, ints, strides, *, batch: int,
         _tickets[key] = tickets
     out = torch.empty((batch, hkv * g, dh), dtype=q.dtype, device=q.device)
     err = fn(*ptrs, out.data_ptr(), part.data_ptr(), tickets.data_ptr(),
-             *ints, *strides, part.numel(), float(scale), stream)
+             *ints, span, *strides, part.numel(), float(scale), stream)
     if err != 0:
         _tickets.pop(key, None)
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
@@ -280,15 +290,16 @@ def paged_decode_ref(q: torch.Tensor, k_pool: torch.Tensor,
 
 
 def gqa_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, length, scale: float | None = None
-                         ) -> torch.Tensor:
+                         *, length, scale: float | None = None,
+                         block_k: int | None = None) -> torch.Tensor:
     """q: (B, Hq, dh); k, v: (B, L, Hkv, dh) -> (B, Hq, dh) in q's dtype.
 
     ``length`` is a scalar or a (B,) vector of valid cache prefixes,
     clamped to L.  Keys at or past a slot's length are never read; a slot
     of length 0 gets zeros.  The cache is read in place through its
     strides (no transpose or fold copies), which needs its last axis
-    contiguous.
+    contiguous.  ``block_k`` is the keys of one split (`split_span`); the
+    plain version on the CPU computes the same function at any span.
     """
     b, _, dh = q.shape
     _, kl, hkv, _ = k.shape
@@ -296,6 +307,7 @@ def gqa_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
     g = check_gqa(q, hkv, dh)
+    span = split_span(block_k)
     if scale is None:
         scale = 1.0 / (dh ** 0.5)
     lengths = _lengths(length, b, kl, q.device)
@@ -311,7 +323,7 @@ def gqa_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         (int(q.dtype == torch.bfloat16), int(k.dtype == torch.bfloat16), b,
          hkv, g, dh, kl),
         (q.stride(0), q.stride(1), *k.stride()[:3], *v.stride()[:3]),
-        batch=b, hkv=hkv, g=g, dh=dh, rows=kl, scale=scale)
+        batch=b, hkv=hkv, g=g, dh=dh, rows=kl, span=span, scale=scale)
     global launches
     launches += 1
     return out
@@ -319,8 +331,8 @@ def gqa_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def paged_gqa_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                                v_pool: torch.Tensor, pages: torch.Tensor, *,
-                               length, scale: float | None = None
-                               ) -> torch.Tensor:
+                               length, scale: float | None = None,
+                               block_k: int | None = None) -> torch.Tensor:
     """Decode attention through a paged KV cache.
 
     q: (B, Hq, dh); k_pool, v_pool: (num_pages, page_size, Hkv, dh), the
@@ -329,7 +341,9 @@ def paged_gqa_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     prefixes, clamped to max_pages * page_size.  Key t of slot b is row
     t % page_size of pool page pages[b, t // page_size] (clamped to the
     pool); keys at or past a slot's length, and so the -1 entries past its
-    last page, are never read.  Returns (B, Hq, dh) in q's dtype.
+    last page, are never read.  ``block_k`` is the keys of one split
+    (`split_span`), counted in key positions whatever the page size.
+    Returns (B, Hq, dh) in q's dtype.
     """
     b, _, dh = q.shape
     num_pages, page_size, hkv, _ = k_pool.shape
@@ -338,6 +352,7 @@ def paged_gqa_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                          f"{tuple(k_pool.shape)}, v_pool "
                          f"{tuple(v_pool.shape)}")
     g = check_gqa(q, hkv, dh)
+    span = split_span(block_k)
     if scale is None:
         scale = 1.0 / (dh ** 0.5)
     max_pages = pages.shape[1]
@@ -359,7 +374,7 @@ def paged_gqa_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
         (q.stride(0), q.stride(1), *k_pool.stride()[:3],
          *v_pool.stride()[:3]),
         batch=b, hkv=hkv, g=g, dh=dh, rows=max_pages * page_size,
-        scale=scale)
+        span=span, scale=scale)
     global paged_launches
     paged_launches += 1
     return out

@@ -81,17 +81,19 @@ def _check_cuda_scales(scales) -> None:
 def quantized_gqa_decode_attention(q: torch.Tensor, kq: torch.Tensor,
                                    ks: torch.Tensor, vq: torch.Tensor,
                                    vs: torch.Tensor, *, length,
-                                   scale: float | None = None
+                                   scale: float | None = None,
+                                   block_k: int | None = None
                                    ) -> torch.Tensor:
     """q: (B, Hq, dh) float; kq, vq: (B, L, Hkv, dh) int8; ks, vs: (B, L,
-    Hkv) f32 -> (B, Hq, dh) in q's dtype.  ``length`` as in
-    `gqa_decode_attention`."""
+    Hkv) f32 -> (B, Hq, dh) in q's dtype.  ``length`` and ``block_k`` as
+    in `gqa_decode_attention`."""
     b, _, dh = q.shape
     _, kl, hkv, _ = kq.shape
     _check_int8((kq, vq), (ks, vs), tuple(kq.shape[:3]))
     g = _d.check_gqa(q, hkv, dh)
     if kq.shape[0] != b:
         raise ValueError(f"cache batch {kq.shape[0]} != q batch {b}")
+    span = _d.split_span(block_k)
     if scale is None:
         scale = 1.0 / (dh ** 0.5)
     lengths = _d._lengths(length, b, kl, q.device)
@@ -107,7 +109,7 @@ def quantized_gqa_decode_attention(q: torch.Tensor, kq: torch.Tensor,
         (int(q.dtype == torch.bfloat16), b, hkv, g, dh, kl),
         (q.stride(0), q.stride(1), *kq.stride()[:3], *ks.stride(),
          *vq.stride()[:3], *vs.stride()),
-        batch=b, hkv=hkv, g=g, dh=dh, rows=kl, scale=scale)
+        batch=b, hkv=hkv, g=g, dh=dh, rows=kl, span=span, scale=scale)
     global launches
     launches += 1
     return out
@@ -116,13 +118,15 @@ def quantized_gqa_decode_attention(q: torch.Tensor, kq: torch.Tensor,
 def paged_quantized_gqa_decode_attention(
         q: torch.Tensor, kq_pool: torch.Tensor, ks_pool: torch.Tensor,
         vq_pool: torch.Tensor, vs_pool: torch.Tensor, pages: torch.Tensor, *,
-        length, scale: float | None = None) -> torch.Tensor:
+        length, scale: float | None = None,
+        block_k: int | None = None) -> torch.Tensor:
     """Decode attention through an int8 paged KV cache.
 
     q: (B, Hq, dh) float; kq_pool, vq_pool: (num_pages, page_size, Hkv, dh)
     int8; ks_pool, vs_pool: (num_pages, page_size, Hkv) f32; pages: (B,
     max_pages) int32, -1 = no page; ``length`` a scalar or (B,), clamped to
-    max_pages * page_size.  The page walk is `paged_gqa_decode_attention`'s.
+    max_pages * page_size; ``block_k`` as in `gqa_decode_attention`.  The
+    page walk is `paged_gqa_decode_attention`'s.
     Returns (B, Hq, dh) in q's dtype.
     """
     b, _, dh = q.shape
@@ -130,6 +134,7 @@ def paged_quantized_gqa_decode_attention(
     _check_int8((kq_pool, vq_pool), (ks_pool, vs_pool),
                 tuple(kq_pool.shape[:3]))
     g = _d.check_gqa(q, hkv, dh)
+    span = _d.split_span(block_k)
     if scale is None:
         scale = 1.0 / (dh ** 0.5)
     max_pages = pages.shape[1]
@@ -151,7 +156,7 @@ def paged_quantized_gqa_decode_attention(
         (q.stride(0), q.stride(1), *kq_pool.stride()[:3], *ks_pool.stride(),
          *vq_pool.stride()[:3], *vs_pool.stride()),
         batch=b, hkv=hkv, g=g, dh=dh, rows=max_pages * page_size,
-        scale=scale)
+        span=span, scale=scale)
     global paged_launches
     paged_launches += 1
     return out

@@ -11,9 +11,11 @@ keys; bf16 at the other head dims on ``mma.sync`` and f32 on CUDA cores,
 both in tiles of 64 by 64 (`TILES`).  ``launches`` counts kernel
 launches, so a run can show that its prefill went through a kernel.
 
-The JAX prefill picks ``(block_q, block_k)`` through the tuner; this
-package has no tuner for attention yet (ROADMAP A8), so each kernel runs
-the tile it was designed for.
+The JAX prefill picks ``(block_q, block_k)`` through the tuner.  Each
+CUDA kernel here is built for one tile, so `flash_attention` takes
+``block_q``/``block_k`` only when they are that tile (`tile`) and refuses
+any other; the attention spec (`kernels.attention.spec`) offers the tuner
+that one tile per design.
 """
 
 from __future__ import annotations
@@ -42,6 +44,26 @@ def design(dtype: torch.dtype, head_dim: int) -> str:
     if dtype == torch.bfloat16:
         return "wgmma" if head_dim == 128 else "mma.sync"
     return "f32"
+
+
+def tile(dtype: torch.dtype, head_dim: int) -> tuple[int, int]:
+    """(query rows, keys) of the tile the kernel of (dtype, head_dim) is
+    built for."""
+    return TILES[design(dtype, head_dim)]
+
+
+def _check_tile(q, block_q, block_k) -> None:
+    """Refuse a (block_q, block_k) that is not the tile of q's design;
+    None takes the design's own."""
+    want = tile(q.dtype, q.shape[3])
+    got = (want[0] if block_q is None else block_q,
+           want[1] if block_k is None else block_k)
+    if got != want:
+        raise ValueError(
+            f"flash_attention is built for the {want[0]} x {want[1]} tile "
+            f"of its {design(q.dtype, q.shape[3])} design ({q.dtype}, "
+            f"head_dim {q.shape[3]}); got block_q={block_q}, "
+            f"block_k={block_k}")
 
 
 def _check(q, k, v, window) -> None:
@@ -98,7 +120,8 @@ def _entry(name: str):
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     scale: float, causal: bool = True,
-                    window: int | None = None) -> torch.Tensor:
+                    window: int | None = None, block_q: int | None = None,
+                    block_k: int | None = None) -> torch.Tensor:
     """q: (B, Sq, Hq, dh); k, v: (B, Sk, Hkv, dh) -> (B, Sq, Hq, dh) in
     q's dtype, contiguous.
 
@@ -108,9 +131,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     sequence; a row with no such key outputs 0.  K tiles outside a query
     tile's band (`core.cost_model.attention_step_bounds` at the tile of
     `design`) are never read.  Operands are read in place through their
-    strides.
+    strides.  ``block_q``/``block_k`` may name the design's tile (`tile`)
+    and nothing else; the plain version on the CPU holds them to the same
+    rule.
     """
     _check(q, k, v, window)
+    _check_tile(q, block_q, block_k)
     if q.device.type == "cpu" and k.device.type == "cpu" \
             and v.device.type == "cpu":
         return ref.attention_ref(q, k, v, scale=scale, causal=causal,

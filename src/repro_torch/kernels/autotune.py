@@ -21,22 +21,31 @@ per-family shims).
 launch with its jnp path, this one marks the plan poisoned, so the next
 `tune` re-runs the DSE, and re-raises.  A CUDA tensor launches the kernel
 or fails.
+
+The serving plans (`OpPlan`, `plan_for_model`, `predict_decode_step_us`,
+`select_serving_batch`) are the JAX package's: the server tunes its
+shapes once at start-up, ranked by the model alone, and the batch sweep
+prices each candidate batch from those plans' model times.  The matmul
+plans feed that prediction only (the model's projections are
+`torch.matmul`, as they are XLA matmuls in the JAX package); the decode
+plan's span is what the server's decode kernel runs.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
 import pathlib
 import time
 import warnings
-from typing import Callable
+from typing import Callable, Sequence
 
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core import ioutil
+from repro_torch.core import cost_model, hardware, ioutil
 from repro_torch.kernels import _build, registry
 from repro_torch.kernels.registry import KernelSpec, Plan
 
@@ -343,3 +352,253 @@ def dispatch(family: str, *args, cache: TuneCache | None = None, **kwargs):
     except Exception:
         mark_plan_poisoned(plan.key, cache=cache)
         raise
+
+
+# ---------------------------------------------------------------------------
+# Model-serving plans
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class OpPlan:
+    """A tuned Plan bound to a named serving op (e.g. "ffn_up"): the unit
+    `plan_for_model` returns and `predict_decode_step_us` consumes."""
+
+    op: str
+    plan: Plan
+
+    def record(self) -> dict:
+        return {"op": self.op, "problem": dict(self.plan.problem),
+                **self.plan.record()}
+
+
+def plan_for_model(cfg, batch: int, *, prefill_len: int = 0,
+                   cache_len: int = 0, kv_dtype=torch.bfloat16,
+                   slot_lengths: Sequence[int] | None = None,
+                   cache: TuneCache | None = None, measure_k: int = 0,
+                   device="cpu") -> list[OpPlan]:
+    """Tune the serving shapes of a model config at ``batch``: the decode
+    step's matmuls, the prefill flash attention when ``prefill_len`` is
+    given, and the decode attention over a cache of ``cache_len`` rows of
+    ``kv_dtype`` (an int8 cache takes the ``decode_int8`` family, keyed
+    on the bf16 activations).  ``device`` names the backend of the keys.
+    ``measure_k=0`` (the default) ranks by the model alone: the server
+    calls this at start-up.
+
+    ``slot_lengths`` (optional) is the workload's steady-state slot-depth
+    distribution: the decode plan is then tuned at ``batch`` quantiles of
+    it, and its span is pinned under the plain key (no lengths) unless a
+    measured entry owns that key, so a later lookup of the runtime problem
+    finds the workload-aware span."""
+    device = resolve_device(device)
+    d, f, v = cfg.d_model, cfg.d_ff or cfg.d_model * 4, cfg.vocab_size
+    qkv = max(cfg.num_heads * cfg.head_dim, d) or d
+    shapes = [
+        ("qkv_proj", batch, qkv, d),
+        ("out_proj", batch, d, qkv),
+        ("ffn_up", batch, f, d),
+        ("ffn_down", batch, d, f),
+        ("logits", batch, v, d),
+    ]
+    plans = [OpPlan(name, tune("matmul", {"m": m, "n": n, "k": k},
+                               torch.bfloat16, device=device,
+                               measure_k=measure_k, cache=cache))
+             for name, m, n, k in shapes]
+    if prefill_len > 0 and cfg.num_heads:
+        plans.append(OpPlan("attn_prefill", tune(
+            "attention",
+            {"bh": batch * cfg.num_heads, "sq": prefill_len,
+             "sk": prefill_len, "dh": cfg.head_dim,
+             "causal": cfg.causal, "window": cfg.sliding_window},
+            torch.bfloat16, device=device, measure_k=measure_k,
+            cache=cache)))
+    if cache_len > 0 and cfg.num_heads and cfg.num_kv_heads:
+        quantized = kv_dtype == torch.int8
+        family = "decode_int8" if quantized else "decode"
+        tune_dtype = torch.bfloat16 if quantized else kv_dtype
+        problem = {"bkv": batch * cfg.num_kv_heads,
+                   "g": cfg.num_heads // cfg.num_kv_heads,
+                   "cache_len": cache_len, "dh": cfg.head_dim}
+        if slot_lengths:
+            problem["lengths"] = tuple(
+                _quantile_lengths(batch, slot_lengths, cache_len))
+        plan = tune(family, problem, tune_dtype, device=device,
+                    measure_k=measure_k, cache=cache)
+        if slot_lengths:
+            run_problem = {k: v for k, v in problem.items()
+                           if k != "lengths"}
+            spec = registry.get(family)
+            cache_obj = cache or get_cache()
+            run_key = cache_key(spec, run_problem, _dtype_name(tune_dtype),
+                                _backend(device), None)
+            existing = cache_obj._load()["entries"].get(run_key)
+            if existing is None or existing.get("source") == "model":
+                # The pinned entry's model time is that of its own key's
+                # problem (every row at the whole cache), not the ragged
+                # score.
+                run_cost = spec.cost_fn(run_problem, plan.knobs)
+                cache_obj.put(run_key, {
+                    "knobs": dict(plan.knobs), "source": "model",
+                    "model_time_s": run_cost["time_s"],
+                    "measured_us": None,
+                    "detail": {"pinned_from": plan.key}})
+        plans.append(OpPlan("attn_decode", plan))
+    return plans
+
+
+def _attn_layer_count(cfg) -> int:
+    return sum(1 for l in range(cfg.num_layers) if cfg.is_attn_layer(l))
+
+
+def _quantile_lengths(batch: int, slot_lengths: Sequence[int],
+                      cache_len: int) -> list[int]:
+    """A slot-depth distribution resampled to ``batch`` evenly spaced
+    quantiles (sorted, clamped to the cache): the per-slot lengths a
+    candidate batch is priced at."""
+    ls = sorted(max(0, min(int(l), cache_len)) for l in slot_lengths)
+    return [ls[((2 * i + 1) * len(ls)) // (2 * batch)] for i in range(batch)]
+
+
+def predict_decode_step_us(cfg, batch: int, *, cache_len: int,
+                           kv_dtype=torch.bfloat16,
+                           lengths: Sequence[int] | None = None,
+                           plans: list[OpPlan] | None = None,
+                           cache: TuneCache | None = None,
+                           block_k: int | None = None,
+                           chip: hardware.Chip = hardware.H100_SXM,
+                           device="cpu") -> float:
+    """Model time of one decode step at ``batch``, in microseconds, from
+    the plans' model times (`plan_for_model` at ``batch`` unless
+    ``plans`` are given): the qkv and out projections and the KV stream
+    per attention layer, the FFN matmuls per layer, the logits once.
+
+    ``lengths`` (one valid prefix per slot) re-prices the decode plan's
+    span at those prefixes on ``chip`` instead of charging every slot the
+    whole ``cache_len``; ``block_k`` overrides that span (a paged server
+    prices at its page size).  Without a decode plan the KV stream is its
+    bytes over ``chip.hbm_bw``."""
+    lengths = lengths or None            # empty == no distribution
+    plans = plans if plans is not None else plan_for_model(
+        cfg, batch, cache_len=cache_len, kv_dtype=kv_dtype,
+        slot_lengths=lengths, cache=cache, device=device)
+    attn_ops_ = {"qkv_proj", "out_proj"}
+    ffn_ops = {"ffn_up", "ffn_down"}
+    n_attn = _attn_layer_count(cfg)
+    attn_us = sum(p.plan.model_time_us for p in plans if p.op in attn_ops_)
+    ffn_us = sum(p.plan.model_time_us for p in plans if p.op in ffn_ops)
+    logits_us = sum(p.plan.model_time_us for p in plans if p.op == "logits")
+    quantized = kv_dtype == torch.int8
+    decode_plan = next((p for p in plans if p.op == "attn_decode"), None)
+    if decode_plan is not None:
+        if lengths is not None:
+            prob = decode_plan.plan.problem
+            bk = block_k or decode_plan.plan.knobs["block_k"]
+            if quantized:
+                model = cost_model.quantized_decode_time_model(
+                    prob["bkv"], prob["g"], prob["cache_len"], prob["dh"],
+                    bk, chip=chip, lengths=list(lengths))
+            else:
+                model = cost_model.decode_time_model(
+                    prob["bkv"], prob["g"], prob["cache_len"], prob["dh"],
+                    bk, chip=chip,
+                    dtype_bytes=torch.empty((), dtype=kv_dtype).element_size(),
+                    lengths=list(lengths))
+            kv_us = n_attn * model["time_s"] * 1e6
+        else:
+            kv_us = n_attn * decode_plan.plan.model_time_us
+    else:
+        streamed = (float(sum(lengths)) if lengths is not None
+                    else float(batch * cache_len))
+        if quantized:
+            # int8 values + one f32 scale per token per KV head, K and V.
+            kv_bytes = 2.0 * streamed * (cfg.kv_dim + 4 * cfg.num_kv_heads)
+        else:
+            kv_bytes = (2.0 * streamed * cfg.kv_dim
+                        * torch.empty((), dtype=kv_dtype).element_size())
+        kv_us = n_attn * kv_bytes / chip.hbm_bw * 1e6
+    return n_attn * attn_us + cfg.num_layers * ffn_us + logits_us + kv_us
+
+
+def select_serving_batch(
+    cfg, *, cache_len: int, prefill_len: int = 0,
+    kv_dtype=torch.bfloat16,
+    candidates: Sequence[int] = (1, 2, 4, 8, 16, 32, 64),
+    latency_budget_ms: float | None = None,
+    slot_lengths: Sequence[int] | None = None,
+    cache: TuneCache | None = None,
+    pool_pages: int | None = None,
+    page_size: int | None = None,
+    chip: hardware.Chip = hardware.H100_SXM,
+    device="cpu",
+) -> dict:
+    """The serving batch: each candidate priced by
+    `predict_decode_step_us` from its model-ranked plans; the batch of
+    most predicted tokens/s whose step fits ``latency_budget_ms`` wins,
+    and when none fits, the one of least step time (never one whose pages
+    overflow the pool).  Deterministic: model times only.
+
+    ``slot_lengths`` (optional) prices each candidate at ``b`` quantiles
+    of the workload's slot depths instead of the whole cache.
+    ``page_size`` (paged serving) adds the free-page term: a candidate
+    whose steady-state pages exceed the pool (``pool_pages``, or the
+    candidate's contiguous equivalent) is infeasible, and the KV stream
+    is priced at the page size.  Returns the decision record the server
+    logs: the batch, its predicted step and tokens/s, the decode plan and
+    the whole sweep."""
+    slot_lengths = slot_lengths or None   # empty queue == no distribution
+    sweep = []
+    best = None
+    decode_plans = {}
+    for b in candidates:
+        plans = plan_for_model(cfg, b, prefill_len=prefill_len,
+                               cache_len=cache_len, kv_dtype=kv_dtype,
+                               slot_lengths=slot_lengths, cache=cache,
+                               device=device)
+        lengths_b = (None if slot_lengths is None
+                     else _quantile_lengths(b, slot_lengths, cache_len))
+        dp = next((p for p in plans if p.op == "attn_decode"), None)
+        # Provenance and timings vary from run to run, so the record
+        # keeps the knobs and model time only; the server's kernel_plan
+        # has the rest.
+        if dp is not None:
+            rec = dp.record()
+            for volatile in ("source", "provenance", "measured_us"):
+                rec.pop(volatile, None)
+            decode_plans[b] = rec
+        else:
+            decode_plans[b] = None
+        step_us = predict_decode_step_us(cfg, b, cache_len=cache_len,
+                                         kv_dtype=kv_dtype, plans=plans,
+                                         lengths=lengths_b,
+                                         block_k=page_size, chip=chip)
+        tok_per_s = b / (step_us * 1e-6)
+        feasible = (latency_budget_ms is None
+                    or step_us <= latency_budget_ms * 1e3)
+        row = {"batch": b, "step_us": step_us,
+               "tok_per_s": tok_per_s, "feasible": feasible}
+        if lengths_b is not None:
+            row["slot_lengths"] = lengths_b
+            row["mean_len"] = sum(lengths_b) / len(lengths_b)
+        if page_size:
+            # the free-page term: steady-state pages against the pool
+            lens = lengths_b if lengths_b is not None else [cache_len] * b
+            kv_pages = sum(-(-max(1, l) // page_size) for l in lens)
+            pool = pool_pages or b * (-(-cache_len // page_size))
+            row["kv_pages"] = kv_pages
+            row["pool_pages"] = pool
+            row["free_pages"] = max(0, pool - kv_pages)
+            row["kv_fits"] = kv_pages <= pool
+            row["feasible"] = feasible = feasible and row["kv_fits"]
+        sweep.append(row)
+        if feasible and (best is None or tok_per_s > best["tok_per_s"]):
+            best = sweep[-1]
+    if best is None:       # nothing met the budget: least-bad latency wins
+        fits = [r for r in sweep if r.get("kv_fits", True)]
+        best = min(fits or sweep, key=lambda r: r["step_us"])
+    return {"batch": best["batch"],
+            "predicted_step_us": best["step_us"],
+            "predicted_tok_per_s": best["tok_per_s"],
+            "latency_budget_ms": latency_budget_ms,
+            "length_model": ("active-prefix" if slot_lengths is not None
+                             else "batch-max"),
+            "decode_plan": decode_plans[best["batch"]],
+            "sweep": sweep}

@@ -66,6 +66,20 @@ class Plan:
     def provenance(self) -> str:
         return "measured" if self.measured_us is not None else "analytic"
 
+    def record(self) -> dict:
+        """JSON-able log row (the problem is left to the caller: serving
+        problems are plain scalars, an SpMV problem holds a matrix)."""
+        return {
+            "family": self.family,
+            "key": self.key,
+            "knobs": dict(self.knobs),
+            "source": self.source,
+            "provenance": self.provenance,
+            "model_time_us": self.model_time_us,
+            "measured_us": self.measured_us,
+            **({"detail": dict(self.detail)} if self.detail else {}),
+        }
+
 
 def _default_tie_break(knobs: dict) -> tuple:
     return tuple(sorted((k, repr(v)) for k, v in knobs.items()))
@@ -90,15 +104,15 @@ class KernelSpec:
 
 _REGISTRY: dict[str, KernelSpec] = {}
 
-# Built-in families, loaded on the first lookup.  The attention, decode
-# and quantized-decode families follow with their specs (ROADMAP A8).
+# Built-in families, loaded on the first lookup.
 BUILTIN_SPEC_MODULES = (
     "repro_torch.kernels.matmul.spec",
     "repro_torch.kernels.spmv.spec",
+    "repro_torch.kernels.attention.spec",
 )
 # The names those modules register, declared statically so `unregister`
 # refuses them without loading anything.
-BUILTIN_FAMILIES = ("matmul", "spmv")
+BUILTIN_FAMILIES = ("matmul", "spmv", "attention", "decode", "decode_int8")
 _builtins_loaded = False
 _loading_builtins = False
 

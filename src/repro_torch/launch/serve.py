@@ -2,7 +2,15 @@
 lifecycle.  Counterpart of `repro.launch.serve`.
 
 Requests enter a bounded admission queue (`runtime.lifecycle`) and move
-through its state machine.  The server packs up to ``--batch`` sequences;
+through its state machine.  The batch is the tuner's by default
+(``--batch 0``: `kernels.autotune.select_serving_batch` sweeps
+``--batch-candidates`` up to ``--requests``, each priced by the model at
+quantiles of the workload's slot depths, under ``--latency-budget-ms``)
+or the flag's.  The server tunes its kernel plans once when it is built
+(`autotune.plan_for_model`, by the model alone); a contiguous cache's
+decode runs the span of its ``attn_decode`` plan, handed down with the
+cache, and the watchdog holds each decode step to the plans' predicted
+step time.  The server packs up to the batch's sequences;
 a burst of arrivals is prefilled as one chunked forward (every admitted
 prompt plus each in-flight slot's next token, under a (B, S) ``active``
 mask), a single arrival by a masked one-slot prefill.  Each decode step
@@ -20,14 +28,17 @@ fcfs|spf|paged-aware`` picks the admission policy (`launch.scheduler`);
 with a paged cache a request is admitted only when the pool can cover its
 predicted footprint, and the summary carries ``sched`` and ``kv`` blocks.
 
+The plans are priced for the H100 of the data sheet on the CPU
+(``--device cpu``) and for the card that is present
+(`core.hardware.detect`) on a card.
+
 A kernel failure raises.  The JAX server's degradation step (rerunning a
 failed step on the reference path) is deliberately not ported: it is the
 fallback that would hide the kernel.  Not ported yet, and refused by name:
-``--batch 0`` (ROADMAP A8), ``--chaos`` / ``--state-dir`` (A9) and
-``--load-trace`` (A10).
+``--chaos`` / ``--state-dir`` (ROADMAP A9) and ``--load-trace`` (A10).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3_14b \\
-      --smoke --batch 2 --requests 6 --prompt-len 16 --gen 12 \\
+      --smoke --requests 6 --prompt-len 16 --gen 12 [--batch 2] \\
       [--paged] [--sched spf] [--kv-dtype int8] [--device cpu]
 """
 
@@ -42,6 +53,8 @@ import torch
 
 import repro_torch.configs as configs
 from repro_torch import resolve_device
+from repro_torch.core import hardware
+from repro_torch.kernels import autotune
 from repro_torch.launch import steps
 from repro_torch.launch.scheduler import POLICIES, Scheduler
 from repro_torch.models import transformer
@@ -72,6 +85,14 @@ class Server:
     """A continuous-batching server over ``batch`` cache slots of
     ``max_len`` rows.
 
+    Built, it tunes its kernel plans once (``kernel_plan``,
+    `autotune.plan_for_model` at ``batch``, ``prefill_len`` and a cache of
+    ``max_len`` rows, by the model alone; ``slot_lengths`` is the
+    workload's slot-depth distribution) unless ``autotune_kernels`` is
+    False.  A contiguous cache decodes at its ``attn_decode`` plan's span
+    (``decode_span``), resolved here and never per layer; a paged one,
+    and a server without plans, at the kernels' default.
+
     ``params`` is a JAX-layout parameter tree (for example converted from
     the JAX server's); when it is None, random weights are drawn on the
     device from a ``torch.Generator`` seeded with 0.  Either way the
@@ -83,7 +104,9 @@ class Server:
     truth and `_sync_pages` copies its table to the device cache."""
 
     def __init__(self, cfg, batch: int, max_len: int, *, params=None,
-                 kv_dtype=torch.float32, device="cuda", paged=None):
+                 kv_dtype=torch.float32, device="cuda", paged=None,
+                 prefill_len: int = 0, slot_lengths=None,
+                 autotune_kernels: bool = True):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.batch = batch
@@ -98,9 +121,19 @@ class Server:
         self.params = _cast_weights(params, COMPUTE_DTYPE, self.device)
         self.serve_step = steps.make_guarded_serve_step(cfg, COMPUTE_DTYPE,
                                                         paged=paged)
+        self.kernel_plan = (autotune.plan_for_model(
+            cfg, batch, prefill_len=prefill_len, cache_len=max_len,
+            kv_dtype=kv_dtype, slot_lengths=slot_lengths,
+            device=self.device) if autotune_kernels else [])
+        decode_plan = next((p for p in self.kernel_plan
+                            if p.op == "attn_decode"), None)
+        self.decode_span = (decode_plan.plan.knobs["block_k"]
+                            if decode_plan is not None and paged is None
+                            else None)
         self.cache = transformer.cache_init(cfg, batch, max_len,
                                             dtype=kv_dtype,
-                                            device=self.device, paged=paged)
+                                            device=self.device, paged=paged,
+                                            decode_span=self.decode_span)
         self.slot_len = np.zeros(batch, np.int32)      # tokens generated
         self.slot_target = np.zeros(batch, np.int32)   # stop length
         self.slot_req = -np.ones(batch, np.int32)      # request id
@@ -388,9 +421,9 @@ def serve_loop(server: Server, lc: Lifecycle, *, watchdog=None,
 
 def _summary(server: Server, lc: Lifecycle, stats: dict, wall: float, *,
              batch: int, batch_source: str, watchdog, scheduler=None) -> dict:
-    """The conservation-bearing summary line, with the JAX server's keys
-    (no kernel plan: the port has no tuner yet, ROADMAP A8), and its
-    ``sched`` and paged ``kv`` blocks."""
+    """The conservation-bearing summary line, with the JAX server's keys,
+    its ``sched`` and paged ``kv`` blocks, and the decode span the cache
+    ran (None: the kernels' default)."""
     out = {
         "arch": server.cfg.name,
         "requests": lc.counters()["completed"],
@@ -412,7 +445,8 @@ def _summary(server: Server, lc: Lifecycle, stats: dict, wall: float, *,
         "request_outcomes": lc.outcome_trace(),
         "watchdog": watchdog.summary(),
         "kv_dtype": str(server.kv_dtype).removeprefix("torch."),
-        "kernel_plan": [],
+        "kernel_plan": [p.record() for p in server.kernel_plan],
+        "decode_span": server.decode_span,
         "device": (torch.cuda.get_device_name(server.device)
                    if server.device.type == "cuda" else "cpu"),
     }
@@ -436,9 +470,14 @@ def main(argv=None) -> int:
                     choices=configs.list_archs())
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--requests", type=int, default=6)
-    ap.add_argument("--batch", type=int, default=4,
-                    help="decode batch (0, the autotuned sweep, is not "
-                         "ported yet: ROADMAP A8)")
+    ap.add_argument("--batch", type=int, default=0,
+                    help="decode batch; 0 = let the autotuner pick "
+                         "(select_serving_batch sweep)")
+    ap.add_argument("--batch-candidates", type=int, nargs="+",
+                    default=[1, 2, 4, 8, 16, 32])
+    ap.add_argument("--latency-budget-ms", type=float, default=None,
+                    help="per-decode-step latency ceiling for the batch "
+                         "sweep (None = pure throughput)")
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--gen", type=int, default=12)
     ap.add_argument("--kv-dtype", default="f32", choices=list(KV_DTYPES),
@@ -474,7 +513,6 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     refused = [
-        (args.batch == 0, "--batch 0 (the autotuned batch sweep)", "A8"),
         (args.chaos, "--chaos (fault injection)", "A9"),
         (args.state_dir is not None, "--state-dir (crash tolerance)", "A9"),
         (args.load_trace is not None, "--load-trace (trace replay)", "A10"),
@@ -484,15 +522,39 @@ def main(argv=None) -> int:
             ap.error(f"{what} is not ported to repro_torch yet "
                      f"(ROADMAP {item})")
     if args.batch < 0:
-        ap.error("--batch must be >= 1")
+        ap.error("--batch must be >= 0")
     cfg = configs.get_smoke(args.arch) if args.smoke else configs.get(args.arch)
     if cfg.family != "dense" or cfg.frontend or cfg.sliding_window:
         ap.error(f"{cfg.name} needs a model family or layer that is not "
                  f"ported to repro_torch yet (ROADMAP A12)")
 
-    batch = args.batch
+    device = resolve_device(args.device)
+    kv_dtype = KV_DTYPES[args.kv_dtype]
     max_len = args.prompt_len + args.gen + 8
-    print(json.dumps({"serving_plan": {"batch": batch, "source": "flag"}}))
+    # The steady-state slot-depth distribution: continuous batching
+    # staggers the occupied slots over [prompt, prompt + gen], the length
+    # model of the batch sweep and of the decode plan.
+    n_dist = max(args.batch_candidates + [args.batch, 1])
+    dist = [args.prompt_len + ((2 * i + 1) * args.gen) // (2 * n_dist)
+            for i in range(n_dist)]
+    chip = hardware.detect() if device.type == "cuda" else hardware.H100_SXM
+    if args.batch > 0:
+        decision = {"batch": args.batch, "source": "flag"}
+    else:
+        # Candidates past the queued workload only add empty slots.
+        cands = [c for c in args.batch_candidates if c <= args.requests]
+        cands = cands or [min(args.batch_candidates)]
+        decision = autotune.select_serving_batch(
+            cfg, cache_len=max_len, prefill_len=args.prompt_len,
+            kv_dtype=kv_dtype, candidates=tuple(cands), slot_lengths=dist,
+            latency_budget_ms=args.latency_budget_ms,
+            pool_pages=(args.pool_pages or None) if args.paged else None,
+            page_size=args.page_size if args.paged else None, chip=chip,
+            device=device)
+        decision["source"] = "autotune"
+        decision["chip"] = chip.variant
+    batch = decision["batch"]
+    print(json.dumps({"serving_plan": decision}))
     paged = None
     if args.paged:
         paged = paging.PageSpec.build(batch, max_len, args.page_size,
@@ -511,17 +573,21 @@ def main(argv=None) -> int:
                   deadline_s=(args.deadline_ms / 1e3
                               if args.deadline_ms else None))
 
-    server = Server(cfg, batch, max_len, kv_dtype=KV_DTYPES[args.kv_dtype],
-                    device=args.device, paged=paged)
+    server = Server(cfg, batch, max_len, kv_dtype=kv_dtype, device=device,
+                    paged=paged, prefill_len=args.prompt_len,
+                    slot_lengths=dist)
     scheduler = (Scheduler(args.sched, allocator=server.allocator)
                  if (paged is not None or args.sched != "fcfs") else None)
-    watchdog = DecodeWatchdog(None)
+    watchdog = DecodeWatchdog(autotune.predict_decode_step_us(
+        cfg, batch, cache_len=max_len, kv_dtype=kv_dtype,
+        lengths=autotune._quantile_lengths(batch, dist, max_len),
+        plans=server.kernel_plan, chip=chip))
     t0 = time.time()
     stats = serve_loop(server, lc, watchdog=watchdog, scheduler=scheduler)
     wall = time.time() - t0
     print(json.dumps(_summary(server, lc, stats, wall, batch=batch,
-                              batch_source="flag", watchdog=watchdog,
-                              scheduler=scheduler)))
+                              batch_source=decision["source"],
+                              watchdog=watchdog, scheduler=scheduler)))
     return 0
 
 

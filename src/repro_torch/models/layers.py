@@ -224,7 +224,7 @@ def attention_apply(params: Params, x: torch.Tensor, cfg,
                     active: torch.Tensor | None = None,
                     chunk_q: int | None = None,
                     pages: torch.Tensor | None = None, paged=None,
-                    prefill: bool = False):
+                    prefill: bool = False, block_k: int | None = None):
     """GQA self-attention of x (B, S, D) at ``positions`` ((S,) or (B, S)).
 
     Without a cache: attention over the sequence itself, causal and
@@ -243,7 +243,8 @@ def attention_apply(params: Params, x: torch.Tensor, cfg,
     the pool's trash page (`pool_zeros`) where JAX drops them, so the write
     needs no host synchronisation.  A single-token step (S == 1) goes
     through the decode kernel of its layout (`decode`, `decode_int8`: CUDA
-    on a card); longer chunks gather and dequantize the cache and run
+    on a card) at ``block_k`` keys per split (None: the kernels'
+    default); longer chunks gather and dequantize the cache and run
     `attention_core`.  Returns ``(y, cache)`` where ``cache`` holds the same
     (updated) tensors.
     """
@@ -328,7 +329,8 @@ def attention_apply(params: Params, x: torch.Tensor, cfg,
         names = ("k", "k_scale", "v", "v_scale") if quantized else ("k", "v")
         tables = (pages,) if paged_cache else ()
         out = kernel(q[:, 0], *(cache[n] for n in names), *tables,
-                     length=new_len, scale=scale)[:, None]
+                     length=new_len, scale=scale,
+                     block_k=block_k)[:, None]
     else:
         rows = ({n: decode.gather_pages(c, pages) for n, c in cache.items()}
                 if paged_cache else cache)

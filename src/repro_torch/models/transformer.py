@@ -9,7 +9,10 @@ The decode state is ``{"blocks": {"k", "v": (layers, B, L, Hkv, dh)},
 "index": 0-d int32, "lengths": (B,) int32}``; a paged cache holds page
 pools ``(layers, num_pages, page_size, Hkv, dh)`` instead and one
 ``"pages"`` table ``(B, max_pages)`` int32 for the whole stack, and an
-int8 cache adds the f32 scale leaves ``"k_scale"``, ``"v_scale"``.
+int8 cache adds the f32 scale leaves ``"k_scale"``, ``"v_scale"``.  A
+contiguous cache may carry ``"decode_span"``, a Python int: the keys per
+split its single-token decode runs (the span the decode tuner picked for
+this cache when the server was built), handed to every layer.
 
 Only the dense family is ported; the others raise `NotImplementedError`
 naming ROADMAP A12.
@@ -88,14 +91,21 @@ def _copy_layer(stacked: dict, layer: dict, l: int) -> None:
 
 def cache_init(cfg: ModelConfig, batch: int, cache_len: int,
                dtype=torch.bfloat16, index: int = 0, device="cuda",
-               paged=None) -> Params:
+               paged=None, decode_span: int | None = None) -> Params:
     """A zeroed cache on ``device`` (``cuda`` unless the caller asks for
     ``cpu``; raises without a card).  With ``paged`` (a
     `runtime.paging.PageSpec`) the leaves are page pools, each allocated
     with the trash page of `layers.pool_zeros`, and ``cache["pages"]`` is
     the (B, max_pages) page table, all -1: logical page j of slot b is the
-    same pool page in every layer's K and V pool."""
+    same pool page in every layer's K and V pool.  ``decode_span`` (a
+    contiguous cache only; None: the kernels' default) is the keys per
+    split of the decode kernel over this cache."""
     _check_family(cfg)
+    if paged is not None and decode_span is not None:
+        # The JAX package's paged kernels take no knob: a paged cache
+        # decodes at the kernels' default span.
+        raise ValueError("a paged cache decodes at the kernels' default "
+                         "span; decode_span is for a contiguous cache")
     device = resolve_device(device)
     layer = layers.attention_cache_init(cfg, batch, cache_len, dtype, "meta",
                                         paged=paged)
@@ -113,6 +123,8 @@ def cache_init(cfg: ModelConfig, batch: int, cache_len: int,
     if paged is not None:
         cache["pages"] = torch.full((batch, paged.max_pages), -1,
                                     dtype=torch.int32, device=device)
+    if decode_span is not None:
+        cache["decode_span"] = int(decode_span)
     return cache
 
 
@@ -143,11 +155,12 @@ def cache_reset_slot(cache: Params, slot: int, paged=None) -> Params:
 
 
 def _layer_apply(p: Params, x, cfg: ModelConfig, positions, cache, lengths,
-                 active, pages, paged, prefill):
+                 active, pages, paged, prefill, span):
     h = layers.rmsnorm(p["ln1"], x, cfg.norm_eps)
     h, _ = layers.attention_apply(p["mixer"], h, cfg, positions, cache=cache,
                                   lengths=lengths, active=active,
-                                  pages=pages, paged=paged, prefill=prefill)
+                                  pages=pages, paged=paged, prefill=prefill,
+                                  block_k=span)
     x = x + h
     h2 = layers.rmsnorm(p["ln2"], x, cfg.norm_eps)
     return x + layers.swiglu_apply(p["mlp"], h2)
@@ -168,7 +181,8 @@ def forward(cfg: ModelConfig, params: Params, inputs: dict,
     cache it is the forward-only serving prefill, whose attention runs the
     flash kernel (`layers.attention_apply`'s ``prefill``).
     ``paged`` (a `runtime.paging.PageSpec`) marks the cache as paged; its
-    ``cache["pages"]`` table is threaded to every layer.
+    ``cache["pages"]`` table is threaded to every layer, as is a
+    contiguous cache's ``"decode_span"``.
     """
     _check_family(cfg)
     tokens = inputs["tokens"]
@@ -178,6 +192,7 @@ def forward(cfg: ModelConfig, params: Params, inputs: dict,
     lengths = act = None
     pages = cache.get("pages") if (cache is not None and paged is not None) \
         else None
+    span = cache.get("decode_span") if cache is not None else None
     if cache is not None:
         lengths = cache["lengths"]
         positions = lengths[:, None] + ar[None]
@@ -193,7 +208,7 @@ def forward(cfg: ModelConfig, params: Params, inputs: dict,
         gc = (None if cache is None
               else {k: a[l] for k, a in cache["blocks"].items()})
         x = _layer_apply(gp, x, cfg, positions, gc, lengths, act, pages,
-                         paged, prefill)
+                         paged, prefill, span)
 
     x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     new_cache = None
@@ -206,8 +221,9 @@ def forward(cfg: ModelConfig, params: Params, inputs: dict,
             adv = s * act.to(torch.int32)
         new_cache = {"blocks": cache["blocks"], "index": cache["index"] + s,
                      "lengths": lengths + adv}
-        if "pages" in cache:
-            new_cache["pages"] = cache["pages"]
+        for key in ("pages", "decode_span"):
+            if key in cache:
+                new_cache[key] = cache[key]
     head = params["embed"] if cfg.tie_embeddings else params["head"]
     if last_only:
         x = x[:, -1:]

@@ -1,9 +1,9 @@
 """Serving watchdog: rolling-median straggler detection.  The
 `StragglerReport` / `StragglerMonitor` / `DecodeWatchdog` part of
-`repro.runtime.fault_tolerance`, copied (numpy only).  The port has no
-decode-step cost model yet (ROADMAP A8), so its server builds the watchdog
-with ``predicted_us=None`` and the summary reports measured step times and
-stragglers only."""
+`repro.runtime.fault_tolerance`, copied (numpy only).  The server builds
+the watchdog with the tuner's predicted step time
+(`kernels.autotune.predict_decode_step_us`), and the summary reports it
+beside the measured step times and the stragglers."""
 
 from __future__ import annotations
 

@@ -84,7 +84,10 @@ def toy_spec():
 # ---------------------------------------------------------------------------
 
 def test_builtin_families_are_matmul_and_spmv():
-    assert registry.families() == ["matmul", "spmv"]
+    """The paper slice's two families, and since the attention specs the
+    three attention families beside them."""
+    assert registry.families() == ["attention", "decode", "decode_int8",
+                                   "matmul", "spmv"]
     assert set(registry.BUILTIN_FAMILIES) == set(registry.families())
 
 

@@ -2,7 +2,10 @@
 decode-attention kernels, contiguous (`decode_attention`), paged
 (`paged_decode_attention`), int8 (`quantized_decode_attention`) and paged
 int8 (`paged_quantized_decode_attention`), also at the edges of their key
-splits and at 32,768 keys, bitwise repeatable, one device kernel a call,
+splits, at every split span the decode tuner offers (and spans that are
+no whole number of the block's 64-key rounds), at 32,768 keys, bitwise
+repeatable, one device kernel a call at each span, through
+`autotune.dispatch` at the plan's span,
 paged bitwise the contiguous kernel whatever the two caches' rows, and
 lengths past the rows or below 0 clamped by the kernel; the prefill
 flash-attention kernels (`flash_attention`: TMA and `wgmma` for bf16 at
@@ -356,6 +359,85 @@ def test_paged_is_bitwise_contiguous_with_more_contiguous_rows(cuda, kv_dt):
     torch.testing.assert_close(paged, contiguous, rtol=0, atol=0)
 
 
+# The decode tuner's spans (`spec.DECODE_BLOCKS`), the span it clamps to
+# a cache of SPLIT_ROWS rows (808: twelve 64-key rounds and 40 keys), and
+# spans of no whole round.
+SPANS = (128, 256, 512, 1024, 2048, SPLIT_ROWS, 100, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("span", SPANS)
+@pytest.mark.parametrize("kernel", DECODE_KERNELS)
+def test_kernels_match_their_refs_at_every_span(cuda, kernel, span):
+    """Each kernel at each span against its plain version at the split
+    edges of the default span, and bitwise its own call at the split law's
+    one-span layout: a span at or past the rows is one split a row."""
+    fn, ref, args, lv = _decode_case(kernel, SPLIT_LENGTHS, SPLIT_ROWS, cuda,
+                                     q_dt="f32", kv_dt="f32")
+    before = sum(_launch_counts())
+    out = fn(*args, length=lv, block_k=span)
+    want = ref(*args, length=lv)
+    torch.cuda.synchronize()
+    assert sum(_launch_counts()) == before + 1
+    _assert_rows_close(out, want, True)
+    assert not out[0].any(), "length 0 must give zeros"
+    if span >= SPLIT_ROWS:
+        torch.testing.assert_close(
+            out, fn(*args, length=lv, block_k=SPLIT_ROWS), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", DECODE_KERNELS)
+def test_spans_on_one_stream_leave_the_tickets_zero(cuda, kernel):
+    """Calls of different spans in a row on one stream (each with its own
+    workspace, sized for its span) leave the ticket counters at zero, and
+    a span's call repeats bitwise after the others."""
+    fn, _, args, lv = _decode_case(kernel, SPLIT_LENGTHS, SPLIT_ROWS, cuda,
+                                   q_dt="bf16", kv_dt="bf16")
+    first = fn(*args, length=lv, block_k=128)
+    for span in (2048, 100, 256, 1):
+        fn(*args, length=lv, block_k=span)
+    again = fn(*args, length=lv, block_k=128)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+    key = (cuda.index if cuda.index is not None
+           else torch.cuda.current_device(),
+           torch.cuda.current_stream(cuda).cuda_stream)
+    assert not decode._tickets[key].any()
+    with pytest.raises(ValueError, match="block_k"):
+        fn(*args, length=lv, block_k=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["decode", "decode_int8"])
+def test_dispatch_launches_the_kernel_at_the_plans_span(cuda, family,
+                                                        tmp_path):
+    """`autotune.dispatch` of the decode families tunes on the card (the
+    spans timed, the plan cached) and launches the kernel once, at the
+    plan's span: bitwise the direct call at that span."""
+    kernel = ("decode_attention" if family == "decode"
+              else "quantized_decode_attention")
+    fn, _, args, lv = _decode_case(kernel, SPLIT_LENGTHS, SPLIT_ROWS, cuda,
+                                   q_dt="bf16", kv_dt="bf16")
+    cache = autotune.TuneCache(tmp_path / "autotune.json")
+    before = _launch_counts()
+    out = autotune.dispatch(family, *args, length=lv, cache=cache)
+    torch.cuda.synchronize()
+    counts = _launch_counts()
+    which = 0 if family == "decode" else 2
+    spec = autotune.registry.get(family)
+    problem, dtype = spec.problem_fn(*args, length=lv)
+    plan = autotune.tune(family, problem, dtype, device=cuda, cache=cache)
+    assert plan.source == "cache" and plan.provenance == "measured"
+    # the timed spans launched the kernel too; the call itself once more
+    assert counts[which] > before[which]
+    assert [c - b for i, (c, b) in enumerate(zip(counts, before))
+            if i != which] == [0, 0, 0]
+    torch.testing.assert_close(
+        out, fn(*args, length=lv, block_k=plan.knobs["block_k"]), rtol=0,
+        atol=0)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel", DECODE_KERNELS)
 def test_calls_repeat_bitwise_and_leave_the_tickets_zero(cuda, kernel):
@@ -374,25 +456,26 @@ def test_calls_repeat_bitwise_and_leave_the_tickets_zero(cuda, kernel):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("span", [None, *SPANS])
 @pytest.mark.parametrize("kernel", DECODE_KERNELS)
-def test_one_device_kernel_per_call(cuda, kernel):
+def test_one_device_kernel_per_call(cuda, kernel, span):
     """With (B,) int32 lengths on the card, a call is one kernel and
     nothing else (no clamp, no second pass for the combine), and it needs
-    no host read: captured in a CUDA graph it is one kernel node, and two
-    replays give the direct call's output bit for bit, each leaving the
-    ticket counters at zero for the next."""
+    no host read: captured in a CUDA graph it is one kernel node, at every
+    span, and two replays give the direct call's output bit for bit, each
+    leaving the ticket counters at zero for the next."""
     import ctypes
     fn, _, args, lv = _decode_case(kernel, SPLIT_LENGTHS, SPLIT_ROWS, cuda,
                                    q_dt="bf16", kv_dt="bf16")
-    want = fn(*args, length=lv)
+    want = fn(*args, length=lv, block_k=span)
     stream = torch.cuda.Stream()
     stream.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(stream):      # the capture stream's counters
-        fn(*args, length=lv)
+        fn(*args, length=lv, block_k=span)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph(keep_graph=True)
     with torch.cuda.graph(graph, stream=stream):
-        out = fn(*args, length=lv)
+        out = fn(*args, length=lv, block_k=span)
     driver = ctypes.CDLL("libcuda.so.1")
     handle = ctypes.c_void_p(graph.raw_cuda_graph())
     n = ctypes.c_size_t(0)
@@ -432,9 +515,17 @@ def test_kernel_clamps_lengths_past_the_rows_and_below_0(cuda):
 
 @pytest.mark.cuda
 def test_every_decode_library_splits_at_split_keys(cuda):
-    from repro_torch.kernels import _build
+    """A call without a span splits at `decode.SPLIT_KEYS`: bitwise the
+    call that names it, and not the one-split call."""
     for name in DECODE_KERNELS:
-        assert decode._split_keys(_build.library(name)) == decode.SPLIT_KEYS
+        fn, _, args, lv = _decode_case(name, SPLIT_LENGTHS, SPLIT_ROWS, cuda,
+                                       q_dt="f32", kv_dt="f32")
+        default = fn(*args, length=lv)
+        torch.testing.assert_close(
+            default, fn(*args, length=lv, block_k=decode.SPLIT_KEYS),
+            rtol=0, atol=0)
+        assert not torch.equal(default,
+                               fn(*args, length=lv, block_k=SPLIT_ROWS))
 
 
 # name: (Sq, Sk, causal, window); lengths not multiples of the 64-row tile
@@ -590,6 +681,27 @@ def test_flash_kernel_refuses_what_it_cannot_take(cuda):
     with pytest.raises(ValueError, match="16 bytes"):    # 8-byte offset
         flash.flash_attention(wide[..., 4:132], k, v, scale=0.1)
     assert flash.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt, dh", [("bf16", 128), ("bf16", 80),
+                                    ("f32", 128)])
+def test_flash_kernel_refuses_a_tile_it_is_not_built_for(cuda, dt, dh):
+    """B5 runs the tile of its design (`kernel.tile`) and refuses any
+    other before launching; its own tile, named, is the default call."""
+    q, k, v = _flash_inputs(13, 1, 100, 100, 4, 2, dh, dt, cuda)
+    bq, bk = flash.tile(q.dtype, dh)
+    before = flash.launches
+    for tile in [(bq * 2, bk), (bq, bk // 2), (256, 256)]:
+        with pytest.raises(ValueError, match="built for"):
+            flash.flash_attention(q, k, v, scale=0.1, block_q=tile[0],
+                                  block_k=tile[1])
+    assert flash.launches == before
+    named = flash.flash_attention(q, k, v, scale=0.1, block_q=bq,
+                                  block_k=bk)
+    torch.testing.assert_close(
+        named, flash.flash_attention(q, k, v, scale=0.1), rtol=0, atol=0)
+    assert flash.launches == before + 2
 
 
 # ---------------------------------------------------------------------------

@@ -93,6 +93,14 @@ def _serve_all(server, batch, requests):
     raise AssertionError("serve loop failed to drain the queue")
 
 
+@pytest.fixture(autouse=True)
+def _own_tune_cache(monkeypatch, tmp_path):
+    """The port's servers tune their plans at start-up: into a cache file
+    of the test's own, never the checkout's."""
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE",
+                       str(tmp_path / "torch_autotune.json"))
+
+
 def _servers(jcfg, tcfg, batch, max_len, layout="f32", pool_pages=0):
     """A JAX and a port server with the same parameters and KV cache:
     ``layout`` f32, int8, paged (f32) or paged_int8, pages of 4 tokens."""
@@ -291,8 +299,13 @@ def test_cli_log_passes_check_serve():
     assert check_serve.check(log, requests=3, min_tokens=12) == []
     assert '{"serving_plan": {"batch": 2, "source": "flag"}}' in log
     summary = check_serve._json_lines(log)[-1]
-    assert summary["kernel_plan"] == [] and summary["kv_dtype"] == "float32"
+    assert summary["kv_dtype"] == "float32"
     assert summary["decode_forwards"] > 0
+    # the server tunes its plans at start-up whatever the batch's source
+    plan = {p["op"]: p for p in summary["kernel_plan"]}
+    assert list(plan) == ["qkv_proj", "out_proj", "ffn_up", "ffn_down",
+                          "logits", "attn_prefill", "attn_decode"]
+    assert summary["decode_span"] == plan["attn_decode"]["knobs"]["block_k"]
 
 
 @pytest.mark.parametrize("flags", [
@@ -318,7 +331,7 @@ def test_cli_paged_int8_and_sched_pass_check_serve(flags):
 
 
 @pytest.mark.parametrize("flags, item", [
-    (["--batch", "0"], "A8"), (["--chaos"], "A9"),
+    (["--chaos"], "A9"),
     (["--state-dir", "x"], "A9"), (["--load-trace", "x"], "A10"),
     (["--arch", "rwkv6_7b"], "A12"),
 ])
@@ -327,6 +340,23 @@ def test_cli_refuses_unported_options(flags, item, capsys):
         tserve.main(["--smoke", "--device", "cpu", *flags])
     assert exc.value.code == 2
     assert f"ROADMAP {item}" in capsys.readouterr().err
+
+
+def test_cli_batch_0_runs_the_sweep():
+    """``--batch 0`` (the default) takes the batch from the tuner's sweep
+    over the candidates up to ``--requests``, and the run then serves at
+    that batch."""
+    for argv in (["--batch", "0"], []):
+        rc, log = _run_main(["--smoke", "--requests", "3", "--prompt-len",
+                             "6", "--gen", "4", "--device", "cpu", *argv])
+        assert rc == 0
+        assert check_serve.check(log, requests=3, min_tokens=12) == []
+        plan = check_serve._json_lines(log)[0]["serving_plan"]
+        assert plan["source"] == "autotune"
+        assert [r["batch"] for r in plan["sweep"]] == [1, 2]
+        summary = check_serve._json_lines(log)[-1]
+        assert summary["batch"] == plan["batch"]
+        assert summary["batch_source"] == "autotune"
 
 
 def test_default_device_raises_without_cuda():
