@@ -74,6 +74,29 @@ Phases, each printed as one JSON line:
    p50 and the kernel's launches; the decode kernel (B1, B3) must run at
    the plan's span, and when the sweep picks 4 the token streams must
    equal the ``--batch 4`` run's.
+   ``serve_chaos`` and ``serve_chaos_paged_int8``: the CLI at full width
+   under ``--chaos --fault-seed 0`` (the seeded smoke schedule: one NaN
+   logits, one NaN cache slot, one kernel-dispatch failure, one
+   straggler, one prefill interrupt), f32 contiguous (B1) and paged int8
+   under ``spf`` (B4): each log passes ``check_serve.py --chaos``, every
+   class fired, no request failed, one re-plan of the decode kernel and
+   no fallback (the port has no plain path on a card), and the slots
+   quarantined are exactly those ``fired`` names for the two NaN faults;
+   the completed streams equal to the fault-free run's are counted.
+   ``serve_crash_resume`` and ``serve_crash_resume_paged_bf16``: 6
+   requests of 128 + 16 tokens, a snapshot every 4 steps, f32 contiguous
+   (B1) and paged bf16 (B2): an uninterrupted run, ``--crash --crash-step
+   9`` (exit 17) and ``--resume``, which passes ``check_serve.py
+   --recovery`` and ``--serving-json``; streams equal the uninterrupted
+   run's (or part at a near-tie under the bf16 logit bound); snapshot
+   bytes and seconds per save, replayed steps, the resume's prepare and
+   first-new-token seconds, and both processes' weight digests.
+   ``serving_load``: `repro_torch.benchmarks.serving_load` at full width
+   with the ``--smoke`` counts (five mixes, ``recovery``, ``paging``;
+   B1, B2, B3), its report passing ``tools/check_load.py``, each mix's
+   predicted step beside the measured one; then its ``steady.jsonl``
+   through ``serve --load-trace``, whose percentiles must equal the
+   steady mix's.
 8. ``paged_vs_contiguous``: one set of full-width weights serves the same
    4 requests through a contiguous and a paged f32 cache, both at the
    kernels' default span; the greedy token streams must be equal.
@@ -126,7 +149,8 @@ Phases, each printed as one JSON line:
    kernel, with its TPU counterpart, its design, launches on its
    main-path run (B1, B3: the default CLI, ``serve_autobatch*``; B2, B4:
    their serve runs; B5: the ``prefill`` phase; B6: ``table1``; B7, B8:
-   ``table2``), error and times.
+   ``table2``) and B1-B4's launches by phase (the chaos, crash-resume
+   and ``serving_load`` phases among them), error and times.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed phase
 exits non-zero without it; so does a host without a CUDA card.
@@ -179,8 +203,34 @@ AUTOBATCH_PHASES = [
     ("serve_autobatch_int8", AUTOBATCH_BASE + ["--kv-dtype", "int8"],
      "quantized_decode_attention", "serve_int8"),
 ]
+# The chaos phases: the seeded smoke schedule (one fault of each class)
+# through a full-width serve run.  (phase, argv, the kernel its decode
+# steps run, the fault-free phase at the same flags, or None to run one)
+CHAOS_FLAGS = ["--chaos", "--fault-seed", "0"]
+CHAOS_PHASES = [
+    ("serve_chaos", SERVE_ARGV + CHAOS_FLAGS, "decode_attention", "serve"),
+    ("serve_chaos_paged_int8",
+     SERVE_BASE + ["--paged", "--page-size", "16", "--kv-dtype", "int8",
+                   "--sched", "spf"] + CHAOS_FLAGS,
+     "paged_quantized_decode_attention", None),
+]
+SMOKE_FAULTS = ("nan_logits", "kv_corrupt", "kernel_dispatch", "straggler",
+                "prefill_interrupt")
+# Crash and resume: a 128-token prompt keeps an f32 snapshot at 4 x 152
+# rows x 320 KiB (about 199 MB).  (phase, flags, the decode kernel)
+RESUME_BASE = ["--arch", "qwen3_14b", "--batch", "4", "--requests", "6",
+               "--prompt-len", "128", "--gen", "16", "--snapshot-every", "4"]
+SNAPSHOT_EVERY, CRASH_STEP = 4, 9
+RESUME_PHASES = [
+    ("serve_crash_resume", ["--kv-dtype", "f32"], "decode_attention"),
+    ("serve_crash_resume_paged_bf16", ["--paged", "--kv-dtype", "bf16"],
+     "paged_decode_attention"),
+]
+STATE_ROOT = ROOT / "build" / "chip_smoke_state"
 # The decode kernel of each serve phase.
 KERNELS_OF_SERVE = {p: k for p, _, k, _ in SERVE_PHASES + AUTOBATCH_PHASES}
+KERNELS_OF_SERVE.update({p: k for p, _, k, _ in CHAOS_PHASES})
+KERNELS_OF_SERVE.update({p: k for p, _, k in RESUME_PHASES})
 # Each kernel's design on the card, as the kernels line names it.
 DESIGNS = {
     **dict.fromkeys(
@@ -731,6 +781,45 @@ def reset_launch_counts(mods) -> None:
     sp.launches = sp.blocked_launches = 0
 
 
+def cli_run(torch, serve, mods, argv) -> dict:
+    """One run of the serving CLI in this process, its output captured,
+    every kernel's launch count set to 0 just before it and read just
+    after.  Returns the exit code, the log, the seconds, the counts, the
+    (step, slot) pairs each decode step quarantined and every request's
+    final state and tokens."""
+    reset_launch_counts(mods)
+    buf = io.StringIO()
+    quarantined, requests = [], {}
+    run_loop, decode_step = serve.serve_loop, serve.Server.decode_step
+
+    def loop(server, lc, **kw):
+        try:
+            return run_loop(server, lc, **kw)
+        finally:
+            requests.update({rid: (r.state.value, list(r.tokens))
+                             for rid, r in lc.requests.items()})
+
+    def step(self, step=0, **kw):
+        out = decode_step(self, step, **kw)
+        quarantined.extend((step, s) for s in out[2])
+        return out
+    serve.serve_loop, serve.Server.decode_step = loop, step
+    t0 = time.time()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = serve.main(argv)
+    finally:
+        serve.serve_loop, serve.Server.decode_step = run_loop, decode_step
+    seconds = time.time() - t0
+    counts = launch_counts(mods)
+    log = buf.getvalue()
+    print(log, end="", flush=True)
+    gc.collect()                      # the run's weights and cache
+    torch.cuda.empty_cache()
+    return {"rc": rc, "log": log, "seconds": seconds, "counts": counts,
+            "quarantined": sorted(quarantined), "requests": requests}
+
+
 def serve_phase(torch, serve, check_serve, mods, *, phase, argv, kernel,
                 most_at_once, layers) -> dict:
     """One serve run through `serve.main`, with every kernel's launch count
@@ -738,31 +827,21 @@ def serve_phase(torch, serve, check_serve, mods, *, phase, argv, kernel,
     the layout's kernel, each request's token stream, the spans the decode
     kernels were launched with, the serving plan and the summary."""
     decode = mods[0]
-    reset_launch_counts(mods)
     torch.cuda.reset_peak_memory_stats()
-    buf = io.StringIO()
-    streams, spans = {}, set()
-    run_loop, launch = serve.serve_loop, decode._launch
-
-    def loop(server, lc, **kw):
-        stats = run_loop(server, lc, **kw)
-        streams.update({rid: list(r.tokens) for rid, r in lc.requests.items()})
-        return stats
+    spans = set()
+    launch = decode._launch
 
     def spy(*a, span, **kw):
         spans.add(span)
         return launch(*a, span=span, **kw)
-    serve.serve_loop, decode._launch = loop, spy
-    t0 = time.time()
+    decode._launch = spy
     try:
-        with contextlib.redirect_stdout(buf):
-            rc = serve.main(argv)
+        run = cli_run(torch, serve, mods, argv)
     finally:
-        serve.serve_loop, decode._launch = run_loop, launch
-    seconds = time.time() - t0
-    counts = launch_counts(mods)
-    log = buf.getvalue()
-    print(log, end="", flush=True)
+        decode._launch = launch
+    rc, seconds, counts, log = (run[k] for k in ("rc", "seconds", "counts",
+                                                 "log"))
+    streams = {rid: toks for rid, (_, toks) in run["requests"].items()}
     summary = check_serve._json_lines(log)[-1]
     problems = check_serve.check(log, requests=6, min_tokens=6 * 16)
     launches = counts.pop(kernel)
@@ -800,8 +879,6 @@ def serve_phase(torch, serve, check_serve, mods, *, phase, argv, kernel,
     check(spans == {summary["decode_span"] or decode.SPLIT_KEYS},
           f"{phase}: decode kernels launched at spans {sorted(spans)}, the "
           f"server's span is {summary['decode_span']}")
-    gc.collect()                      # the run's weights and cache
-    torch.cuda.empty_cache()
     return {"launches": launches, "streams": streams, "plan": plan,
             "summary": summary}
 
@@ -881,6 +958,270 @@ def paged_vs_contiguous(torch, configs, serve, paging, lifecycle):
             "page_size": spec.page_size, "weights_shared": shared,
             "tokens": sum(len(t) for t in streams[0].values()),
             "equal": equal, "ok": equal and shared}
+
+
+def _lines(check_serve, log, key):
+    return [r[key] for r in check_serve._json_lines(log) if key in r]
+
+
+def chaos_phase(torch, serve, check_serve, mods, *, phase, argv, kernel,
+                layers, clean) -> dict:
+    """The serving CLI at full width under ``--chaos --fault-seed 0``: the
+    log must pass ``check_serve.py --chaos --requests 6`` with every smoke
+    class fired, no request failed, one re-plan of the decode kernel and
+    no fallback; the slots quarantined must be exactly those ``fired``
+    names for ``nan_logits`` and ``kv_corrupt`` (the kernel carries a NaN
+    cache row into that slot's logits, and no other slot's).  Prints, not
+    gates, how many completed streams equal the fault-free run's at the
+    same flags (``clean``: that run's requests, or None to run it)."""
+    run = cli_run(torch, serve, mods, argv)
+    log, counts = run["log"], dict(run["counts"])
+    summary = check_serve._json_lines(log)[-1]
+    problems = check_serve.check(log, requests=6, chaos=True)
+    fired = [e for e in summary.get("faults", {}).get("fired", [])
+             if not e.get("skipped")]
+    kinds = sorted({e["kind"] for e in fired})
+    named = sorted((e["fired_step"], e["slot"]) for e in fired
+                   if e["kind"] in ("nan_logits", "kv_corrupt"))
+    launches = counts.pop(kernel)
+    if clean is None:
+        plain = [a for a in argv if a not in CHAOS_FLAGS]
+        clean = cli_run(torch, serve, mods, plain)["requests"]
+    done = {rid: toks for rid, (state, toks) in run["requests"].items()
+            if state == "completed"}
+    equal = sum(1 for rid, toks in done.items()
+                if clean.get(rid, (None, None))[1] == toks)
+    out = {"argv": argv, "rc": run["rc"], "seconds": round(run["seconds"], 3),
+           "kernel": kernel, "kernel_launches": launches,
+           "other_kernel_launches": counts,
+           "decode_forwards": summary.get("decode_forwards"),
+           "check_serve_problems": problems, "fired_kinds": kinds,
+           "fired": fired, "quarantined": run["quarantined"],
+           "named_by_fired": named, "outcomes": summary.get("outcomes"),
+           "request_outcomes": summary.get("request_outcomes"),
+           "kernel_replans": summary.get("kernel_replans"),
+           "kernel_fallbacks": summary.get("kernel_fallbacks"),
+           "decode_span": summary.get("decode_span"),
+           "watchdog": summary.get("watchdog"),
+           "completed_streams_equal_fault_free": equal,
+           "completed": len(done)}
+    emit(phase, **out)
+    check(run["rc"] == 0 and not problems,
+          f"{phase}: check_serve --chaos failed: {problems}")
+    check(kinds == sorted(SMOKE_FAULTS),
+          f"{phase}: fired {kinds}, not every smoke class")
+    check(summary["outcomes"]["failed"] == 0, f"{phase}: a request failed")
+    check(summary["kernel_replans"] == 1
+          and summary["kernel_fallbacks"] == 0,
+          f"{phase}: replans {summary['kernel_replans']}, fallbacks "
+          f"{summary['kernel_fallbacks']}")
+    check(run["quarantined"] == named,
+          f"{phase}: quarantined {run['quarantined']}, fired names {named}")
+    check(launches > 0 and launches == summary["decode_forwards"] * layers,
+          f"{phase}: {launches} {kernel} launches for "
+          f"{summary['decode_forwards']} decode forwards x {layers} layers")
+    check(not any(counts.values()),
+          f"{phase}: other kernels launched: {counts}")
+    return out
+
+
+def _near_tie(torch, serve, cfg, device, kv_dtype, prompt, want, got):
+    """Where a resumed stream first parts from the uninterrupted one: the
+    two tokens' logit gap after a teacher-forced prefill of the prompt and
+    the uninterrupted tokens before it (the CLI's seeded weights), against
+    the bf16 logit bound.  Builds a one-slot server of ``cfg``."""
+    m = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+    server = serve.Server(cfg, 1, len(prompt) + m + 8, device=device,
+                          kv_dtype=kv_dtype, autotune_kernels=False)
+    _, last = server._prefill(0, 0, list(prompt) + want[:m], 1, logits=True)
+    gap = abs(float(last[want[m]] - last[got[m]]))
+    bound = serve.BF16_LOGIT_REL * float(abs(last).max())
+    del server
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"position": m, "uninterrupted": want[m], "resumed": got[m],
+            "gap": gap, "bound": bound, "near_tie": gap < bound}
+
+
+def crash_resume_phase(torch, serve, check_serve, mods, configs, *, phase,
+                       flags, kernel, layers, cli=(),
+                       state_root=STATE_ROOT) -> dict:
+    """Full-width Qwen3-14B, 6 requests of 128 + 16 tokens at batch 4,
+    journaled with a snapshot every 4 decode steps: an uninterrupted run,
+    a run killed by ``--crash --crash-step 9`` (exit 17, a crash line, no
+    summary) and its ``--resume``, which must pass ``check_serve.py
+    --recovery --crash-log --journal --snapshot-every 4`` and
+    ``--serving-json``.  The completed streams must equal the
+    uninterrupted run's, or part from them only at a near-tie (the bf16
+    logit bound; printed with the request and position).  Both
+    processes must print one weights digest.  ``cli`` extends every run's
+    arguments (``--smoke --device cpu`` rehearses the phase on the CPU)."""
+    import shutil
+
+    from repro_torch.runtime import journal
+    root = state_root / phase
+    shutil.rmtree(root, ignore_errors=True)
+    clean_dir, crash_dir = root / "clean", root / "crashed"
+    base = RESUME_BASE + flags + list(cli)
+    runs = {"clean": cli_run(torch, serve, mods,
+                             base + ["--state-dir", str(clean_dir)]),
+            "crash": cli_run(torch, serve, mods,
+                             base + ["--state-dir", str(crash_dir),
+                                     "--crash", "--crash-step",
+                                     str(CRASH_STEP)]),
+            "resume": cli_run(torch, serve, mods,
+                              ["--resume", "--state-dir", str(crash_dir),
+                               *cli])}
+    clean_log, crash_log, resume_log = (runs[k]["log"] for k in
+                                        ("clean", "crash", "resume"))
+    serving = json.loads((crash_dir / "serving.json").read_text())
+    problems = (check_serve.check(clean_log, requests=6)
+                + check_serve.check(resume_log, require_plan=False)
+                + check_serve.check_recovery(
+                    resume_log, crash_text=crash_log,
+                    journal=crash_dir / "journal.jsonl",
+                    snapshot_every=SNAPSHOT_EVERY)
+                + check_serve.check_serving_json(resume_log, serving))
+    folded = {k: journal.replay(journal.read_journal(d / "journal.jsonl"))
+              for k, d in (("clean", clean_dir), ("crashed", crash_dir))}
+    kv_dtype = getattr(torch, serving["kv_dtype"])
+    cfg = (configs.get_smoke(serving["arch"]) if serving["smoke"]
+           else configs.get(serving["arch"]))
+    device = "cpu" if "cpu" in cli else "cuda"
+    ties = {}
+    for rid, want in folded["clean"].items():
+        got = folded["crashed"][rid]["tokens"]
+        if got != want["tokens"]:
+            ties[rid] = _near_tie(torch, serve, cfg, device, kv_dtype,
+                                  want["prompt"], want["tokens"], got)
+    digests = {k: _lines(check_serve, runs[k]["log"], "params_digest")
+               for k in runs}
+    clean_sum = check_serve._json_lines(clean_log)[-1]
+    resume_sum = check_serve._json_lines(resume_log)[-1]
+    rec = resume_sum.get("recovery", {})
+    launches = {k: r["counts"][kernel] for k, r in runs.items()}
+    out = {"flags": flags, "rcs": {k: r["rc"] for k, r in runs.items()},
+           "seconds": {k: round(r["seconds"], 3) for k, r in runs.items()},
+           "kernel": kernel, "kernel_launches": launches,
+           "check_serve_problems": problems,
+           "crash_lines": _lines(check_serve, crash_log, "crash"),
+           "snapshot_bytes": {"clean": clean_sum.get("snapshot_bytes"),
+                              "resume": resume_sum.get("snapshot_bytes")},
+           "snapshot_save_s": {"clean": clean_sum.get("snapshot_save_s"),
+                               "resume": resume_sum.get("snapshot_save_s")},
+           "snapshots_saved": clean_sum.get("snapshots_saved"),
+           "recovery": rec, "replayed_steps": rec.get("replayed_steps"),
+           "prepare_s": rec.get("prepare_s"),
+           "first_new_token_s": rec.get("first_new_token_s"),
+           "params_digests": digests,
+           "decode_span": {"clean": clean_sum.get("decode_span"),
+                           "resume": resume_sum.get("decode_span")},
+           "streams_equal": len(folded["clean"]) - len(ties),
+           "near_ties": ties,
+           "per_token_ms": {"clean": clean_sum.get("per_token_ms"),
+                            "resume": resume_sum.get("per_token_ms")}}
+    emit(phase, **out)
+    shutil.rmtree(root, ignore_errors=True)
+    check(runs["clean"]["rc"] == 0 and runs["resume"]["rc"] == 0
+          and runs["crash"]["rc"] == serve.CRASH_EXIT,
+          f"{phase}: exit codes {out['rcs']}")
+    check(not problems, f"{phase}: {problems}")
+    check(all(t["near_tie"] for t in ties.values()),
+          f"{phase}: a resumed stream parts from the uninterrupted one "
+          f"above the bf16 bound: {ties}")
+    flat = [d for ds in digests.values() for d in ds]
+    check(len(flat) == 3 and len(set(flat)) == 1,
+          f"{phase}: weight digests differ: {digests}")
+    check(out["decode_span"]["clean"] == out["decode_span"]["resume"],
+          f"{phase}: resumed at another decode span: {out['decode_span']}")
+    check(all(n > 0 for n in launches.values()),
+          f"{phase}: {kernel} not launched in every run: {launches}")
+    for k, summary in (("clean", clean_sum), ("resume", resume_sum)):
+        check(launches[k] == summary["decode_forwards"] * layers,
+              f"{phase}: {launches[k]} {kernel} launches in the {k} run "
+              f"for {summary['decode_forwards']} forwards x {layers}")
+    return out
+
+
+def serving_load_phase(torch, serve, check_serve, check_load, mods, *,
+                       device="cuda", state_root=STATE_ROOT) -> dict:
+    """The port's load harness on the card (`benchmarks.serving_load`):
+    Qwen3-14B at full width, the five mixes at the ``--smoke`` counts,
+    ``recovery`` and ``paging``; the report must pass
+    ``tools/check_load.py``.  Each mix prints the tuner's predicted step
+    (the model of this card) beside the measured one (its ``wall``
+    block); the virtual-clock latencies are model milliseconds.  Then the
+    emitted ``steady.jsonl`` replays through ``serve --load-trace``: its
+    TTFT and per-token percentiles must equal the steady mix's.
+    ``device="cpu"`` rehearses it with the SMOKE config."""
+    import shutil
+
+    from repro_torch.benchmarks import serving_load
+    from repro_torch.core.ioutil import atomic_write_json
+    root = state_root / "serving_load"
+    shutil.rmtree(root, ignore_errors=True)
+    traces = root / "traces"
+    traces.mkdir(parents=True)
+    reset_launch_counts(mods)
+    t0 = time.time()
+    with contextlib.redirect_stdout(io.StringIO()):
+        report = serving_load.build_report("qwen3_14b", smoke=True,
+                                           emit_dir=traces, device=device)
+    seconds = time.time() - t0
+    counts = launch_counts(mods)
+    gc.collect()
+    torch.cuda.empty_cache()
+    path = root / "serving_load.json"
+    atomic_write_json(path, report)
+    problems = check_load.check(path)
+    mixes = {}
+    for name, m in report["mixes"].items():
+        wall = m["wall"]
+        mixes[name] = {
+            "batch": m["batch"], "kv_dtype": m["kv_dtype"],
+            "paged": m["paged"], "decode_steps": m["decode_steps"],
+            "predicted_step_us": m["serving_plan"].get("predicted_step_us"),
+            "measured_step_us_p50": wall.get("measured_step_us_p50"),
+            "divergence": wall.get("divergence"), "wall_s": wall["wall_s"],
+            "wall_tok_per_s": wall["wall_tok_per_s"],
+            "model_ms": {"ttft": m["ttft_ms"], "per_token": m["per_token_ms"],
+                         "step_time_us": m["step_time_us"]},
+            "model_tok_per_s": m["tok_per_s"], "slo_ok": m["slo_ok"]}
+    steady = report["mixes"]["steady"]
+    replay = cli_run(torch, serve, mods,
+                     ["--arch", "qwen3_14b", "--load-trace",
+                      str(traces / "steady.jsonl"), "--device", device]
+                     + (["--smoke"] if device == "cpu" else []))
+    rsum = check_serve._json_lines(replay["log"])[-1]
+    equal = (rsum["ttft_ms"] == steady["ttft_ms"]
+             and rsum["per_token_ms"] == steady["per_token_ms"])
+    out = {"seconds": round(seconds, 3), "device": report["device"],
+           "chip": report["chip"], "check_load_problems": problems,
+           "mixes": mixes, "recovery": report["recovery"],
+           "paging": {k: report["paging"][k] for k in (
+               "budget_tokens", "pool_pages", "concurrency_ratio",
+               "ratio_ok", "contiguous", "paged")},
+           "kernel_launches": counts,
+           "replay": {"rc": replay["rc"],
+                      "seconds": round(replay["seconds"], 3),
+                      "ttft_ms": rsum["ttft_ms"],
+                      "per_token_ms": rsum["per_token_ms"],
+                      "load": rsum.get("load"),
+                      "steady_ttft_ms": steady["ttft_ms"],
+                      "steady_per_token_ms": steady["per_token_ms"],
+                      "equal": equal,
+                      "kernel_launches": replay["counts"]
+                      ["decode_attention"]}}
+    emit("serving_load", **out)
+    shutil.rmtree(root, ignore_errors=True)
+    check(not problems, f"serving_load: check_load.py: {problems}")
+    for k in ("decode_attention", "paged_decode_attention",
+              "quantized_decode_attention"):
+        check(counts[k] > 0, f"serving_load: {k} never launched: {counts}")
+    check(replay["rc"] == 0 and equal,
+          f"serving_load: the replay's percentiles differ from the steady "
+          f"mix's: {out['replay']}")
+    return out
 
 
 def _leaves(tree):
@@ -1766,6 +2107,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs a CUDA card", file=sys.stderr)
         return 1
+    import check_load
     import check_serve
     import repro_torch.configs as configs
     from repro_torch.configs import shapes
@@ -1896,7 +2238,24 @@ def main() -> int:
         launches[kernel] = auto["launches"]
         serve_launches[phase] = auto["launches"]
         main_spans[kernel] = auto["decode_span"]
+    # Fault tolerance and the load harness: chaos, crash and resume, the
+    # harness and its replay, each at full width through B1-B4.
+    for phase, argv, kernel, clean_phase in CHAOS_PHASES:
+        clean = (None if clean_phase is None else
+                 {rid: ("completed", toks) for rid, toks in
+                  serve_runs[clean_phase]["streams"].items()})
+        res = chaos_phase(torch, serve, check_serve, mods, phase=phase,
+                          argv=argv, kernel=kernel, layers=layers,
+                          clean=clean)
+        serve_launches[phase] = res["kernel_launches"]
     del serve_runs
+    for phase, flags, kernel in RESUME_PHASES:
+        res = crash_resume_phase(torch, serve, check_serve, mods, configs,
+                                 phase=phase, flags=flags, kernel=kernel,
+                                 layers=layers)
+        serve_launches[phase] = sum(res["kernel_launches"].values())
+    load_launches = serving_load_phase(torch, serve, check_serve, check_load,
+                                       mods)["kernel_launches"]
 
     pvc = paged_vs_contiguous(torch, configs, serve, paging, lifecycle)
     emit("paged_vs_contiguous", **pvc)
@@ -1936,6 +2295,9 @@ def main() -> int:
             entry["launches_by_phase"] = {
                 phase: n for phase, n in serve_launches.items()
                 if KERNELS_OF_SERVE[phase] == name}
+            if load_launches[name]:
+                entry["launches_by_phase"]["serving_load"] = \
+                    load_launches[name]
         if name in main_spans:
             # ms above is the default span's; the default CLI ran this one
             span = main_spans[name]

@@ -244,7 +244,10 @@ def decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Plain version (materialized logits), a port of the JAX
     ``decode_ref``.  q: (B, Hq, dh); k, v: (B, L, Hkv, dh); ``length`` a
     scalar or (B,).  Computes in f32 and returns q's dtype; a slot with
-    length 0 returns zeros."""
+    length 0 returns zeros.  As in the kernels, no key or value row at or
+    past a slot's length enters its output: a NaN there (another slot's
+    poisoned page, through a table entry clamped to page 0) stays out,
+    where a probability of 0 times NaN would not."""
     b, hq, dh = q.shape
     _, kl, hkv, _ = k.shape
     g = hq // hkv
@@ -259,6 +262,7 @@ def decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         lv = lv.expand(b)
     valid = torch.arange(kl, device=q.device)[None, :] < lv[:, None]
     s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    vr = torch.where(valid[:, None, :, None], vr, 0.0)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgk,bhkd->bhgd", p, vr)
     out = torch.where((lv > 0)[:, None, None, None], out, 0.0)

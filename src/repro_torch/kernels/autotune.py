@@ -315,6 +315,18 @@ def tune(
                 chosen.score, measured_us, detail)
 
 
+# The chaos harness's hook, consulted by `dispatch` just before a launch
+# (`runtime.faults.FaultInjector.dispatch_hook`, installed by
+# `install_dispatch_hook`).  None outside chaos runs.
+_dispatch_fault_hook: Callable[[str], None] | None = None
+
+
+def install_dispatch_hook(hook: Callable[[str], None] | None) -> None:
+    """Install (or clear, with None) the kernel-dispatch fault hook."""
+    global _dispatch_fault_hook
+    _dispatch_fault_hook = hook
+
+
 def mark_plan_poisoned(key: str, cache: TuneCache | None = None) -> None:
     """Quarantine a cached winner whose launch failed: the entry is kept
     but flagged, so the next `tune` of its problem re-runs the DSE."""
@@ -339,7 +351,9 @@ def dispatch(family: str, *args, cache: TuneCache | None = None, **kwargs):
 
     Arguments on the CPU take the family's plain PyTorch version and pay
     no tuning; on a CUDA device the plan comes from `tune` and the kernel
-    runs.  A launch that raises poisons the plan and the error propagates.
+    runs.  A launch that raises, or the chaos hook (`install_dispatch_hook`)
+    raising before it, poisons the plan and the error propagates: there is
+    no fallback to the plain version on a card.
     """
     spec = registry.get(family)
     device = _device_of(args)
@@ -348,6 +362,8 @@ def dispatch(family: str, *args, cache: TuneCache | None = None, **kwargs):
     problem, dtype = spec.problem_fn(*args, **kwargs)
     plan = tune(spec, problem, dtype, device=device, cache=cache)
     try:
+        if _dispatch_fault_hook is not None:
+            _dispatch_fault_hook(family)
         return spec.run_fn(plan, *args, **kwargs)
     except Exception:
         mark_plan_poisoned(plan.key, cache=cache)

@@ -62,10 +62,11 @@ def make_guarded_serve_step(cfg: ModelConfig, compute_dtype=torch.bfloat16,
     Returns ``(next_token, ok, cache)``; ``ok`` (B,) bool is True iff the
     slot's final-position logits are all finite.  ``poison`` ((B,) bool)
     overwrites a slot's logits with NaN after the forward, to exercise the
-    guard without corrupting model state.  ``paged`` as in
-    `make_serve_step`."""
+    guard without corrupting model state.  ``return_logits`` appends the
+    final-position logits (B, V).  ``paged`` as in `make_serve_step`."""
 
-    def serve_step(params, cache, tokens, active=None, poison=None):
+    def serve_step(params, cache, tokens, active=None, poison=None,
+                   return_logits=False):
         logits, new_cache = transformer.forward(
             cfg, params, {"tokens": tokens}, cache=cache,
             compute_dtype=compute_dtype, active=active, paged=paged)
@@ -74,6 +75,8 @@ def make_guarded_serve_step(cfg: ModelConfig, compute_dtype=torch.bfloat16,
             last = torch.where(poison[:, None], float("nan"), last)
         ok = torch.isfinite(last).all(dim=-1)
         nxt = last.argmax(dim=-1).to(torch.int32)
+        if return_logits:
+            return nxt[:, None], ok, new_cache, last
         return nxt[:, None], ok, new_cache
 
     return serve_step

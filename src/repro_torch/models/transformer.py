@@ -154,6 +154,29 @@ def cache_reset_slot(cache: Params, slot: int, paged=None) -> Params:
     return cache
 
 
+def cache_poison_slot(cache: Params, slot: int, paged=None) -> Params:
+    """Overwrite one slot's float cache leaves with NaN, **in place**
+    (the chaos harness's ``kv_corrupt`` fault); returns ``cache``.
+
+    Only float leaves are poisoned: the f32 or bf16 K/V rows, or in the
+    int8 layout the f32 scales (the codes stay).  ``lengths``, ``index``
+    and the page table are untouched: the fault corrupts data, not
+    control state.  Paged: the slot's rows are the pool pages its row of
+    ``cache["pages"]`` names; entries of -1 name no page, and the trash
+    page past the pool (`layers.pool_zeros`), where other slots' masked
+    writes land, is never poisoned."""
+    leaves = [a for a in cache["blocks"].values() if a.is_floating_point()]
+    if paged is not None:
+        row = cache["pages"][slot]
+        idx = row[row >= 0].long()
+        for a in leaves:
+            a[:, idx] = float("nan")
+    else:
+        for a in leaves:
+            a[:, slot] = float("nan")
+    return cache
+
+
 def _layer_apply(p: Params, x, cfg: ModelConfig, positions, cache, lengths,
                  active, pages, paged, prefill, span):
     h = layers.rmsnorm(p["ln1"], x, cfg.norm_eps)

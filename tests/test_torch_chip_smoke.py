@@ -193,3 +193,93 @@ def test_matmul_row_tolerance():
     assert not bool(((two_ulp - want).abs() <= tol).all())
     assert ref.row_tolerance(want, torch.float32)[0, 0] == \
         pytest.approx(3e-3)
+
+
+@pytest.fixture
+def counting(monkeypatch):
+    """On the CPU no kernel launches: count the four decode entries'
+    calls in their place, each in its own wrapper's count."""
+    from repro_torch.kernels.attention import decode_int8
+    for mod, name, attr in (
+            (decode, "gqa_decode_attention", "launches"),
+            (decode, "paged_gqa_decode_attention", "paged_launches"),
+            (decode_int8, "quantized_gqa_decode_attention", "launches"),
+            (decode_int8, "paged_quantized_gqa_decode_attention",
+             "paged_launches")):
+        real = getattr(mod, name)
+
+        def wrapped(*a, _real=real, _mod=mod, _attr=attr, **kw):
+            setattr(_mod, _attr, getattr(_mod, _attr) + 1)
+            return _real(*a, **kw)
+        monkeypatch.setattr(mod, name, wrapped)
+
+
+def _smoke_mods():
+    from repro_torch.kernels.attention import decode_int8
+    from repro_torch.kernels.attention import kernel as flash
+    from repro_torch.runtime import quantize
+    return (decode, decode_int8, quantize, flash)
+
+
+SMOKE_CLI = ["--smoke", "--device", "cpu"]
+
+
+@pytest.mark.parametrize("phase", range(2))
+def test_chaos_phase_on_a_smoke_model(counting, tmp_path, monkeypatch,
+                                      phase):
+    """`chaos_phase` with the card run's flags on the SMOKE model: every
+    smoke class fires, one re-plan, the quarantined slots are the ones
+    ``fired`` names, the layout's kernel counted once per layer a decode
+    forward and no other."""
+    import repro_torch.configs as configs
+    from repro_torch.launch import serve
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE", str(tmp_path / "t"))
+    sys.path.insert(0, str(REPO / "tools"))
+    import check_serve
+    name, argv, kernel, _ = chip_smoke.CHAOS_PHASES[phase]
+    argv = [a if a != "600" else "12" for a in argv] + SMOKE_CLI
+    out = chip_smoke.chaos_phase(
+        torch, serve, check_serve, _smoke_mods(), phase=name, argv=argv,
+        kernel=kernel, clean=None,
+        layers=configs.get_smoke("qwen3_14b").num_layers)
+    assert out["fired_kinds"] == sorted(chip_smoke.SMOKE_FAULTS)
+    assert out["quarantined"] == out["named_by_fired"] != []
+    assert out["kernel_replans"] == 1 and out["kernel_launches"] > 0
+
+
+@pytest.mark.parametrize("phase", range(2))
+def test_crash_resume_phase_on_a_smoke_model(counting, tmp_path,
+                                             monkeypatch, phase):
+    import repro_torch.configs as configs
+    from repro_torch.launch import serve
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE", str(tmp_path / "t"))
+    sys.path.insert(0, str(REPO / "tools"))
+    import check_serve
+    name, flags, kernel = chip_smoke.RESUME_PHASES[phase]
+    out = chip_smoke.crash_resume_phase(
+        torch, serve, check_serve, _smoke_mods(), configs, phase=name,
+        flags=flags, kernel=kernel, cli=SMOKE_CLI, state_root=tmp_path,
+        layers=configs.get_smoke("qwen3_14b").num_layers)
+    assert out["rcs"] == {"clean": 0, "crash": 17, "resume": 0}
+    assert 1 <= out["replayed_steps"] <= chip_smoke.SNAPSHOT_EVERY
+    assert out["snapshot_bytes"]["clean"] > 0
+    assert len(set(d for ds in out["params_digests"].values()
+                   for d in ds)) == 1
+    assert not (tmp_path / name).exists()
+
+
+def test_serving_load_phase_on_a_smoke_model(counting, tmp_path,
+                                             monkeypatch):
+    from repro_torch.launch import serve
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE", str(tmp_path / "t"))
+    sys.path.insert(0, str(REPO / "tools"))
+    import check_load
+    import check_serve
+    out = chip_smoke.serving_load_phase(
+        torch, serve, check_serve, check_load, _smoke_mods(), device="cpu",
+        state_root=tmp_path)
+    assert out["check_load_problems"] == [] and out["replay"]["equal"]
+    assert set(out["mixes"]) == {"steady", "bursty", "interactive",
+                                 "quantized", "heavytail"}
+    assert out["kernel_launches"]["quantized_decode_attention"] > 0
+    assert out["kernel_launches"]["paged_decode_attention"] > 0

@@ -1278,3 +1278,81 @@ def test_spmv_kernels_refuse_what_they_cannot_take(cuda):
     for wrapper in (spmv_kernel.ell_spmv, spmv_kernel.ell_spmv_blocked):
         with pytest.raises(ValueError, match="outside x's"):
             wrapper(x[:300], mat.cols, mat.vals)
+
+
+# -- faults through the decode kernels (the chaos harness's kv_corrupt) ------
+
+NAN_KEY = 300                 # inside split 1 of 16 at span 256, not the last
+NAN_LENGTHS = [4096, 4096, 1000]
+
+
+def _row_of(args, kernel, seq, key):
+    """The (cache leaf index, index tuple) of ``seq``'s token ``key``: the
+    contiguous row, or the pool page and row its table names."""
+    if kernel.startswith("paged"):
+        pages = args[-1]
+        page_size = args[1].shape[1]
+        return int(pages[seq, key // page_size]), key % page_size
+    return seq, key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("leaf", ["k", "v"])
+@pytest.mark.parametrize("kernel", DECODE_KERNELS)
+def test_a_nan_row_poisons_exactly_its_kv_group(cuda, kernel, leaf):
+    """A NaN in one key or value row (int8: in that row's f32 scale, the
+    layout's only float leaf) of one (sequence, KV head), at key 300 of
+    4,096: inside split 1 of 16, not the last, so the in-kernel combine
+    (`csrc/decode_body.cuh`, where `fmaxf` drops a NaN from a running
+    max) must carry it.  That KV head's query group is NaN; every other
+    (sequence, query head) row is bitwise the clean call's."""
+    quant = "quantized" in kernel
+    hkv, g, head = 2, 5, 1
+    fn, _, args, lv = _decode_case(kernel, NAN_LENGTHS, 4096, cuda,
+                                   q_dt="bf16", kv_dt="f32", hkv=hkv, g=g)
+    assert decode.num_splits(4096, decode.SPLIT_KEYS) > NAN_KEY // 256 + 1
+    clean = fn(*args, length=lv, block_k=256).float().cpu()
+    # operands: (q, k, v) or (q, k codes, k scales, v codes, v scales)
+    idx = ({"k": 2, "v": 4} if quant else {"k": 1, "v": 2})[leaf]
+    poisoned = list(args)
+    poisoned[idx] = args[idx].clone()
+    outer, row = _row_of(args, kernel, 0, NAN_KEY)
+    poisoned[idx][outer, row, head] = float("nan")
+    out = fn(*poisoned, length=lv, block_k=256).float().cpu()
+    torch.cuda.synchronize()
+    group = torch.zeros(out.shape[:2], dtype=torch.bool)
+    group[0, head * g:(head + 1) * g] = True
+    assert bool(torch.isnan(out[group]).all()), "the group lost the NaN"
+    assert not bool(torch.isnan(out[~group]).any())
+    assert torch.equal(out[~group], clean[~group])
+
+
+@pytest.mark.cuda
+def test_cache_poison_slot_spares_the_trash_page_on_the_card(cuda):
+    """`transformer.cache_poison_slot` on a paged cache on the card: the
+    slot's pages are NaN, every other page and the trash page past the
+    pool keep their bytes, and a decode step of the other slot reads no
+    NaN."""
+    import repro_torch.configs as configs
+    from repro_torch.models import layers, transformer
+    from repro_torch.runtime import paging
+    cfg = configs.get_smoke("qwen3_14b")
+    spec = paging.PageSpec.build(2, 32, 4, 10)
+    for kv in (torch.float32, torch.int8):
+        cache = transformer.cache_init(cfg, 2, 32, dtype=kv, device=cuda,
+                                       paged=spec)
+        for a in cache["blocks"].values():
+            if a.is_floating_point():
+                layers.with_trash_page(a, axis=1).fill_(3.0)
+        cache["pages"][0, :2] = torch.tensor([7, 2], device=cuda)
+        cache["pages"][1, :1] = torch.tensor([5], device=cuda)
+        transformer.cache_poison_slot(cache, 0, paged=spec)
+        torch.cuda.synchronize()
+        for a in cache["blocks"].values():
+            if not a.is_floating_point():
+                continue
+            full = layers.with_trash_page(a, axis=1)
+            assert bool((full[:, spec.num_pages] == 3.0).all())
+            assert bool(torch.isnan(a[:, [7, 2]]).all())
+            rest = [p for p in range(spec.num_pages) if p not in (7, 2)]
+            assert bool((a[:, rest] == 3.0).all())

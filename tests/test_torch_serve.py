@@ -331,8 +331,6 @@ def test_cli_paged_int8_and_sched_pass_check_serve(flags):
 
 
 @pytest.mark.parametrize("flags, item", [
-    (["--chaos"], "A9"),
-    (["--state-dir", "x"], "A9"), (["--load-trace", "x"], "A10"),
     (["--arch", "rwkv6_7b"], "A12"),
 ])
 def test_cli_refuses_unported_options(flags, item, capsys):
@@ -340,6 +338,25 @@ def test_cli_refuses_unported_options(flags, item, capsys):
         tserve.main(["--smoke", "--device", "cpu", *flags])
     assert exc.value.code == 2
     assert f"ROADMAP {item}" in capsys.readouterr().err
+
+
+def _flags(main):
+    out = io.StringIO()
+    with redirect_stdout(out), pytest.raises(SystemExit):
+        main(["--help"])
+    import re
+    return set(re.findall(r"(?<![\w-])--[a-z][a-z0-9-]*", out.getvalue()))
+
+
+def test_cli_accepts_every_flag_of_the_reference():
+    """Every flag of the JAX server's CLI, the chaos, crash-recovery and
+    trace-replay ones included, is the port's too; the port adds only
+    ``--device``."""
+    mine, ref = _flags(tserve.main), _flags(jserve.main)
+    assert {"--chaos", "--fault-seed", "--state-dir", "--snapshot-every",
+            "--snapshot-keep", "--crash", "--crash-step", "--resume",
+            "--load-trace", "--step-time-us"} <= ref
+    assert mine - ref == {"--device"} and ref <= mine
 
 
 def test_cli_batch_0_runs_the_sweep():
