@@ -97,6 +97,31 @@ Phases, each printed as one JSON line:
    predicted step beside the measured one; then its ``steady.jsonl``
    through ``serve --load-trace``, whose percentiles must equal the
    steady mix's.
+   The other model families (ROADMAP A12), each serve phase through the
+   CLI, its log passing ``check_serve.py`` with every request completed,
+   the decode kernel of its attention layers launched once per attention
+   layer a decode forward and nothing else, with its host wall time and
+   per-token p50: ``serve_danube_ring`` (H2O-Danube-1.8B, full width and
+   depth, prompts of 4,200 tokens trimmed to the 4,096-token window, a
+   ring cache of 4,096 rows that every decode step overwrites; decode on
+   the plain path, as the JAX package's) and
+   ``danube_ring_vs_teacher_forcing`` (4,096 tokens prefilled into the
+   ring, 20 more one at a time, f32, against the cache-free windowed
+   forward, 1e-4 of the largest |logit|); ``serve_moe`` and
+   ``serve_moe_paged`` (Phi-3.5-MoE at full width, 16 of 32 layers: B1,
+   B2) and ``moe_paged_vs_contiguous`` (the paged run's streams equal a
+   contiguous server's with its weights at the same, default, span);
+   ``moe_vs_teacher_forcing`` (4 layers, capacity raised so nothing
+   drops, 64 tokens through B1 in f32); ``serve_qwen3_moe`` twice
+   (Qwen3-MoE-235B at full width, 128 experts, top 8, 4 of 94 layers: the
+   two runs' streams bitwise equal); ``serve_rwkv`` (RWKV6-7B, full width
+   and depth, no kernel) and ``rwkv_vs_teacher_forcing``;
+   ``serve_jamba_smoke`` and ``serve_chaos_jamba_smoke`` (Jamba's SMOKE
+   shapes, the only ones one card holds; the chaos run's ``kv_corrupt``
+   must leave the slot's Mamba state NaN and the other slots' finite);
+   ``prefill_hubert`` (HuBERT-XLarge, 2 x 1,000 frames, B5 non-causal at
+   head_dim 80) and ``prefill_internvl2`` (InternVL2-2B, 1,024 patches and
+   512 tokens, B5 causal at 128), each gated as ``prefill_vs_forward``.
 8. ``paged_vs_contiguous``: one set of full-width weights serves the same
    4 requests through a contiguous and a paged f32 cache, both at the
    kernels' default span; the greedy token streams must be equal.
@@ -149,8 +174,9 @@ Phases, each printed as one JSON line:
    kernel, with its TPU counterpart, its design, launches on its
    main-path run (B1, B3: the default CLI, ``serve_autobatch*``; B2, B4:
    their serve runs; B5: the ``prefill`` phase; B6: ``table1``; B7, B8:
-   ``table2``) and B1-B4's launches by phase (the chaos, crash-resume
-   and ``serving_load`` phases among them), error and times.
+   ``table2``) and B1-B5's launches by phase (the chaos, crash-resume,
+   ``serving_load`` and other families' phases among them), error and
+   times.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed phase
 exits non-zero without it; so does a host without a CUDA card.
@@ -781,18 +807,21 @@ def reset_launch_counts(mods) -> None:
     sp.launches = sp.blocked_launches = 0
 
 
-def cli_run(torch, serve, mods, argv) -> dict:
+def cli_run(torch, serve, mods, argv, keep_server=False) -> dict:
     """One run of the serving CLI in this process, its output captured,
     every kernel's launch count set to 0 just before it and read just
     after.  Returns the exit code, the log, the seconds, the counts, the
-    (step, slot) pairs each decode step quarantined and every request's
-    final state and tokens."""
+    (step, slot) pairs each decode step quarantined, every request's
+    final state and tokens and, with ``keep_server``, the server (else
+    None: its weights and cache are freed)."""
     reset_launch_counts(mods)
     buf = io.StringIO()
-    quarantined, requests = [], {}
+    quarantined, requests, servers = [], {}, []
     run_loop, decode_step = serve.serve_loop, serve.Server.decode_step
 
     def loop(server, lc, **kw):
+        if keep_server:
+            servers.append(server)
         try:
             return run_loop(server, lc, **kw)
         finally:
@@ -817,7 +846,8 @@ def cli_run(torch, serve, mods, argv) -> dict:
     gc.collect()                      # the run's weights and cache
     torch.cuda.empty_cache()
     return {"rc": rc, "log": log, "seconds": seconds, "counts": counts,
-            "quarantined": sorted(quarantined), "requests": requests}
+            "quarantined": sorted(quarantined), "requests": requests,
+            "server": servers[0] if servers else None}
 
 
 def serve_phase(torch, serve, check_serve, mods, *, phase, argv, kernel,
@@ -993,7 +1023,7 @@ def chaos_phase(torch, serve, check_serve, mods, *, phase, argv, kernel,
                 if clean.get(rid, (None, None))[1] == toks)
     out = {"argv": argv, "rc": run["rc"], "seconds": round(run["seconds"], 3),
            "kernel": kernel, "kernel_launches": launches,
-           "other_kernel_launches": counts,
+           "other_kernel_launches": counts, "batch": summary.get("batch"),
            "decode_forwards": summary.get("decode_forwards"),
            "check_serve_problems": problems, "fired_kinds": kinds,
            "fired": fired, "quarantined": run["quarantined"],
@@ -1501,7 +1531,7 @@ def prefill_phase(torch, shapes, steps, transformer, mods, cfg, params,
 
 
 def prefill_vs_forward(torch, steps, transformer, mods, cfg, params, seq_len,
-                       seed=4):
+                       seed=4, inputs=None):
     """The prefill path (flash kernel) against the full forward
     (`attention_core`) on one prompt, at full width and depth, in f32 and
     in bf16 compute.
@@ -1517,12 +1547,16 @@ def prefill_vs_forward(torch, steps, transformer, mods, cfg, params, seq_len,
     forward's unless the latter's top-2 gap is below the bound.  The
     bf16-to-bf16 difference is reported beside the bound, and held to it
     on the first ``SHALLOW`` layers of the same weights.  Runs where
-    ``params`` lie."""
+    ``params`` lie, on one seeded prompt of ``seq_len`` tokens or on
+    ``inputs`` (a frontend's features, tokens too or not, a batch of
+    sequences): every sequence's last logits and greedy token are
+    compared, the bounds taken of the largest |logit| over the batch."""
     dev = params["embed"]["table"].device
-    tokens = torch.randint(0, cfg.vocab_size, (1, seq_len), device=dev,
-                           generator=torch.Generator(device=dev)
-                           .manual_seed(seed))
-    batch = {"tokens": tokens}
+    batch = inputs
+    if batch is None:
+        batch = {"tokens": torch.randint(
+            0, cfg.vocab_size, (1, seq_len), device=dev,
+            generator=torch.Generator(device=dev).manual_seed(seed))}
     bf16, f32 = torch.bfloat16, torch.float32
     reset_launch_counts(mods)
     prefill, full = {}, {}
@@ -1530,7 +1564,7 @@ def prefill_vs_forward(torch, steps, transformer, mods, cfg, params, seq_len,
         lp, _ = transformer.forward(cfg, params, batch, last_only=True,
                                     compute_dtype=dt)
         prefill[dt] = lp[:, -1].float()
-    tok_p = int(steps.make_prefill_step(cfg)(params, batch)[0])
+    tok_p = steps.make_prefill_step(cfg)(params, batch).reshape(-1).tolist()
     flash_launches = launch_counts(mods)["flash_attention"]
     for dt in (bf16, f32):
         lf, _ = transformer.forward(cfg, params, batch, compute_dtype=dt)
@@ -1549,9 +1583,12 @@ def prefill_vs_forward(torch, steps, transformer, mods, cfg, params, seq_len,
 
     f32_tol = 1e-4 * float(full[f32].abs().max())
     bound = BF16_LOGIT_REL * float(full[bf16].abs().max())
-    top2 = full[bf16].topk(2, dim=-1).values[0]
-    gap = float(top2[0] - top2[1])
-    tok_f = int(full[bf16].argmax(-1))
+    top2 = full[bf16].topk(2, dim=-1).values
+    gaps = (top2[:, 0] - top2[:, 1]).tolist()
+    tok_f = full[bf16].argmax(-1).tolist()
+    # a sequence's tokens may differ only where the forward's top-2 gap is
+    # below the bound
+    near = [p != f and g < bound for p, f, g in zip(tok_p, tok_f, gaps)]
     res = {"arch": cfg.name, "seq_len": seq_len,
            "window": cfg.sliding_window,
            "f32_max_abs_err": dist(prefill[f32], full[f32]),
@@ -1563,20 +1600,21 @@ def prefill_vs_forward(torch, steps, transformer, mods, cfg, params, seq_len,
            "shallow_layers": s_cfg.num_layers,
            "shallow_bf16_max_abs_err": dist(s_prefill, s_full),
            "shallow_bf16_bound": s_bound,
+           "sequences": len(tok_p),
            "token_prefill": tok_p, "token_forward": tok_f,
-           "argmax_equal": tok_p == tok_f, "forward_top2_gap": gap,
+           "argmax_equal": tok_p == tok_f, "forward_top2_gap": gaps,
            "flash_launches_prefill": flash_launches,
            "flash_launches_forward": core_launches,
            "finite": all(bool(torch.isfinite(t).all())
                          for t in (*prefill.values(), *full.values()))}
     if tok_p != tok_f:
         res["note"] = ("argmax differs at a top-2 gap below the bound"
-                       if gap < bound else "argmax differs")
+                       if any(near) else "argmax differs")
     res["ok"] = (res["finite"] and res["f32_max_abs_err"] <= f32_tol
                  and res["bf16_prefill_vs_f32"]
                  <= res["bf16_forward_vs_f32"] + bound
                  and res["shallow_bf16_max_abs_err"] <= s_bound
-                 and (tok_p == tok_f or gap < bound)
+                 and all(p == f or n for p, f, n in zip(tok_p, tok_f, near))
                  and flash_launches == 3 * cfg.num_layers
                  and core_launches == 0)
     return res
@@ -1592,6 +1630,478 @@ def first_layers(cfg, params, n: int):
                 if isinstance(tree, dict) else tree[:n])
     return (dataclasses.replace(cfg, num_layers=n),
             {**params, "blocks": cut(params["blocks"])})
+
+
+# --------------------------------------------------------------------------
+# The other model families (ROADMAP A12): the ring buffer, MoE, RWKV6,
+# the Jamba hybrid, the frame and patch frontends
+# --------------------------------------------------------------------------
+
+def _serve_argv(arch, prompt, gen, *extra):
+    return ["--arch", arch, "--batch", "4", "--requests", "6",
+            "--prompt-len", str(prompt), "--gen", str(gen), *extra]
+
+
+# Danube's prompts pass its 4,096-token window: the server trims them to
+# it, and every decode step overwrites the ring's oldest row.
+DANUBE_ARGV = _serve_argv("h2o_danube_1_8b", 4200, 16, "--kv-dtype", "f32")
+DANUBE_TF = (4100, 16)               # prompt tokens, forced tokens
+# Phi-3.5-MoE at full width, 16 of its 32 layers (about 42 GB in bf16).
+MOE_ARGV = _serve_argv("phi3_5_moe_42b", 600, 16, "--kv-dtype", "f32")
+MOE_PAGED_ARGV = MOE_ARGV + ["--paged", "--page-size", "16"]
+MOE_LAYERS = 16
+MOE_TF_LAYERS, MOE_TF_TOKENS = 4, 64
+# Qwen3-MoE-235B at full width (128 experts, top 8), 4 of its 94 layers.
+QWEN3_MOE_ARGV = _serve_argv("qwen3_moe_235b", 128, 8)
+QWEN3_MOE_LAYERS = 4
+RWKV_ARGV = _serve_argv("rwkv6_7b", 128, 16)
+RWKV_TF_TOKENS = 64
+# Jamba at its SMOKE shapes: one period group of the full width holds 88
+# GB of expert weights in bf16, more than one card.
+JAMBA_ARGV = ["--arch", "jamba_1_5_large_398b", "--smoke", "--requests",
+              "6"]
+# The serve runs whose decode shapes `family_kernel_cases` holds B1 (B2
+# where paged) to its plain version at.
+FAMILY_DECODE = [MOE_ARGV, MOE_PAGED_ARGV, QWEN3_MOE_ARGV, JAMBA_ARGV]
+# (phase, arch, frames, or (patches, tokens), batch)
+FRONTEND_PHASES = [("prefill_hubert", "hubert_xlarge", (1000, None), 2),
+                   ("prefill_internvl2", "internvl2_2b", (1024, 512), 1)]
+TF_REL = 1e-4                        # f32 decode vs forward, of max |logit|
+
+
+def _flag(argv, flag, default):
+    """``flag``'s value in ``argv``, else the CLI's ``default``."""
+    return argv[argv.index(flag) + 1] if flag in argv else default
+
+
+def family_decode_shape(configs, argv):
+    """``(Hq, Hkv, dh, lengths, rows)`` of the decode kernel in the serve
+    run of ``argv``: the arch's heads, four slots spread over the decode
+    lengths from prompt + 1 to prompt + gen, the run's cache rows."""
+    arch = _flag(argv, "--arch", None)
+    cfg = (configs.get_smoke if "--smoke" in argv else configs.get)(arch)
+    prompt = int(_flag(argv, "--prompt-len", 16))
+    gen = int(_flag(argv, "--gen", 12))
+    lengths = [prompt + 1, prompt + gen // 2, prompt + 3 * gen // 4,
+               prompt + gen]
+    return (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, lengths,
+            prompt + gen + 8)
+
+
+def family_kernel_cases(torch, configs, mods, flush):
+    """B1 at the decode shape of each family serve run that launches it
+    (Phi-3.5-MoE: g 4; Qwen3-MoE: g 16; Jamba SMOKE: g 2, dh 16) and B2
+    at Phi-3.5-MoE's paged one (pages of 16): bf16 q over an f32 and a
+    bf16 cache, each held to its plain version at `row_errors`'
+    tolerance, B2 also bitwise to B1 over the same rows."""
+    decode = mods[0]
+    cases = []
+    for argv in FAMILY_DECODE:
+        hq, hkv, dh, lengths, rows = family_decode_shape(configs, argv)
+        name = (_flag(argv, "--arch", None)
+                + ("_smoke" if "--smoke" in argv else "") + "_serve")
+        for kv_dtype in (torch.float32, torch.bfloat16):
+            if "--paged" in argv:
+                cases.append(new_kernel_case(
+                    torch, mods, flush, kernel="paged_decode_attention",
+                    name=name + "_paged", lengths=lengths,
+                    q_dtype=torch.bfloat16, kv_dtype=kv_dtype, rows=rows,
+                    page_size=int(_flag(argv, "--page-size", 16)), hq=hq,
+                    hkv=hkv, dh=dh))
+            else:
+                cases.append({"kernel": "decode_attention", **kernel_case(
+                    torch, decode, flush, name=name, lengths=lengths,
+                    q_dtype=torch.bfloat16, kv_dtype=kv_dtype,
+                    cache_len=rows, hq=hq, hkv=hkv, dh=dh)})
+    return cases
+
+
+def cut_serve_run(torch, serve, mods, cfg, argv) -> dict:
+    """A serving run of ``cfg`` (an arch cut in depth by
+    `dataclasses.replace`) through `serve.Server` and `serve.serve_loop`,
+    set up as the CLI sets up ``argv``: its seeded requests, batch, cache
+    dtype, paging and device, the scheduler a paged pool runs under and a
+    decode watchdog; every kernel's launch count set to 0 just before the
+    loop and read just after.  Returns `cli_run`'s record with the server;
+    the log is the serving-plan and summary lines the CLI would print."""
+    import numpy as np
+    from repro_torch.kernels import autotune
+    from repro_torch.runtime import lifecycle, paging
+    batch = int(_flag(argv, "--batch", 4))
+    prompt = int(_flag(argv, "--prompt-len", 16))
+    gen = int(_flag(argv, "--gen", 12))
+    kv_dtype = serve.KV_DTYPES[_flag(argv, "--kv-dtype", "f32")]
+    max_len = prompt + gen + 8
+    spec = (paging.PageSpec.build(batch, max_len,
+                                  int(_flag(argv, "--page-size", 16)))
+            if "--paged" in argv else None)
+    server = serve.Server(cfg, batch, max_len, kv_dtype=kv_dtype,
+                          device=_flag(argv, "--device", "cuda"), paged=spec,
+                          prefill_len=prompt)
+    scheduler = (serve.Scheduler("fcfs", allocator=server.allocator)
+                 if spec is not None else None)
+    watchdog = serve.DecodeWatchdog(autotune.predict_decode_step_us(
+        cfg, batch, cache_len=max_len, kv_dtype=kv_dtype,
+        plans=server.kernel_plan, chip=serve._chip(server.device)))
+    rng = np.random.default_rng(0)
+    lc = lifecycle.Lifecycle()
+    for rid in range(int(_flag(argv, "--requests", 6))):
+        lc.submit(rid, rng.integers(0, cfg.vocab_size, size=prompt), gen)
+    reset_launch_counts(mods)
+    t0 = time.time()
+    stats = serve.serve_loop(server, lc, watchdog=watchdog,
+                             scheduler=scheduler)
+    seconds = time.time() - t0
+    counts = launch_counts(mods)
+    summary = serve._summary(server, lc, stats, seconds, batch=batch,
+                             batch_source="flag", watchdog=watchdog,
+                             scheduler=scheduler)
+    log = "".join(json.dumps(row) + "\n" for row in (
+        {"serving_plan": {"batch": batch, "source": "flag"}}, summary))
+    print(log, end="", flush=True)
+    return {"rc": 0, "log": log, "seconds": seconds, "counts": counts,
+            "requests": {rid: (r.state.value, list(r.tokens))
+                         for rid, r in lc.requests.items()},
+            "server": server}
+
+
+def family_serve(torch, serve, configs, check_serve, mods, *, phase, argv,
+                 kernel, depth=None, card=None) -> dict:
+    """One serving run of another family, its launch counts set to 0 just
+    before it and read just after: the CLI at the config's own depth, or
+    with ``depth`` the config cut to its first ``depth`` layers
+    (`cut_serve_run`).  Its log must pass ``check_serve.py`` with every
+    request completed; ``kernel`` (the decode kernel its attention layers
+    run, or None where decode stays on the plain path: the ring buffer,
+    RWKV) must have launched once per attention layer per decode forward
+    and no other kernel at all.  Returns the streams, the summary and the
+    server's weights (for the checks that reuse them)."""
+    arch = _flag(argv, "--arch", None)
+    own = (configs.get_smoke if "--smoke" in argv else configs.get)(arch)
+    if torch.cuda.is_available():
+        torch.cuda.reset_peak_memory_stats()
+    if depth is None:
+        run = cli_run(torch, serve, mods, argv, keep_server=True)
+    else:
+        run = cut_serve_run(torch, serve, mods,
+                            dataclasses.replace(own, num_layers=depth), argv)
+    server = run.pop("server")
+    cfg = server.cfg
+    attn = sum(1 for l in range(cfg.num_layers)
+               if cfg.family != "ssm" and cfg.is_attn_layer(l))
+    log, counts = run["log"], dict(run["counts"])
+    summary = check_serve._json_lines(log)[-1]
+    requests = int(_flag(argv, "--requests", 6))
+    problems = check_serve.check(log, requests=requests)
+    launches = counts.pop(kernel) if kernel else 0
+    streams = {rid: toks for rid, (_, toks) in run["requests"].items()}
+    out = {"argv": argv, "arch": cfg.name, "family": cfg.family,
+           "layers": cfg.num_layers, "attention_layers": attn,
+           "depth_cut": None if depth is None else [own.num_layers, depth],
+           "driven_by": "cli" if depth is None else "Server, serve_loop",
+           "rc": run["rc"], "host_wall_s": round(run["seconds"], 3),
+           "card": card, "batch": summary.get("batch"),
+           "cache_rows": (int(server.cache["blocks"]["k"].shape[2])
+                          if "k" in server.cache["blocks"] else None),
+           "decode_forwards": summary.get("decode_forwards"),
+           "kernel": kernel, "kernel_launches": launches,
+           "other_kernel_launches": counts,
+           "tok_per_s": summary.get("tok_per_s"),
+           "per_token_ms": summary.get("per_token_ms"),
+           "ttft_ms": summary.get("ttft_ms"),
+           "outcomes": summary.get("outcomes"),
+           "check_serve_problems": problems,
+           "peak_memory_gb": round(torch.cuda.max_memory_allocated() / 1e9,
+                                   3) if torch.cuda.is_available() else None}
+    emit(phase, **out)
+    check(run["rc"] == 0 and not problems, f"{phase} run failed: {problems}")
+    check(summary["outcomes"]["completed"] == requests,
+          f"{phase}: not every request completed: {summary['outcomes']}")
+    check(summary["decode_forwards"] > 0
+          and launches == summary["decode_forwards"] * (attn if kernel
+                                                        else 0),
+          f"{phase}: {launches} {kernel} launches for "
+          f"{summary['decode_forwards']} decode forwards x {attn} "
+          f"attention layers")
+    check(not any(counts.values()),
+          f"{phase}: other kernels launched: {counts}")
+    params = server.params
+    server.cache = None
+    del server, run
+    return {**out, "streams": streams, "params": params, "cfg": cfg,
+            "summary": summary}
+
+
+def decode_vs_forward(torch, transformer, cfg, params, *, tokens, prefill=0,
+                      seed=6, device="cuda") -> dict:
+    """One sequence of ``tokens`` tokens through an f32 cache in f32
+    compute: the first ``prefill`` in one cached forward (none: every
+    token alone), then one token a step, each step's logits against the
+    cache-free forward's at that position (f32, TF32 off): within
+    ``TF_REL`` of the largest |logit|.  For a sliding-window model the
+    cache is the ring of ``window`` rows, so the steps past the window
+    overwrite its oldest rows; the attention of a causal model without a
+    window runs the decode kernel."""
+    dev = torch.device(device)
+    toks = torch.randint(0, cfg.vocab_size, (1, tokens), device=dev,
+                         generator=torch.Generator(device=dev)
+                         .manual_seed(seed))
+    f32 = torch.float32
+    full, _ = transformer.forward(cfg, params, {"tokens": toks},
+                                  compute_dtype=f32)
+    cache = transformer.cache_init(cfg, 1, tokens, dtype=f32, device=dev)
+    steps = []
+    if prefill:
+        lg, cache = transformer.forward(cfg, params,
+                                        {"tokens": toks[:, :prefill]},
+                                        cache=cache, compute_dtype=f32)
+        steps.append(lg[:, -1])
+    for t in range(prefill, tokens):
+        lg, cache = transformer.forward(cfg, params,
+                                        {"tokens": toks[:, t:t + 1]},
+                                        cache=cache, compute_dtype=f32)
+        steps.append(lg[:, 0])
+    dec = torch.stack(steps, 1)
+    ref = full[:, max(prefill - 1, 0):]
+    err = float((dec - ref).abs().max())
+    tol = TF_REL * float(ref.abs().max())
+    rows = (int(cache["blocks"]["k"].shape[2])
+            if "k" in cache["blocks"] else None)
+    finite = bool(torch.isfinite(dec).all())
+    return {"arch": cfg.name, "layers": cfg.num_layers, "tokens": tokens,
+            "prefill": prefill, "steps": tokens - prefill,
+            "window": cfg.sliding_window, "cache_rows": rows,
+            "max_abs_err": err, "tolerance": tol, "finite": finite,
+            "ok": finite and err <= tol}
+
+
+def moe_paged_vs_contiguous(torch, serve, lifecycle, cfg, params, argv,
+                            paged_streams) -> dict:
+    """The paged CLI run's streams against a contiguous server with its
+    weights at the kernels' default span, as the paged run decodes: the
+    same requests (the CLI's seeded prompts), batch and admission, so the
+    streams must be equal."""
+    import numpy as np
+    prompt = int(argv[argv.index("--prompt-len") + 1])
+    gen = int(argv[argv.index("--gen") + 1])
+    n = int(argv[argv.index("--requests") + 1])
+    server = serve.Server(cfg, 4, prompt + gen + 8, params=params,
+                          autotune_kernels=False,
+                          device=params["embed"]["table"].device)
+    rng = np.random.default_rng(0)
+    lc = lifecycle.Lifecycle()
+    for rid in range(n):
+        lc.submit(rid, rng.integers(0, cfg.vocab_size, size=prompt), gen)
+    serve.serve_loop(server, lc)
+    streams = {rid: list(r.tokens) for rid, r in lc.requests.items()}
+    server.cache = None
+    equal = streams == paged_streams
+    return {"requests": n, "tokens": sum(len(t) for t in streams.values()),
+            "equal": equal, "ok": equal}
+
+
+def jamba_chaos(torch, serve, configs, check_serve, mods, *, phase, argv,
+                layers, clean=None) -> dict:
+    """`chaos_phase` on the Jamba SMOKE model; then, on a fresh server of
+    that run's batch, `Server.corrupt_kv` (the ``kv_corrupt`` hook) on
+    each slot a ``kv_corrupt`` of the run hit must leave that slot's Mamba
+    conv tails and states NaN and every other slot's finite."""
+    out = chaos_phase(torch, serve, check_serve, mods, phase=phase,
+                      argv=argv, kernel="decode_attention", layers=layers,
+                      clean=clean)
+    cfg = configs.get_smoke(_flag(argv, "--arch", None))
+    server = serve.Server(cfg, out["batch"], 8, autotune_kernels=False,
+                          device=_flag(argv, "--device", "cuda"))
+    mamba = [a for grp in server.cache["blocks"].values() if "h" in grp
+             for a in grp.values()]
+    seen = []
+    for slot in sorted({e["slot"] for e in out["fired"]
+                        if e["kind"] == "kv_corrupt"}):
+        server.corrupt_kv(slot)
+        others = [s for s in range(server.batch) if s != slot]
+        seen.append({"slot": slot, "mamba_leaves": len(mamba),
+                     "poisoned": all(bool(torch.isnan(a[:, slot]).all())
+                                     for a in mamba),
+                     "others_finite": all(bool(torch.isfinite(
+                         a[:, others]).all()) for a in mamba)})
+        server.release_slot(slot)
+    emit(phase + "_mamba", kv_corrupt=seen)
+    check(bool(seen) and all(s["poisoned"] and s["others_finite"]
+                             and s["mamba_leaves"] > 0 for s in seen),
+          f"{phase}: kv_corrupt did not poison exactly the slot's Mamba "
+          f"state: {seen}")
+    return {**out, "kv_corrupt": seen}
+
+
+def frontend_inputs(torch, cfg, frames_or_patches, tokens, batch, device,
+                    seed=7) -> dict:
+    """Seeded features of the frontend's width (frames for HuBERT;
+    patches ahead of text tokens for InternVL2), in bf16."""
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    key = "frames" if cfg.frontend == "frame" else "patches"
+    inputs = {key: torch.randn((batch, frames_or_patches, cfg.frontend_dim),
+                               generator=gen, device=dev).bfloat16()}
+    if tokens:
+        inputs["tokens"] = torch.randint(0, cfg.vocab_size, (batch, tokens),
+                                         generator=gen, device=dev)
+    return inputs
+
+
+def frontend_prefill(torch, steps, transformer, mods, cfg, params, inputs,
+                     *, card=None) -> dict:
+    """`make_prefill_step` on frontend features at full width: host ms of
+    ``PREFILL_TIMED`` steps after a warm-up, with the launch counts set to
+    0 just before them (the flash kernel once per layer a forward, causal
+    or not as the model is, and nothing else), then `prefill_vs_forward`'s
+    gates on the same inputs."""
+    step = steps.make_prefill_step(cfg)
+    step(params, inputs)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    reset_launch_counts(mods)
+    host_ms = []
+    for _ in range(PREFILL_TIMED):
+        t0 = time.perf_counter()
+        nxt = step(params, inputs)
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+    counts = launch_counts(mods)
+    launches = counts.pop("flash_attention")
+    n = sum(v.shape[1] for v in inputs.values())
+    b = next(iter(inputs.values())).shape[0]
+    median = sorted(host_ms)[len(host_ms) // 2]
+    pvf = prefill_vs_forward(torch, steps, transformer, mods, cfg, params,
+                             n, inputs=inputs)
+    res = {"arch": cfg.name, "layers": cfg.num_layers, "batch": b,
+           "inputs": {k: list(v.shape) for k, v in inputs.items()},
+           "causal": cfg.causal, "head_dim": cfg.head_dim, "card": card,
+           "flash_design": mods[3].design(torch.bfloat16, cfg.head_dim),
+           "host_ms": host_ms, "host_median_ms": median,
+           "prompt_tok_per_s": b * n / (median / 1e3),
+           "flash_launches": launches, "other_kernel_launches": counts,
+           "next_token": nxt.tolist(), "vs_forward": pvf}
+    res["ok"] = (pvf["ok"] and launches == PREFILL_TIMED * cfg.num_layers
+                 and not any(counts.values()))
+    return res
+
+
+def family_phases(torch, serve, configs, check_serve, steps, transformer,
+                  lifecycle, mods, card) -> dict:
+    """The phases of the other families; returns each kernel's launches
+    by phase."""
+    launches = {}
+    res = family_serve(torch, serve, configs, check_serve, mods,
+                       phase="serve_danube_ring", argv=DANUBE_ARGV,
+                       kernel=None, card=card)
+    window = res["cfg"].sliding_window
+    check(res["cache_rows"] == window,
+          f"serve_danube_ring: a cache of {res['cache_rows']} rows, not the "
+          f"window's {window}")
+    prompt, forced = DANUBE_TF
+    tf = decode_vs_forward(torch, transformer, res["cfg"], res["params"],
+                           tokens=prompt + forced, prefill=window)
+    emit("danube_ring_vs_teacher_forcing", card=card, **tf)
+    check(tf["ok"] and tf["cache_rows"] == window,
+          f"ring decode != teacher forcing: {tf}")
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    moe = family_serve(torch, serve, configs, check_serve, mods,
+                       phase="serve_moe", argv=MOE_ARGV,
+                       kernel="decode_attention", depth=MOE_LAYERS, card=card)
+    launches["serve_moe"] = moe["kernel_launches"]
+    del moe
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe = family_serve(torch, serve, configs, check_serve, mods,
+                       phase="serve_moe_paged", argv=MOE_PAGED_ARGV,
+                       kernel="paged_decode_attention", depth=MOE_LAYERS,
+                       card=card)
+    launches["serve_moe_paged"] = moe["kernel_launches"]
+    pvc = moe_paged_vs_contiguous(torch, serve, lifecycle, moe["cfg"],
+                                  moe["params"], MOE_PAGED_ARGV,
+                                  moe["streams"])
+    emit("moe_paged_vs_contiguous", card=card, **pvc)
+    check(pvc["ok"], f"MoE paged and contiguous streams differ: {pvc}")
+    del moe
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = dataclasses.replace(configs.get("phi3_5_moe_42b"),
+                              num_layers=MOE_TF_LAYERS,
+                              capacity_factor=64.0)
+    params = transformer.init(cfg, torch.Generator(device="cuda")
+                              .manual_seed(0), dtype=torch.bfloat16)
+    tf = decode_vs_forward(torch, transformer, cfg, params,
+                           tokens=MOE_TF_TOKENS)
+    emit("moe_vs_teacher_forcing", card=card,
+         capacity_factor=cfg.capacity_factor, **tf)
+    check(tf["ok"], f"MoE decode != teacher forcing: {tf}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    runs = []
+    for i in range(2):
+        run = family_serve(torch, serve, configs, check_serve, mods,
+                           phase="serve_qwen3_moe", argv=QWEN3_MOE_ARGV,
+                           kernel="decode_attention",
+                           depth=QWEN3_MOE_LAYERS, card=card)
+        runs.append(run["streams"])
+        launches.setdefault("serve_qwen3_moe", run["kernel_launches"])
+        del run
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit("serve_qwen3_moe_repeat", card=card, streams_equal=runs[0] == runs[1],
+         tokens=sum(len(t) for t in runs[0].values()))
+    check(runs[0] == runs[1], "Qwen3-MoE: two runs gave different streams")
+
+    res = family_serve(torch, serve, configs, check_serve, mods,
+                       phase="serve_rwkv", argv=RWKV_ARGV, kernel=None,
+                       card=card)
+    tf = decode_vs_forward(torch, transformer, res["cfg"], res["params"],
+                           tokens=RWKV_TF_TOKENS)
+    emit("rwkv_vs_teacher_forcing", card=card, **tf)
+    check(tf["ok"], f"RWKV decode != teacher forcing: {tf}")
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    res = family_serve(torch, serve, configs, check_serve, mods,
+                       phase="serve_jamba_smoke", argv=JAMBA_ARGV,
+                       kernel="decode_attention", card=card)
+    launches["serve_jamba_smoke"] = res["kernel_launches"]
+    attn = res["attention_layers"]
+    clean = {rid: ("completed", toks) for rid, toks in res["streams"].items()}
+    del res
+    out = jamba_chaos(torch, serve, configs, check_serve, mods,
+                      phase="serve_chaos_jamba_smoke",
+                      argv=JAMBA_ARGV + CHAOS_FLAGS, layers=attn, clean=clean)
+    launches["serve_chaos_jamba_smoke"] = out["kernel_launches"]
+
+    flash = {}
+    for phase, arch, (feats, toks), batch in FRONTEND_PHASES:
+        cfg = configs.get(arch)
+        params = transformer.init(cfg, torch.Generator(device="cuda")
+                                  .manual_seed(0), dtype=torch.bfloat16)
+        inputs = frontend_inputs(torch, cfg, feats, toks, batch, "cuda")
+        res = frontend_prefill(torch, steps, transformer, mods, cfg, params,
+                               inputs, card=card)
+        emit(phase, **res)
+        check(res["ok"], f"{phase} failed: {res}")
+        flash[phase] = res["flash_launches"]
+        del params, inputs
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"decode_attention": {k: launches[k] for k in (
+                "serve_moe", "serve_qwen3_moe", "serve_jamba_smoke",
+                "serve_chaos_jamba_smoke")},
+            "paged_decode_attention": {"serve_moe_paged":
+                                       launches["serve_moe_paged"]},
+            "flash_attention": flash}
 
 
 # --------------------------------------------------------------------------
@@ -2164,6 +2674,8 @@ def main() -> int:
     for c in cases:
         c["kernel"] = "decode_attention"
     cases += new_kernel_cases(torch, mods, flush)
+    # the decode shapes of the other families' serve phases
+    cases += family_kernel_cases(torch, configs, mods, flush)
     emit("kernel_cases", cases=cases)
     check(all(c["ok"] for c in cases),
           "a kernel disagrees with its plain version: "
@@ -2257,6 +2769,10 @@ def main() -> int:
     load_launches = serving_load_phase(torch, serve, check_serve, check_load,
                                        mods)["kernel_launches"]
 
+    # The other families: the ring buffer, MoE, RWKV6, Jamba, frontends.
+    family_launches = family_phases(torch, serve, configs, check_serve,
+                                    steps, transformer, lifecycle, mods, smi)
+
     pvc = paged_vs_contiguous(torch, configs, serve, paging, lifecycle)
     emit("paged_vs_contiguous", **pvc)
     check(pvc["ok"], f"paged and contiguous token streams differ: {pvc}")
@@ -2290,7 +2806,8 @@ def main() -> int:
         if entry["library_ms"] is None:
             entry["library"] = serve_case.get("library", NO_LIBRARY)
         if name == "flash_attention":
-            entry["launches_by_phase"] = prefill_launches
+            entry["launches_by_phase"] = {**prefill_launches,
+                                          **family_launches[name]}
         if name in KERNELS_OF_SERVE.values():
             entry["launches_by_phase"] = {
                 phase: n for phase, n in serve_launches.items()
@@ -2298,6 +2815,7 @@ def main() -> int:
             if load_launches[name]:
                 entry["launches_by_phase"]["serving_load"] = \
                     load_launches[name]
+            entry["launches_by_phase"].update(family_launches.get(name, {}))
         if name in main_spans:
             # ms above is the default span's; the default CLI ran this one
             span = main_spans[name]

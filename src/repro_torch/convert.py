@@ -1,4 +1,6 @@
-"""Carry parameter and cache trees across from the JAX package.
+"""Carry parameter and cache trees across from the JAX package, every
+family's: stacked expert leaves (L, E, D, F), a hybrid's group dicts,
+the RWKV and Mamba leaves, a frontend's ``proj``.
 
 The JAX side hands over its trees as numpy (``jax.tree.map(np.asarray,
 tree)``, done by the caller); these functions map such a nested dict to
@@ -34,19 +36,31 @@ def params_from_numpy(tree: dict, device="cpu") -> dict:
     return _tree(tree, lambda a: _to_torch(a, device))
 
 
+POOL_LEAVES = ("k", "v", "k_scale", "v_scale")
+
+
 def cache_from_numpy(tree: dict, device="cpu") -> dict:
-    """A JAX KV-cache tree (``blocks``/``index``/``lengths``, and
-    ``pages`` when paged) -> the same tree of tensors, every leaf in its
-    own dtype: int8 codes stay int8, scales f32, the page table int32, the
-    0-d ``index`` a 0-d int32 tensor.  The page pools of a paged cache are
+    """A JAX cache tree (``blocks``/``index``/``lengths``, and ``pages``
+    when paged) -> the same tree of tensors, every leaf in its own dtype:
+    int8 codes stay int8, scales and recurrent states f32, the page table
+    int32, the 0-d ``index`` a 0-d int32 tensor; a hybrid's group dicts
+    and the RWKV and Mamba leaves come across as they are.  The attention
+    page pools of a paged cache (the leaves named in ``POOL_LEAVES``) are
     re-allocated with the port's trash page (`layers.pool_zeros`), values
     unchanged, so the port's layers can write through them."""
     cache = params_from_numpy(tree, device)
+
+    def repool(blocks: dict) -> None:
+        for name, a in blocks.items():
+            if isinstance(a, dict):
+                repool(a)
+            elif name in POOL_LEAVES:
+                pool = pool_zeros(a.shape, a.dtype, a.device, axis=1)
+                pool.copy_(a)
+                blocks[name] = pool
+
     if "pages" in cache:
-        for name, a in cache["blocks"].items():
-            pool = pool_zeros(a.shape, a.dtype, a.device, axis=1)
-            pool.copy_(a)
-            cache["blocks"][name] = pool
+        repool(cache["blocks"])
     return cache
 
 

@@ -17,7 +17,13 @@ prompt plus each in-flight slot's next token, under a (B, S) ``active``
 mask), a single arrival by a masked one-slot prefill.  Each decode step
 then runs every occupied slot at its own cache depth; the single-token
 attention goes through the CUDA decode kernel of the cache's layout on a
-card.  Finished slots are zeroed and refilled.  The summary line conserves
+card.  Finished slots are zeroed and refilled.  Every family the JAX
+server serves is served: dense, MoE, RWKV6, the Jamba hybrid and the
+token stream of a patch-frontend model.  A sliding-window model's prompt
+is trimmed to the window (its cache is a ring of ``window`` rows) and
+decodes on the plain path, as the JAX server's does; only dense and MoE
+models prefill in chunks or take ``--paged``; an encoder-only model has
+no decode path, and the CLI says so and exits 0.  The summary line conserves
 every submitted request: ``submitted == completed + timed_out + failed +
 rejected``.
 
@@ -109,12 +115,13 @@ BF16_LOGIT_REL = 3e-2
 
 def _cast_weights(params: dict, dtype, device) -> dict:
     """Every leaf the forward only consumes through ``.to(compute dtype)``
-    (matrices, biases, embedding tables) cast to ``dtype`` once; the norm
-    scales (leaves named ``scale``) keep their dtype.  The numbers are
-    those of casting at every use."""
+    (matrices, biases, embedding tables, shift mixes, conv taps) cast to
+    ``dtype`` once; the leaves the models name in
+    `transformer.OWN_DTYPE_LEAVES` keep their dtype.
+    The numbers are those of casting at every use."""
     def walk(tree):
         return {k: (walk(v) if isinstance(v, dict)
-                    else v.to(device) if k == "scale"
+                    else v.to(device) if k in transformer.OWN_DTYPE_LEAVES
                     else v.to(device=device, dtype=dtype))
                 for k, v in tree.items()}
     return walk(params)
@@ -247,6 +254,11 @@ class Server:
     def _prefill(self, slot, req_id, prompt, gen_len, *, hook=True,
                  logits=False):
         prompt = np.asarray(prompt, np.int32)
+        if self.cfg.sliding_window:
+            # The ring keeps at most `window` rows, and a fresh slot
+            # attends only the prompt's last `window` tokens: more in one
+            # forward would alias ring rows.
+            prompt = prompt[-self.cfg.sliding_window:]
         self._fresh_slot(slot, req_id, prompt.size)
         if self.allocator is not None:
             self._sync_pages()
@@ -265,11 +277,13 @@ class Server:
         return bool(ok[slot]), (out[2][slot] if logits else None)
 
     def can_chunk(self) -> bool:
-        """Chunked prefill needs the (B, S) active-mask path of a causal
-        attention stack; the chaos injector's ordinal-keyed prefill faults
-        stay on the one-slot path."""
-        return (self.cfg.causal and not self.cfg.sliding_window
-                and self.injector is None)
+        """Chunked prefill needs the (B, S) active-mask path, which only
+        the attention families have (a per-slot valid-prefix scatter; a
+        recurrent state would run over a packed row's padding); the ring
+        buffer and the chaos injector's ordinal-keyed prefill faults stay
+        on the one-slot path."""
+        return (self.cfg.family in ("dense", "moe") and self.cfg.causal
+                and not self.cfg.sliding_window and self.injector is None)
 
     def admit_chunk(self, admits):
         """Chunked prefill: every admitted prompt, left-aligned under a
@@ -1207,6 +1221,9 @@ def main(argv=None) -> int:
                     help="resume a crashed run from --state-dir instead of "
                          "starting fresh")
     args = ap.parse_args(argv)
+    # The products the models compute in f32 (the MoE router, the RWKV
+    # decay, the Mamba step) run in full f32 on a card, never in TF32.
+    torch.backends.cuda.matmul.allow_tf32 = False
 
     if args.resume:
         if not args.state_dir:
@@ -1215,9 +1232,9 @@ def main(argv=None) -> int:
     if args.batch < 0:
         ap.error("--batch must be >= 0")
     cfg = configs.get_smoke(args.arch) if args.smoke else configs.get(args.arch)
-    if cfg.family != "dense" or cfg.frontend or cfg.sliding_window:
-        ap.error(f"{cfg.name} needs a model family or layer that is not "
-                 f"ported to repro_torch yet (ROADMAP A12)")
+    if cfg.family == "encoder":
+        print("encoder-only arch has no decode path; nothing to serve")
+        return 0
 
     device = resolve_device(args.device)
     kv_dtype = KV_DTYPES[args.kv_dtype]
@@ -1260,6 +1277,11 @@ def main(argv=None) -> int:
     print(json.dumps({"serving_plan": decision}))
     paged = None
     if args.paged:
+        if cfg.family not in ("dense", "moe") or not cfg.causal \
+                or cfg.sliding_window:
+            ap.error("--paged needs a dense/moe causal arch without "
+                     "sliding-window attention (the SWA ring buffer is "
+                     "contiguous-only)")
         paged = paging.PageSpec.build(batch, max_len, args.page_size,
                                       pool_pages=args.pool_pages)
         print(json.dumps({"paging": {"page_size": paged.page_size,

@@ -13,9 +13,12 @@ from repro_torch.models.config import ModelConfig
 
 def make_prefill_step(cfg: ModelConfig, compute_dtype=torch.bfloat16):
     """Forward-only prefill over a prompt without a cache: ``batch``
-    ({"tokens": (B, S)}, a "labels" entry ignored) in, the greedy next
-    token (B,) int32 out.  Only the final position is unembedded, and
-    attention runs the flash kernel (`kernels.attention.ops`)."""
+    ({"tokens": (B, S)}, and for a model with a frontend its
+    ``"frames"`` or ``"patches"`` (B, P, frontend_dim) instead of or ahead
+    of the tokens; a "labels" entry ignored) in, the greedy next token
+    (B,) int32 out.  Only the final position is unembedded, and attention
+    runs the flash kernel (`kernels.attention.ops`), causal or not as the
+    model is."""
 
     def prefill_step(params, batch):
         inputs = {k: v for k, v in batch.items() if k != "labels"}

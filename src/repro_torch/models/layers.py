@@ -1,5 +1,5 @@
-"""Shared layers on plain tensors: norms, RoPE, GQA attention, SwiGLU,
-embeddings.  Counterpart of `repro.models.layers` (dense family).
+"""Shared layers on plain tensors: norms, RoPE, GQA attention, SwiGLU
+and GELU MLPs, embeddings.  Counterpart of `repro.models.layers`.
 
 Parameters are plain dicts of tensors with the JAX package's keys; a
 layer stack holds stacked leaves with a leading layer axis, and the model
@@ -10,10 +10,8 @@ The KV cache of a layer is contiguous, ``{"k", "v": (B, L, Hkv, dh)}``,
 or paged, ``{"k", "v": (num_pages, page_size, Hkv, dh)}`` pools shared by
 every slot through a page table; either may be int8, with codes in "k"
 and "v" and one f32 scale per (token, KV head) in "k_scale" and "v_scale".
-
-Not ported yet, and raising `NotImplementedError` rather than being
-replaced by something else: the sliding-window ring-buffer cache (ROADMAP
-A12).  The window mask of the cache-free forward is ported.
+A sliding-window model's contiguous cache is a ring buffer of at most
+``window`` rows per slot: position t lives in row ``t % L``.
 """
 
 from __future__ import annotations
@@ -31,14 +29,14 @@ DEFAULT_INIT_SCALE = 0.02
 NEG_INF = -1e30
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported to repro_torch yet "
-                               f"(ROADMAP {item})")
-
-
 # ---------------------------------------------------------------------------
 # Norms
 # ---------------------------------------------------------------------------
+
+# Leaves of this module the forward reads in their own dtype, never through
+# ``.to(compute dtype)``: the norm scales (read in f32).
+OWN_DTYPE_LEAVES = frozenset({"scale"})
+
 
 def rmsnorm_init(d: int, dtype=torch.float32, device=None) -> Params:
     return {"scale": torch.ones((d,), dtype=dtype, device=device)}
@@ -105,10 +103,10 @@ def attention_init(generator: torch.Generator, cfg, dtype=torch.float32
     return p
 
 
-def _dense_init(generator, shape, dtype):
+def _dense_init(generator, shape, dtype, scale=DEFAULT_INIT_SCALE):
     w = torch.randn(shape, generator=generator, dtype=torch.float32,
                     device=generator.device)
-    return (w * DEFAULT_INIT_SCALE).to(dtype)
+    return (w * scale).to(dtype)
 
 
 def _mask_block(q_pos, k_pos, causal: bool, window: int | None = None,
@@ -235,7 +233,11 @@ def attention_apply(params: Params, x: torch.Tensor, cfg,
     cache, each slot writes its new K/V rows at ``lengths[b] + j`` for the
     columns ``active`` allows (``(B,)`` or ``(B, S)``) — **in place**,
     where the JAX code builds a new array — then attends over its own
-    valid prefix.  An int8 cache (``"k_scale"`` in it) stores
+    valid prefix.  A sliding-window model's cache is a ring buffer: row
+    ``t % L`` of the slot, each row's absolute position recovered from the
+    slot's newest one, attended under the window mask on the plain path
+    (the JAX code keeps the ring off its fused kernels).  An int8 cache
+    (``"k_scale"`` in it) stores
     `quantize.quantize_rows` of the new rows.  With ``paged`` (a
     `runtime.paging.PageSpec`) the cache leaves are page pools and the
     (B, max_pages) ``pages`` table maps each slot's logical page to its
@@ -248,8 +250,6 @@ def attention_apply(params: Params, x: torch.Tensor, cfg,
     `attention_core`.  Returns ``(y, cache)`` where ``cache`` holds the same
     (updated) tensors.
     """
-    if cfg.sliding_window and cache is not None:
-        raise _not_ported("the sliding-window ring-buffer cache", "A12")
     b, s, _ = x.shape
     q = x @ params["wq"].to(x.dtype)
     k = x @ params["wk"].to(x.dtype)
@@ -315,11 +315,13 @@ def attention_apply(params: Params, x: torch.Tensor, cfg,
         if s > cache["k"].shape[1]:
             raise ValueError(f"{s} new tokens do not fit a cache of "
                              f"{cache['k'].shape[1]} rows")
-        ok = act2d & (t_abs < cache["k"].shape[1])
+        ok = act2d
+        if not cfg.sliding_window:
+            ok = ok & (t_abs < cache["k"].shape[1])
         for name, c in cache.items():
             _write_cache(c, new[name], t_abs, ok)
 
-    if s == 1 and cfg.causal:
+    if s == 1 and cfg.causal and not cfg.sliding_window:
         kernel = {(False, False): decode.gqa_decode_attention,
                   (True, False): decode.paged_gqa_decode_attention,
                   (False, True): decode_int8.quantized_gqa_decode_attention,
@@ -338,10 +340,19 @@ def attention_apply(params: Params, x: torch.Tensor, cfg,
         if quantized:
             kr = quantize.dequantize_rows(kr, rows["k_scale"])
             vr = quantize.dequantize_rows(vr, rows["v_scale"])
-        k_pos = torch.arange(kr.shape[1], dtype=torch.int32, device=x.device)
+        slots = torch.arange(kr.shape[1], dtype=torch.int32, device=x.device)
+        if cfg.sliding_window:        # contiguous only: the cache's init
+            # Ring slot j of a slot holds absolute position
+            # end - ((end % L - j) % L), end its newest written position.
+            ring = kr.shape[1]
+            end = (new_len - 1)[:, None]
+            k_pos = end - ((end % ring - slots[None, :]) % ring)
+            k_valid = (k_pos >= 0) & (k_pos < new_len[:, None])
+        else:
+            k_pos, k_valid = slots, slots[None, :] < new_len[:, None]
         out = attention_core(q, kr, vr, pos_b, k_pos, causal=cfg.causal,
-                             scale=scale,
-                             k_valid=k_pos[None, :] < new_len[:, None])
+                             scale=scale, window=cfg.sliding_window,
+                             k_valid=k_valid, chunk_q=chunk_q)
     out = out.reshape(b, s, cfg.q_dim).to(x.dtype)
     return out @ params["wo"].to(x.dtype), cache
 
@@ -351,15 +362,21 @@ def attention_cache_init(cfg, batch: int, cache_len: int,
                          paged=None) -> Params:
     """One layer's zeroed KV cache: contiguous ``(batch, cache_len, Hkv,
     dh)`` leaves, or with ``paged`` page pools ``(num_pages, page_size,
-    Hkv, dh)`` made by `pool_zeros` (each with its trash page).  An int8
-    ``dtype`` gives codes ``"k"``, ``"v"`` and f32 scales ``"k_scale"``,
-    ``"v_scale"`` of one scale per (token row, KV head)."""
-    if cfg.sliding_window:
-        raise _not_ported("the sliding-window ring-buffer cache", "A12")
+    Hkv, dh)`` made by `pool_zeros` (each with its trash page).  A
+    sliding-window model's contiguous cache is a ring of at most
+    ``window`` rows; it has no paged layout.  An int8 ``dtype`` gives
+    codes ``"k"``, ``"v"`` and f32 scales ``"k_scale"``, ``"v_scale"`` of
+    one scale per (token row, KV head)."""
     if paged is not None:
+        if cfg.sliding_window:
+            raise ValueError(
+                "paged KV cache does not support sliding-window attention "
+                "(the ring-buffer layout is contiguous-only)")
         shape = (paged.num_pages, paged.page_size, cfg.num_kv_heads,
                  cfg.head_dim)
     else:
+        if cfg.sliding_window:
+            cache_len = min(cache_len, cfg.sliding_window)
         shape = (batch, cache_len, cfg.num_kv_heads, cfg.head_dim)
 
     def make(shp, dt):
@@ -376,7 +393,7 @@ def attention_cache_init(cfg, batch: int, cache_len: int,
 
 
 # ---------------------------------------------------------------------------
-# MLP
+# MLPs
 # ---------------------------------------------------------------------------
 
 def swiglu_init(generator: torch.Generator, d_model: int, d_ff: int,
@@ -391,6 +408,20 @@ def swiglu_init(generator: torch.Generator, d_model: int, d_ff: int,
 def swiglu_apply(params: Params, x: torch.Tensor) -> torch.Tensor:
     h = F.silu(x @ params["w_gate"].to(x.dtype)) * (
         x @ params["w_up"].to(x.dtype))
+    return h @ params["w_down"].to(x.dtype)
+
+
+def gelu_mlp_init(generator: torch.Generator, d_model: int, d_ff: int,
+                  dtype=torch.float32) -> Params:
+    return {
+        "w_up": _dense_init(generator, (d_model, d_ff), dtype),
+        "w_down": _dense_init(generator, (d_ff, d_model), dtype),
+    }
+
+
+def gelu_mlp_apply(params: Params, x: torch.Tensor) -> torch.Tensor:
+    """The encoder's MLP; tanh GELU, `jax.nn.gelu`'s default."""
+    h = F.gelu(x @ params["w_up"].to(x.dtype), approximate="tanh")
     return h @ params["w_down"].to(x.dtype)
 
 

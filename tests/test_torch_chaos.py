@@ -91,11 +91,12 @@ def _blocking(server):
 
 
 def _servers(batch, *, paged=False, int8=False, plans=(None, None),
-             page_size=4):
+             page_size=4, cfgs=None):
     """A JAX and a port server with the same weights and cache layout
     (pages of ``page_size`` tokens when paged), each with its own
-    injector."""
-    jcfg, tcfg = _cfgs()
+    injector; ``cfgs`` (a JAX and a port config) defaults to the tiny
+    dense model."""
+    jcfg, tcfg = cfgs or _cfgs()
     jspec = tspec = None
     if paged:
         jspec = jpaging.PageSpec.build(batch, MAX_LEN, page_size)
@@ -350,6 +351,35 @@ def test_smoke_schedule_outcomes_equal_the_jax_serve_loop(seed, paged):
     assert tlc.counters()["evicted"] >= 2 and tlc.conserved()
     if paged:
         assert ts.allocator.allocated_pages == 0
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("arch", ["rwkv6_7b", "jamba_1_5_large_398b"])
+def test_smoke_schedule_outcomes_on_recurrent_families(arch, seed):
+    """The smoke schedule on RWKV6's and Jamba's SMOKE configs: a
+    ``kv_corrupt`` poisons the slot's recurrent state (RWKV shifts and
+    WKV state; Mamba conv tails and states beside the attention rows), the
+    guard quarantines exactly that slot, and the outcome trace, the
+    ``fired`` record, the counters and the tokens equal the JAX loop's."""
+    import repro.configs as jconfigs
+    import repro_torch.configs as tconfigs
+    jcfg, tcfg = jconfigs.get_smoke(arch), tconfigs.get_smoke(arch)
+    reqs = _requests(jcfg.vocab_size, CHAOS_SPEC)
+    js, ts = _servers(2, cfgs=(jcfg, tcfg),
+                      plans=(jfaults.FaultPlan.smoke(seed),
+                             faults.FaultPlan.smoke(seed)))
+    jlc, jstats = _loop(js, jserve, JLifecycle, reqs)
+    tlc, tstats = _loop(ts, tserve, TLifecycle, reqs)
+    assert tlc.outcome_trace() == jlc.outcome_trace()
+    assert ts.injector.record() == js.injector.record()
+    assert tlc.counters() == jlc.counters()
+    assert jstats["kernel_fallbacks"] == tstats["kernel_replans"] == 1
+    for key in ("generated", "steps", "max_concurrent"):
+        assert tstats[key] == jstats[key], key
+    assert _tokens(tlc) == _tokens(jlc)
+    fired = {e["kind"] for e in ts.injector.record()["fired"]
+             if not e.get("skipped")}
+    assert fired == set(faults.SMOKE_FAULT_CLASSES) and tlc.conserved()
 
 
 def test_dispatch_fault_replans_with_the_fault_free_tokens(tmp_path):

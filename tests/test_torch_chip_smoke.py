@@ -129,6 +129,36 @@ def test_prefill_vs_forward_catches_the_tiled_gqa_fold(monkeypatch):
     assert res["f32_max_abs_err"] > 100 * res["f32_tolerance"]
 
 
+def test_prefill_vs_forward_checks_every_sequence(monkeypatch):
+    """On HuBERT's frames at batch 2, a flash entry that gives the second
+    sequence the first one's output (a batch-indexing fault) fails the
+    phase's check."""
+    import repro_torch.configs as configs
+    from repro_torch.kernels.attention import decode_int8
+    from repro_torch.kernels.attention import kernel as flash
+    from repro_torch.kernels.attention import ops
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer
+    from repro_torch.runtime import quantize
+    cfg = configs.get_smoke("hubert_xlarge")
+    params = transformer.init(cfg, torch.Generator().manual_seed(0),
+                              dtype=torch.bfloat16)
+    real = ops.mha_attention
+
+    def first_twice(*a, **kw):
+        out = real(*a, **kw)
+        return torch.cat([out[:1], out[:1]])
+
+    monkeypatch.setattr(ops, "mha_attention", first_twice)
+    inputs = chip_smoke.frontend_inputs(torch, cfg, 40, None, 2, "cpu")
+    res = chip_smoke.prefill_vs_forward(
+        torch, steps, transformer, (decode, decode_int8, quantize, flash),
+        cfg, params, 40, inputs=inputs)
+    assert res["sequences"] == 2
+    assert not res["ok"]
+    assert res["f32_max_abs_err"] > 100 * res["f32_tolerance"]
+
+
 def test_large_spmv_matrix_statistics_at_a_small_size():
     """The 1M-row generator behind ``spmv_1m_*`` (`table2_spmv.build`), as
     `chip_smoke.spmv_matrix` packs it, at 3,000 rows: LD_pilot87's per-row
@@ -283,3 +313,158 @@ def test_serving_load_phase_on_a_smoke_model(counting, tmp_path,
                                  "quantized", "heavytail"}
     assert out["kernel_launches"]["quantized_decode_attention"] > 0
     assert out["kernel_launches"]["paged_decode_attention"] > 0
+
+
+# -- the other model families' phases, rehearsed on SMOKE models --------------
+
+def _family_argv(arch, *flags):
+    return ["--arch", arch, "--smoke", "--device", "cpu", "--batch", "2",
+            "--requests", "4", "--prompt-len", "6", "--gen", "4", *flags]
+
+
+FAMILY_SMOKE = [
+    ("h2o_danube_1_8b", ["--prompt-len", "12"], None, None),
+    ("phi3_5_moe_42b", [], "decode_attention", 1),
+    ("phi3_5_moe_42b", ["--paged", "--page-size", "4"],
+     "paged_decode_attention", 1),
+    ("qwen3_moe_235b", [], "decode_attention", None),
+    ("rwkv6_7b", [], None, None),
+    ("jamba_1_5_large_398b", [], "decode_attention", None),
+]
+
+
+@pytest.mark.parametrize("arch, flags, kernel, depth", FAMILY_SMOKE,
+                         ids=[f"{a}-{len(f)}" for a, f, _, _ in FAMILY_SMOKE])
+def test_family_serve_on_a_smoke_model(counting, tmp_path, monkeypatch, arch,
+                                       flags, kernel, depth):
+    """`family_serve` on each family's SMOKE model: the log passes
+    ``check_serve.py``, the decode kernel of its attention layers counted
+    once per attention layer a decode forward (none for the ring buffer
+    and RWKV), the depth cut applied, Danube's ring at its window."""
+    import repro_torch.configs as configs
+    from repro_torch.launch import serve
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE", str(tmp_path / "t"))
+    sys.path.insert(0, str(REPO / "tools"))
+    import check_serve
+    out = chip_smoke.family_serve(
+        torch, serve, configs, check_serve, _smoke_mods(),
+        phase="rehearsal", argv=_family_argv(arch, *flags), kernel=kernel,
+        depth=depth)
+    cfg = configs.get_smoke(arch)
+    assert out["layers"] == (depth or cfg.num_layers)
+    assert configs.get_smoke(arch).num_layers == cfg.num_layers
+    assert (out["kernel_launches"] > 0) == (kernel is not None)
+    if cfg.sliding_window:
+        assert out["cache_rows"] == cfg.sliding_window
+    assert set(out["streams"]) == set(range(4))
+
+
+def test_family_decode_shapes_are_the_serve_phases():
+    """The shapes `family_kernel_cases` holds B1 and B2 at are those of the
+    family serve runs: Phi-3.5-MoE at the Qwen3-14B serve lengths and rows
+    with g 4 (paged: pages of 16), Qwen3-MoE with g 16, Jamba SMOKE at the
+    CLI's default prompt and generation."""
+    import repro_torch.configs as configs
+    shapes = [chip_smoke.family_decode_shape(configs, argv)
+              for argv in chip_smoke.FAMILY_DECODE]
+    phi = (32, 8, 128, chip_smoke.SERVE_LENGTHS, chip_smoke.SERVE_LEN)
+    assert shapes == [phi, phi, (64, 4, 128, [129, 132, 134, 136], 144),
+                      (4, 2, 16, [17, 22, 25, 28], 36)]
+    assert "--paged" in chip_smoke.FAMILY_DECODE[1]
+    assert chip_smoke.FAMILY_DECODE[1][-2:] == ["--page-size", "16"]
+
+
+@pytest.mark.parametrize("arch, tokens, prefill", [
+    ("h2o_danube_1_8b", 20, 8), ("rwkv6_7b", 12, 0),
+    ("phi3_5_moe_42b", 12, 0), ("jamba_1_5_large_398b", 12, 4)])
+def test_decode_vs_forward_on_smoke_models(arch, tokens, prefill):
+    """The teacher-forcing phases' check at SMOKE size on the CPU: Danube's
+    ring of 8 rows prefilled full and then overwritten 12 times."""
+    import dataclasses
+
+    import repro_torch.configs as configs
+    from repro_torch.models import transformer
+    cfg = dataclasses.replace(configs.get_smoke(arch), capacity_factor=64.0)
+    params = transformer.init(cfg, torch.Generator().manual_seed(0),
+                              dtype=torch.bfloat16)
+    res = chip_smoke.decode_vs_forward(torch, transformer, cfg, params,
+                                       tokens=tokens, prefill=prefill,
+                                       device="cpu")
+    assert res["ok"], res
+    assert res["steps"] == tokens - prefill
+    if cfg.sliding_window:
+        assert res["cache_rows"] == cfg.sliding_window < tokens
+
+
+def test_moe_paged_vs_contiguous_on_a_smoke_model(counting, tmp_path,
+                                                  monkeypatch):
+    import repro_torch.configs as configs
+    from repro_torch.launch import serve
+    from repro_torch.runtime import lifecycle
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE", str(tmp_path / "t"))
+    sys.path.insert(0, str(REPO / "tools"))
+    import check_serve
+    argv = _family_argv("phi3_5_moe_42b", "--batch", "4", "--paged",
+                        "--page-size", "4")
+    run = chip_smoke.family_serve(
+        torch, serve, configs, check_serve, _smoke_mods(), phase="r",
+        argv=argv, kernel="paged_decode_attention")
+    res = chip_smoke.moe_paged_vs_contiguous(
+        torch, serve, lifecycle, run["cfg"], run["params"], argv,
+        run["streams"])
+    assert res["ok"]
+    assert res["tokens"] == sum(len(t) for t in run["streams"].values())
+
+
+def test_jamba_chaos_on_a_smoke_model(counting, tmp_path, monkeypatch):
+    """The Jamba chaos phase: every smoke class fires, the quarantined
+    slots are those ``fired`` names, and the ``kv_corrupt`` hook leaves
+    each slot it hit with its Mamba leaves NaN and the other slots'
+    finite."""
+    import repro_torch.configs as configs
+    from repro_torch.launch import serve
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE", str(tmp_path / "t"))
+    sys.path.insert(0, str(REPO / "tools"))
+    import check_serve
+    argv = chip_smoke.JAMBA_ARGV + chip_smoke.CHAOS_FLAGS + ["--device",
+                                                             "cpu"]
+    out = chip_smoke.jamba_chaos(torch, serve, configs, check_serve,
+                                 _smoke_mods(), phase="r", argv=argv,
+                                 layers=1)
+    assert out["fired_kinds"] == sorted(chip_smoke.SMOKE_FAULTS)
+    assert out["quarantined"] == out["named_by_fired"] != []
+    assert out["kv_corrupt"] and all(s["mamba_leaves"] == 14
+                                     for s in out["kv_corrupt"])
+
+
+@pytest.mark.parametrize("arch, feats, toks, batch", [
+    ("hubert_xlarge", 40, None, 2), ("internvl2_2b", 8, 16, 1)])
+def test_frontend_prefill_on_smoke_models(monkeypatch, arch, feats, toks,
+                                          batch):
+    """`frontend_prefill` on HuBERT's frames (non-causal) and InternVL2's
+    patches ahead of tokens: the flash entry once per layer a step and in
+    `prefill_vs_forward`'s three prefill forwards, never in the full
+    forwards, and the gates pass."""
+    import repro_torch.configs as configs
+    from repro_torch.kernels.attention import kernel as flash
+    from repro_torch.kernels.attention import ops
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer
+    cfg = configs.get_smoke(arch)
+    params = transformer.init(cfg, torch.Generator().manual_seed(0),
+                              dtype=torch.bfloat16)
+    real = ops.mha_attention
+    causal = []
+
+    def counting_flash(*a, **kw):
+        flash.launches += 1
+        causal.append(kw["causal"])
+        return real(*a, **kw)
+    monkeypatch.setattr(ops, "mha_attention", counting_flash)
+    inputs = chip_smoke.frontend_inputs(torch, cfg, feats, toks, batch, "cpu")
+    res = chip_smoke.frontend_prefill(torch, steps, transformer,
+                                      _smoke_mods(), cfg, params, inputs)
+    assert res["ok"], res
+    assert res["flash_launches"] == chip_smoke.PREFILL_TIMED * cfg.num_layers
+    assert res["vs_forward"]["flash_launches_forward"] == 0
+    assert set(causal) == {cfg.causal}

@@ -1356,3 +1356,98 @@ def test_cache_poison_slot_spares_the_trash_page_on_the_card(cuda):
             assert bool(torch.isnan(a[:, [7, 2]]).all())
             rest = [p for p in range(spec.num_pages) if p not in (7, 2)]
             assert bool((a[:, rest] == 3.0).all())
+
+
+# -- the other model families on the card -------------------------------------
+
+@pytest.mark.cuda
+def test_moe_layer_is_bitwise_repeatable_at_k8(cuda):
+    """Qwen3-MoE's routing (128 experts, top 8) on bf16 tokens: repeated
+    calls give the same bits (a stable sort picks the experts, the eight
+    contributions are added in a fixed order, no atomics), and the
+    experts chosen equal the CPU's for tokens with no near-tie."""
+    from repro_torch.models import moe
+    from repro_torch.models.config import ModelConfig
+    cfg = ModelConfig(name="moe-k8", family="moe", num_layers=1,
+                      d_model=256, d_ff=128, vocab_size=64, num_heads=4,
+                      num_kv_heads=2, num_experts=128, top_k=8, moe_d_ff=128)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = moe.moe_init(gen, cfg, torch.bfloat16)
+    x = torch.randn((4, 48, cfg.d_model), generator=gen, device=cuda,
+                    dtype=torch.float32).bfloat16()
+    first, aux = moe.apply_sharded(params, x, cfg)
+    for _ in range(4):
+        again, aux2 = moe.apply_sharded(params, x, cfg)
+        assert torch.equal(again.view(torch.int16), first.view(torch.int16))
+        assert torch.equal(aux2, aux)
+    idx, _, _ = moe.route(params, x.reshape(-1, cfg.d_model), cfg)
+    cpu = {k: v.cpu() for k, v in params.items()}
+    idx_cpu, _, _ = moe.route(cpu, x.reshape(-1, cfg.d_model).cpu(), cfg)
+    assert (idx.cpu() == idx_cpu).float().mean() > 0.99
+    assert torch.isfinite(first).all()
+
+
+@pytest.mark.cuda
+def test_ring_buffer_attention_matches_its_cpu_result(cuda):
+    """The sliding-window ring cache on the card: 20 tokens one by one
+    through a ring of 6 rows (wrapped three times), f32, each step's
+    output and the ring's rows against the same steps on the CPU."""
+    from repro_torch.models import layers
+    from repro_torch.models.config import ModelConfig
+    cfg = ModelConfig(name="swa", family="dense", num_layers=1, d_model=64,
+                      d_ff=128, vocab_size=97, num_heads=4, num_kv_heads=2,
+                      sliding_window=6)
+    gen = torch.Generator().manual_seed(0)
+    params = layers.attention_init(gen, cfg)
+    x = torch.randn((2, 20, cfg.d_model), generator=gen)
+    outs = {}
+    for dev in ("cpu", cuda):
+        p = {k: v.to(dev) for k, v in params.items()}
+        cache = layers.attention_cache_init(cfg, 2, 1000, torch.float32, dev)
+        assert cache["k"].shape[1] == 6
+        lengths = torch.zeros(2, dtype=torch.int32, device=dev)
+        ys = []
+        for t in range(20):
+            y, cache = layers.attention_apply(
+                p, x[:, t:t + 1].to(dev), cfg, lengths[:, None], cache=cache,
+                lengths=lengths)
+            lengths = lengths + 1
+            ys.append(y)
+        outs[str(dev)] = (torch.cat(ys, 1).cpu(), cache["k"].cpu())
+    torch.testing.assert_close(outs["cuda"][0], outs["cpu"][0], rtol=0,
+                               atol=1e-5)
+    torch.testing.assert_close(outs["cuda"][1], outs["cpu"][1], rtol=0,
+                               atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["phi3_5_moe_42b", "qwen3_moe_235b",
+                                  "rwkv6_7b", "jamba_1_5_large_398b",
+                                  "h2o_danube_1_8b", "internvl2_2b"])
+def test_one_decode_step_of_each_family_is_finite(cuda, arch):
+    """Each family's SMOKE model on the card: a prefill of both slots
+    (Danube's 8 tokens fill its ring), then one ragged decode step in bf16
+    through the guarded serve step; every logit finite, the attention families'
+    decode through the decode kernel (Danube's ring on the plain path)."""
+    import repro_torch.configs as configs
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer
+    cfg = configs.get_smoke(arch)
+    params = transformer.init(cfg, torch.Generator(device=cuda).manual_seed(0),
+                              dtype=torch.bfloat16)
+    cache = transformer.cache_init(cfg, 2, 24, dtype=torch.float32,
+                                   device=cuda)
+    step = steps.make_guarded_serve_step(cfg)
+    toks = torch.randint(0, cfg.vocab_size, (2, 8), device=cuda)
+    nxt, ok, cache = step(params, cache, toks,
+                          torch.tensor([True, True], device=cuda))
+    assert ok.all()
+    decode.launches = 0
+    nxt, ok, cache, last = step(params, cache, nxt,
+                                torch.tensor([True, False], device=cuda),
+                                return_logits=True)
+    assert ok.all() and torch.isfinite(last).all()
+    attn = sum(cfg.is_attn_layer(i) for i in range(cfg.num_layers))
+    want = 0 if cfg.sliding_window or cfg.family == "ssm" else attn
+    assert decode.launches == want
+    assert cache["lengths"].tolist() == [9, 8]

@@ -1,6 +1,7 @@
 """`repro_torch.models.transformer` against the JAX `transformer.forward`
 on Qwen3-14B's SMOKE config, with the JAX parameters converted leaf by
-leaf.
+leaf, and the init trees of every arch (the other families' forwards:
+`test_torch_families.py`).
 
 Tolerances: in f32 the two sides differ in summation order only, and the
 error grows through two layers and the unembedding to about 1e-6 of
@@ -224,7 +225,17 @@ def test_random_init_layout(model):
     assert not torch.equal(w[0], w[1])        # layers drawn separately
 
 
-def test_unported_family_raises():
-    with pytest.raises(NotImplementedError, match="A12"):
-        ttf.cache_init(tconfigs.get_smoke("qwen3_moe_235b"), 1, 4,
-                       device="cpu")
+@pytest.mark.parametrize("arch", tconfigs.list_archs())
+def test_every_arch_init_tree_has_the_reference_shapes(arch):
+    """`init` of every arch's SMOKE config: the JAX init's keys, shapes
+    and dtypes (the hybrid's group dicts, stacked experts, the f32 router,
+    RWKV and Mamba leaves, a frontend's proj), in bf16 and f32."""
+    jcfg, tcfg = jconfigs.get_smoke(arch), tconfigs.get_smoke(arch)
+    for jdt, tdt in ((jnp.bfloat16, torch.bfloat16),
+                     (jnp.float32, torch.float32)):
+        want = jax.tree.map(lambda a: (a.shape, a.dtype.name),
+                            jtf.init(jcfg, jax.random.PRNGKey(0), dtype=jdt))
+        got = ttf._tree_map(
+            lambda a: (tuple(a.shape), str(a.dtype).removeprefix("torch.")),
+            ttf.init(tcfg, torch.Generator().manual_seed(0), dtype=tdt))
+        assert got == want

@@ -130,10 +130,20 @@ def test_windowed_forward_matches_jax(model, dt):
         assert (full - lt).abs().max() > 10 * tol
 
 
-def test_sliding_window_cache_still_refused():
+def test_swa_ring_buffer_bounded_cache():
+    """The counterpart of the JAX package's test of the same name: a
+    sliding-window cache asked for 1,000 rows holds the window's, and a
+    paged one is refused with the JAX message."""
     cfg = tconfigs.get_smoke("h2o_danube_1_8b")
-    with pytest.raises(NotImplementedError, match="A12"):
-        ttf.cache_init(cfg, 1, 8, device="cpu")
+    cache = ttf.cache_init(cfg, 1, 1000, dtype=torch.float32, device="cpu")
+    k = cache["blocks"]["k"]
+    assert k.shape == (cfg.num_layers, 1, cfg.sliding_window,
+                       cfg.num_kv_heads, cfg.head_dim)
+    from repro_torch.runtime import paging
+    with pytest.raises(ValueError, match="ring-buffer layout is "
+                                         "contiguous-only"):
+        ttf.cache_init(cfg, 1, 16, device="cpu",
+                       paged=paging.PageSpec.build(1, 16, 4))
 
 
 def test_shapes_match_jax():

@@ -240,6 +240,51 @@ def test_snapshot_round_trip_is_bitwise(tmp_path, layout):
     np.testing.assert_array_equal(na, nb)
 
 
+@pytest.mark.parametrize("kv", ["f32", "bf16"])
+@pytest.mark.parametrize("arch", ["rwkv6_7b", "jamba_1_5_large_398b"])
+def test_recurrent_state_snapshot_is_bitwise(tmp_path, arch, kv):
+    """A snapshot of an RWKV6 or Jamba server carries the recurrent leaves
+    bit for bit through the store: the RWKV shifts (and a Mamba conv tail)
+    in the cache's dtype, as uint16 when bf16, the WKV and SSM states in
+    f32, the hybrid's group leaves under their group keys; the next
+    decode step of the restored server is the same."""
+    import repro_torch.configs as tconfigs
+    from repro.models import transformer as jtf
+    import repro.configs as jconfigs
+    tcfg = tconfigs.get_smoke(arch)
+    params = params_from_numpy(jax.tree.map(np.asarray, jtf.init(
+        jconfigs.get_smoke(arch), jax.random.PRNGKey(0))))
+    dt = torch.float32 if kv == "f32" else torch.bfloat16
+
+    def server():
+        return tserve.Server(tcfg, 2, MAX_LEN, device="cpu", params=params,
+                             kv_dtype=dt, autotune_kernels=False)
+    a = server()
+    _fill(a, _requests(tcfg.vocab_size, [(5, 10), (7, 10)]), 3)
+    arrays, dtypes = a.export_state()
+    store = snapshot.SnapshotStore(tmp_path / "snaps", every=2)
+    store.save(step=3, arrays=arrays, meta={}, journal_seq=1, dtypes=dtypes)
+    manifest, loaded = snapshot.latest_snapshot(tmp_path / "snaps")
+    kinds = snapshot.leaf_dtypes(manifest)
+    shift, state = (("cache['blocks']['shift_t']", "cache['blocks']['wkv']")
+                    if arch == "rwkv6_7b" else
+                    ("cache['blocks']['0']['conv']",
+                     "cache['blocks']['0']['h']"))
+    assert kinds[shift] == ("float32" if kv == "f32" else "bfloat16")
+    assert kinds[state] == "float32"
+    assert loaded[shift].dtype == (np.float32 if kv == "f32" else np.uint16)
+    b = server()
+    b.restore_state(loaded, kinds)
+    leaves = list(tserve._tensor_leaves(a.cache, "cache"))
+    assert any(name == shift for name, _ in leaves)
+    for (name, ta), (_, tb) in zip(leaves,
+                                   tserve._tensor_leaves(b.cache, "cache")):
+        assert ta.dtype == tb.dtype, name
+        np.testing.assert_array_equal(_bits(ta), _bits(tb), err_msg=name)
+        assert _bits(ta).any() or name.endswith("['index']"), name
+    np.testing.assert_array_equal(a.decode_step(3)[0], b.decode_step(3)[0])
+
+
 def test_restore_refuses_a_snapshot_of_another_layout():
     a, b = _server("bf16"), _server("f32")
     arrays, dtypes = a.export_state()
@@ -465,6 +510,35 @@ def test_crash_and_resume_token_for_token(tmp_path, flags, crash_step):
     else:
         assert summary["snapshot_step"] is not None
     assert summary["near_ties"] == []
+
+
+@pytest.mark.parametrize("crash_step", ["5", "2"])
+def test_crash_and_resume_token_for_token_on_rwkv6(tmp_path, crash_step):
+    """``serve --crash`` / ``--resume`` on RWKV6's SMOKE config, after a
+    snapshot and before the first: the resumed slots rebuild their shifts
+    and WKV states from the snapshot or by re-prefill, and the journal's
+    streams equal an uninterrupted run's token for token."""
+    argv = BASE + ["--arch", "rwkv6_7b"]
+    crashed, clean = str(tmp_path / "crashed"), str(tmp_path / "clean")
+    rc, crash_log = _run(argv + ["--state-dir", crashed, "--crash",
+                                 "--crash-step", crash_step])
+    assert rc == tserve.CRASH_EXIT
+    rc, resume_log = _run(["--resume", "--state-dir", crashed, "--device",
+                           "cpu"])
+    assert rc == 0
+    assert check_serve.check(resume_log, require_plan=False) == []
+    assert check_serve.check_recovery(
+        resume_log, crash_text=crash_log,
+        journal=pathlib.Path(crashed) / "journal.jsonl",
+        snapshot_every=3) == []
+    rc, _ = _run(argv + ["--state-dir", clean])
+    assert rc == 0
+    got, want = _folded(crashed)[0], _folded(clean)[0]
+    assert got == want and all(len(t) == 9 for t in got.values())
+    summary = [r for r in check_serve._json_lines(resume_log)
+               if "recovery" in r][-1]["recovery"]
+    assert summary["near_ties"] == [] and summary["decode_span"] is None
+    assert (summary["snapshot_step"] is None) == (crash_step == "2")
 
 
 def test_resume_after_a_chaos_crash_finishes_the_schedule(tmp_path):

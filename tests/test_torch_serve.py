@@ -30,6 +30,7 @@ from repro.models import transformer as jtf  # noqa: E402
 from repro.models.config import ModelConfig as JConfig  # noqa: E402
 from repro.runtime import paging as jpaging  # noqa: E402
 from repro.runtime.lifecycle import Lifecycle as JLifecycle  # noqa: E402
+import repro_torch.configs as tconfigs  # noqa: E402
 from repro_torch.convert import disable_tf32, params_from_numpy  # noqa: E402
 from repro_torch.launch import scheduler as tsched  # noqa: E402
 from repro_torch.launch import serve as tserve  # noqa: E402
@@ -284,6 +285,115 @@ def test_serve_loop_layouts_and_policies_match_jax(layout, policy):
                        jnp.int8 if layout.endswith("int8") else jnp.float32)
 
 
+# (arch, layout, [(prompt, gen)]): Danube's prompts of 12 and 10 tokens
+# pass its window of 8, so the ring wraps in prefill and in decode.
+FAMILY_SERVE = [
+    ("h2o_danube_1_8b", "f32", [(12, 5), (5, 6), (10, 4), (3, 7)]),
+    ("phi3_5_moe_42b", "f32", [(5, 6), (9, 4), (3, 6), (7, 5)]),
+    ("phi3_5_moe_42b", "paged", [(5, 6), (9, 4), (3, 6), (7, 5)]),
+    ("qwen3_moe_235b", "f32", [(5, 6), (9, 4), (3, 6), (7, 5)]),
+    ("rwkv6_7b", "f32", [(5, 6), (9, 4), (3, 6), (7, 5)]),
+    ("jamba_1_5_large_398b", "f32", [(5, 6), (9, 4), (3, 6), (7, 5)]),
+]
+
+
+@pytest.mark.parametrize("arch, layout, spec", FAMILY_SERVE,
+                         ids=[f"{a}-{l}" for a, l, _ in FAMILY_SERVE])
+def test_family_serve_loop_matches_jax(arch, layout, spec):
+    """The whole loop at batch 2 on each family's SMOKE config: outcomes,
+    chunked prefills (dense and MoE only), the generated count and every
+    token stream equal the JAX loop's, up to a bf16 near-tie."""
+    import repro.configs as jconfigs
+    import repro_torch.configs as tconfigs
+    jcfg, tcfg = jconfigs.get_smoke(arch), tconfigs.get_smoke(arch)
+    reqs = _requests(jcfg.vocab_size, spec)
+    max_len = max(p + g for p, g in spec) + 4
+    js, ts = _servers(jcfg, tcfg, 2, max_len, layout)
+    if tcfg.sliding_window:
+        assert ts.cache["blocks"]["k"].shape[2] == tcfg.sliding_window
+    jlc, tlc = JLifecycle(clock=lambda: 0.0), TLifecycle(clock=lambda: 0.0)
+    for rid, prompt, gen in reqs:
+        jlc.submit(rid, prompt, gen)
+        tlc.submit(rid, prompt, gen)
+    jstats = jserve.serve_loop(js, jlc, max_steps=400)
+    tstats = tserve.serve_loop(ts, tlc, max_steps=400)
+    assert tlc.outcome_trace() == jlc.outcome_trace()
+    assert ts.can_chunk() == js.can_chunk() == (
+        tcfg.family in ("dense", "moe") and not tcfg.sliding_window)
+    for key in ("generated", "chunked_prefills", "max_concurrent"):
+        assert tstats[key] == jstats[key], key
+    assert tstats["generated"] == sum(g for _, g in spec)
+    if layout == "paged":
+        assert ts.allocator.allocated_pages == 0
+    _near_tie_or_equal(jcfg, js, reqs, lambda r: tlc.requests[r].tokens,
+                       lambda r: jlc.requests[r].tokens, jnp.float32)
+
+
+def _leaf_dtypes(tree):
+    return {name: t.dtype for name, t in tserve._tensor_leaves(tree)}
+
+
+@pytest.mark.parametrize("arch", sorted(tconfigs.list_archs()))
+def test_server_weights_keep_the_init_dtypes(arch):
+    """The server casts to bf16 only the leaves the forward reads through
+    ``.to(compute dtype)``: its own weights have, leaf for leaf, the
+    dtypes of ``transformer.init(..., dtype=bf16)``; from an f32 tree (a
+    converted JAX one) each leaf that init keeps in f32 stays f32, and
+    besides only the leaves init draws in the compute dtype but the
+    forward reads in their own (norm scales, Mamba's step projection and
+    bias)."""
+    from repro_torch.models import transformer as ttf
+    cfg = tconfigs.get_smoke(arch)
+    bf16, f32 = torch.bfloat16, torch.float32
+    want = _leaf_dtypes(ttf.init(cfg, torch.Generator().manual_seed(0),
+                                 dtype=bf16))
+    own = tserve.Server(cfg, 1, 8, device="cpu", autotune_kernels=False)
+    assert _leaf_dtypes(own.params) == want
+    wide = ttf.init(cfg, torch.Generator().manual_seed(0), dtype=f32)
+    got = _leaf_dtypes(tserve.Server(cfg, 1, 8, device="cpu", params=wide,
+                                     autotune_kernels=False).params)
+    assert got.keys() == want.keys()
+    kept = {n for n, d in want.items() if d == f32}
+    assert kept <= {n for n, d in got.items() if d == f32}
+    assert {n for n, d in got.items() if d == f32} - kept <= {
+        n for n in want if n.endswith(("['scale']", "['dt_proj']",
+                                       "['dt_bias']"))}
+    assert any(d == bf16 for d in got.values())
+
+
+@pytest.mark.parametrize("argv", [
+    ["--arch", "h2o_danube_1_8b", "--prompt-len", "12"],
+    ["--arch", "phi3_5_moe_42b"],
+    ["--arch", "phi3_5_moe_42b", "--paged"],
+    ["--arch", "qwen3_moe_235b"],
+    ["--arch", "rwkv6_7b"],
+    ["--arch", "jamba_1_5_large_398b"],
+    ["--arch", "internvl2_2b"],
+], ids=lambda a: "-".join(x.lstrip("-") for x in a[1:]))
+def test_cli_serves_every_family(argv):
+    """The CLI at its defaults (``--batch 0``: the tuner's sweep) on each
+    family's SMOKE config passes ``check_serve.py``; Danube's prompts of
+    12 tokens pass its window of 8."""
+    rc, log = _run_main(["--smoke", "--device", "cpu", *argv])
+    assert rc == 0
+    assert check_serve.check(log, requests=6, min_tokens=72) == []
+    summary = check_serve._json_lines(log)[-1]
+    assert summary["decode_forwards"] > 0
+    plan = check_serve._json_lines(log)[0]["serving_plan"]
+    assert plan["source"] == "autotune"
+
+
+def test_serve_moe_example_runs_on_the_cpu(capsys):
+    """`repro_torch.examples.serve_moe`, the counterpart of
+    `examples/serve_moe.py`, serves its 6 requests on the CPU and its log
+    passes ``check_serve.py``."""
+    from repro_torch.examples import serve_moe
+    assert serve_moe.main(["--device", "cpu"]) == 0
+    log = capsys.readouterr().out
+    assert check_serve.check(log, requests=6, min_tokens=48) == []
+    assert check_serve._json_lines(log)[-1]["arch"] == "phi3.5-moe-smoke"
+
+
 def _run_main(argv):
     out = io.StringIO()
     with redirect_stdout(out):
@@ -330,14 +440,29 @@ def test_cli_paged_int8_and_sched_pass_check_serve(flags):
         assert kv["pages_peak"] > 0
 
 
-@pytest.mark.parametrize("flags, item", [
-    (["--arch", "rwkv6_7b"], "A12"),
-])
-def test_cli_refuses_unported_options(flags, item, capsys):
-    with pytest.raises(SystemExit) as exc:
-        tserve.main(["--smoke", "--device", "cpu", *flags])
-    assert exc.value.code == 2
-    assert f"ROADMAP {item}" in capsys.readouterr().err
+@pytest.mark.parametrize("arch", ["rwkv6_7b", "h2o_danube_1_8b",
+                                  "jamba_1_5_large_398b", "hubert_xlarge"])
+def test_cli_refusals_and_messages_match_the_reference(arch, capsys):
+    """``--paged`` for an arch that is not a dense or MoE causal model
+    without a window exits 2 with the JAX CLI's message; an encoder-only
+    arch prints the JAX CLI's line and exits 0, paged or not."""
+    argv = ["--smoke", "--arch", arch, "--paged", "--requests", "2",
+            "--prompt-len", "4", "--gen", "2"]
+    lines = []
+    for main, extra in ((jserve.main, []), (tserve.main, ["--device",
+                                                          "cpu"])):
+        if arch == "hubert_xlarge":
+            assert main(argv + extra) == 0
+            lines.append(capsys.readouterr().out.splitlines()[-1])
+        else:
+            with pytest.raises(SystemExit) as exc:
+                main(argv + extra)
+            assert exc.value.code == 2
+            lines.append(capsys.readouterr().err.splitlines()[-1])
+    assert lines[0] == lines[1]
+    assert (("encoder-only arch has no decode path; nothing to serve"
+             if arch == "hubert_xlarge" else "error: --paged needs a "
+             "dense/moe causal arch") in lines[1])
 
 
 def _flags(main):

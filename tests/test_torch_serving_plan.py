@@ -82,8 +82,8 @@ def _plans(pkg_registry, op_plan, cfg, batch, cache_len, kv, decode_plan):
     return plans
 
 
-def _patch(monkeypatch, cache_len, kv, decode_plan):
-    jcfg, tcfg = jconfigs.get("qwen3_14b"), tconfigs.get("qwen3_14b")
+def _patch(monkeypatch, cache_len, kv, decode_plan, arch="qwen3_14b"):
+    jcfg, tcfg = jconfigs.get(arch), tconfigs.get(arch)
 
     def fake(pkg_registry, op_plan, cfg):
         return lambda _cfg, batch, **kw: _plans(
@@ -142,6 +142,39 @@ def test_predict_decode_step_us_equals_the_reference(monkeypatch, kv,
                     tcfg, batch, kv_dtype=KV[kv][1], chip=TPU_AS_CHIP,
                     **common) == jautotune.predict_decode_step_us(
                     jcfg, batch, kv_dtype=KV[kv][0], **common)
+
+
+FAMILY_ARCHS = ("h2o_danube_1_8b", "phi3_5_moe_42b", "qwen3_moe_235b",
+                "rwkv6_7b", "jamba_1_5_large_398b", "internvl2_2b")
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_plans_and_sweep_equal_the_reference(monkeypatch, arch):
+    """The other families' serving decisions at full width: the ops and
+    problems `plan_for_model` tunes (no attention plans for RWKV6), the
+    attention layers the step prices (Jamba's 9 of 72), and, over one
+    table of model times, the sweep's record and the step prediction."""
+    jcfg, tcfg = jconfigs.get(arch), tconfigs.get(arch)
+    assert autotune._attn_layer_count(tcfg) == \
+        jautotune._attn_layer_count(jcfg)
+    common = dict(prefill_len=600, cache_len=624, slot_lengths=[600, 616])
+    want = jautotune.plan_for_model(jcfg, 4, kv_dtype=jnp.float32, **common)
+    got = autotune.plan_for_model(tcfg, 4, kv_dtype=torch.float32, **common)
+    assert [(p.op, p.plan.family, p.plan.problem) for p in got] == \
+        [(p.op, p.plan.family, p.plan.problem) for p in want]
+    has_decode = bool(tcfg.num_heads and tcfg.num_kv_heads)
+    assert any(p.op == "attn_decode" for p in got) == has_decode
+    _patch(monkeypatch, 624, "f32", has_decode, arch)
+    sweep = dict(cache_len=624, prefill_len=600, candidates=(1, 2, 4, 8),
+                 slot_lengths=[600, 604, 616])
+    assert autotune.select_serving_batch(
+        tcfg, kv_dtype=torch.float32, chip=TPU_AS_CHIP, **sweep) == \
+        jautotune.select_serving_batch(jcfg, kv_dtype=jnp.float32, **sweep)
+    for lengths in (None, [600, 616, 3, 0]):
+        assert autotune.predict_decode_step_us(
+            tcfg, 4, cache_len=624, lengths=lengths, chip=TPU_AS_CHIP) == \
+            jautotune.predict_decode_step_us(jcfg, 4, cache_len=624,
+                                             lengths=lengths)
 
 
 def test_no_plan_fallback_prices_the_port_chip(monkeypatch):
