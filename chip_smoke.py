@@ -53,8 +53,10 @@ Phases, each printed as one JSON line:
    the prefill path (flash kernel) and of the full forward
    (`attention_core`) agree within 1e-4 in f32; in bf16 the prefill path
    is no farther from the f32 logits than the full forward plus the bf16
-   logit bound, within that bound on the first 2 layers, and the greedy
-   tokens agree (or the top-2 gap is below the bound).
+   logit bound, within that bound on the first 2 layers and within the
+   depth's derived bound (`bf16_logit_rel`) on the first 8 and at full
+   depth, and the greedy tokens agree (or the top-2 gap is below the
+   bound).
 7. ``serve``, ``serve_paged``, ``serve_int8``, ``serve_paged_int8``:
    `repro_torch.launch.serve` at Qwen3-14B's full published width (random
    bf16 weights from a seeded generator) serves 6 requests through each
@@ -170,13 +172,37 @@ Phases, each printed as one JSON line:
    attention rows measured at full Qwen3-14B shapes (B5, B1, B3) and the
    Table I and Table II records of the two phases before (not timed
    again); it must pass ``tools/check_bench.py``.
-13. ``total``: the script's seconds.  ``kernels``: one entry per ported
+13. The paper's design flow and training on one card.  ``quickstart``
+   and ``spmv_pipeline``: `repro_torch.examples.quickstart` (B6 in f32 at
+   256x192x128 on the CUDA cores, then B7 or B8 as the tuner picks) and
+   ``examples.spmv_pipeline`` (every balancing law on B7, the tuned plan,
+   B8 over 256-column slabs) on the card in a fresh tuning cache, each
+   kernel result within its case's tolerance and the kernels launched
+   (counts set to 0 before each).  ``train_step_parity``: one f32 train
+   step of Qwen3-14B's and Phi-3.5-MoE's SMOKE configs on the card
+   against the CPU's, loss and gradients within 1e-5 of the largest
+   |gradient|, AdamW's update within 1e-5, the card's step bitwise its
+   own gradient and update, the parameters after the step within 1e-5
+   wherever the gradient is above 1e-4 of the largest, B5 never
+   launched.
+   ``train_danube``: H2O-Danube-1.8B at full width and depth
+   (``remat="full"``), f32 weights and moments, 4 x 2,048 tokens a step
+   of `SyntheticSource`: step ms (median of 5 after a warm step),
+   tokens/s, peak memory, losses and grad norms, the bound, device time
+   by kernel.  ``train_resume_danube_cut``: Danube at full width cut to
+   4 layers, 10 steps through `run_resilient` with checkpoints, restored
+   at 6 and replayed to the same state bit for bit, and a fault at step
+   4 recovered to it too.  ``train_cli``: `repro_torch.launch.train` on
+   Qwen3-14B's SMOKE config for 30 steps, then ``--resume`` to 40 in a
+   second process.  ``train_lm``: ``examples.train_lm --hundred-m
+   --steps 200``, its loss falling by 10 %.
+14. ``total``: the script's seconds.  ``kernels``: one entry per ported
    kernel, with its TPU counterpart, its design, launches on its
    main-path run (B1, B3: the default CLI, ``serve_autobatch*``; B2, B4:
    their serve runs; B5: the ``prefill`` phase; B6: ``table1``; B7, B8:
-   ``table2``) and B1-B5's launches by phase (the chaos, crash-resume,
-   ``serving_load`` and other families' phases among them), error and
-   times.
+   ``table2``) and each kernel's launches by phase (the chaos,
+   crash-resume, ``serving_load`` and other families' phases among them;
+   B6-B8's in the two design-flow phases), error and times.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed phase
 exits non-zero without it; so does a host without a CUDA card.
@@ -189,6 +215,7 @@ import dataclasses
 import gc
 import io
 import json
+import math
 import pathlib
 import subprocess
 import sys
@@ -310,7 +337,8 @@ SWEEP_SHAPES = [("serve_shape", SERVE_LENGTHS, SERVE_LEN),
                 ("b1_l4096", [4096], 4096), ("b8_l4096", MIXED, 4096),
                 ("b1_l32768", [LONG], LONG), ("b4_l32768", [LONG] * 4, LONG)]
 STEP_BATCH, STEP_DEPTH = 4, 600      # decode_step: the serve run's shape
-STEP_WARMUP, STEP_COUNT = 2, 8       # untraced steps, then as many traced
+STEP_WARMUP, STEP_COUNT = 2, 8       # untraced steps
+STEP_TRACED = 4                      # then traced steps
 TOP_KERNELS = 12
 # flash_cases: (name, batch, Sq, Sk, Hq, Hkv, dh, causal, window, dtype)
 FLASH_CASES = [
@@ -328,11 +356,35 @@ PREFILL_PHASES = [("prefill", "qwen3_14b", 4096),
 PREFILL_TIMED = 2                    # untraced forwards after a warm-up
 BF16_LOGIT_REL = 3e-2                # ROADMAP queue C's bf16 logit bound
 SHALLOW = 2                          # the SMOKE depth that bound was set at
+MID_DEPTH = 8                        # a depth between it and the full
+
+
+def bf16_logit_rel(layers: int) -> float:
+    """The bf16 logit bound at ``layers`` layers, as a fraction of the
+    largest |logit|: how far two bf16 evaluations of one model (or a bf16
+    and the f32 one) may put a last-position logit.
+
+    Error model: a bf16 forward rounds its residual stream once at the
+    embedding and once at each residual add, two a layer, each rounding
+    an independent relative error of at most 2^-9 per element (bf16's
+    unit roundoff) that the rest of the network carries to the logits
+    with one gain.  Independent errors add in quadrature, so after
+    ``layers`` layers the logit error grows as sqrt(2 layers + 1).  The
+    gain is not derived: it is fixed where queue C's bound of 3e-2 was set,
+    at ``SHALLOW`` layers (5 roundings).  So the bound is 3e-2 at 2
+    layers, 5.5e-2 at 8, 9.4e-2 at 24 and 0.121 at 40."""
+    return BF16_LOGIT_REL * math.sqrt((2 * layers + 1) / (2 * SHALLOW + 1))
 MATMUL_MARKS = ("nvjet", "gemm", "xmma", "cutlass")
 
 
+STARTED = time.time()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One phase's JSON line; ``at_s`` is the script's seconds so far, so
+    the difference of two lines' is the time between them."""
+    print(json.dumps({"phase": phase, **fields,
+                      "at_s": round(time.time() - STARTED, 3)}), flush=True)
 
 
 class Fail(RuntimeError):
@@ -962,6 +1014,8 @@ def paged_vs_contiguous(torch, configs, serve, paging, lifecycle):
     token streams must be equal, since the paged kernel reads the same
     keys in the same splits and order as the contiguous one."""
     import numpy as np
+
+    from repro_torch import tree as tree_lib
     cfg = configs.get("qwen3_14b")
     rng = np.random.default_rng(1)
     reqs = [(rid, rng.integers(0, cfg.vocab_size, 600), 16)
@@ -971,7 +1025,7 @@ def paged_vs_contiguous(torch, configs, serve, paging, lifecycle):
     paged = serve.Server(cfg, 4, SERVE_LEN, params=contiguous.params,
                          paged=spec, autotune_kernels=False)
     shared = all(a is b for a, b in zip(
-        _leaves(contiguous.params), _leaves(paged.params)))
+        tree_lib.leaves(contiguous.params), tree_lib.leaves(paged.params)))
     streams = []
     for server in (contiguous, paged):
         lc = lifecycle.Lifecycle()
@@ -1254,14 +1308,6 @@ def serving_load_phase(torch, serve, check_serve, check_load, mods, *,
     return out
 
 
-def _leaves(tree):
-    for v in tree.values():
-        if isinstance(v, dict):
-            yield from _leaves(v)
-        else:
-            yield v
-
-
 def _device_us(evt) -> float:
     for name in ("self_device_time_total", "self_cuda_time_total"):
         val = getattr(evt, name, None)
@@ -1276,12 +1322,14 @@ def decode_step_breakdown(torch, configs, serve):
     default span, on one server (the span rides the cache): for each,
     host-clock ms of ``STEP_COUNT`` untraced steps (each ends in its host
     synchronisation, the copy of the next tokens), then device time by
-    kernel over as many steps traced by `torch.profiler`.  The profiler
-    slows the host, so the busy share of an untraced step is the traced
-    device time per step over the median untraced step."""
+    kernel over ``STEP_TRACED`` steps traced by `torch.profiler`.  The
+    profiler slows the host, so the busy share of an untraced step is the
+    traced device time per step over the median untraced step."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
     cfg = configs.get("qwen3_14b")
+    # room for 2 x (2 + 2 x 8) steps: the 644 cache rows measured since
+    # the traced steps were as many as the untraced
     steps = 2 * (STEP_WARMUP + 2 * STEP_COUNT)
     server = serve.Server(cfg, STEP_BATCH, STEP_DEPTH + steps + 8)
     rng = np.random.default_rng(0)
@@ -1305,16 +1353,16 @@ def decode_step_breakdown(torch, configs, serve):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            for _ in range(STEP_COUNT):
+            for _ in range(STEP_TRACED):
                 server.decode_step()
             torch.cuda.synchronize()
         kernels = [(e.key, e.count, _device_us(e))
                    for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA]
         kernels = sorted((k for k in kernels if k[2] > 0), key=lambda k: -k[2])
-        busy_ms = sum(k[2] for k in kernels) / 1e3 / STEP_COUNT
+        busy_ms = sum(k[2] for k in kernels) / 1e3 / STEP_TRACED
         attn_ms = sum(k[2] for k in kernels      # the kernels' shared body
-                      if "decode_kernel" in k[0]) / 1e3 / STEP_COUNT
+                      if "decode_kernel" in k[0]) / 1e3 / STEP_TRACED
         out[label] = {
             "decode_span": span,
             "host_ms": host_ms, "host_median_ms": median,
@@ -1323,9 +1371,9 @@ def decode_step_breakdown(torch, configs, serve):
             "decode_attention_ms_per_step": attn_ms,
             "device_busy_share": busy_ms / median,
             "kernel_launches_per_step": sum(k[1] for k in kernels)
-            / STEP_COUNT,
+            / STEP_TRACED,
             "top_kernels": [{"name": n[:120], "calls": c,
-                             "ms_per_step": us / 1e3 / STEP_COUNT}
+                             "ms_per_step": us / 1e3 / STEP_TRACED}
                             for n, c, us in kernels[:TOP_KERNELS]]}
     out["decode_attention_ms_per_step"] = min(
         out[k]["decode_attention_ms_per_step"] for k in ("tuned", "default"))
@@ -1545,8 +1593,12 @@ def prefill_vs_forward(torch, steps, transformer, mods, cfg, params, seq_len,
     prefill path must be no farther from the f32 logits than the full
     forward is, plus that bound, and its greedy token must equal the full
     forward's unless the latter's top-2 gap is below the bound.  The
-    bf16-to-bf16 difference is reported beside the bound, and held to it
-    on the first ``SHALLOW`` layers of the same weights.  Runs where
+    bf16-to-bf16 difference is held to that bound on the first
+    ``SHALLOW`` layers of the same weights, and to the depth's derived
+    bound (`bf16_logit_rel`) on the first ``MID_DEPTH`` layers and at
+    full depth; ``depths`` records at each of the three depths both bf16
+    paths' distances from each other and from the f32 forward, beside the
+    derived bound.  Runs where
     ``params`` lie, on one seeded prompt of ``seq_len`` tokens or on
     ``inputs`` (a frontend's features, tokens too or not, a batch of
     sequences): every sequence's last logits and greedy token are
@@ -1575,10 +1627,30 @@ def prefill_vs_forward(torch, steps, transformer, mods, cfg, params, seq_len,
     def dist(a, b):
         return float((a - b).abs().max())
 
-    s_cfg, s_params = first_layers(cfg, params, SHALLOW)
-    s_prefill = transformer.forward(s_cfg, s_params, batch,
-                                    last_only=True)[0][:, -1].float()
-    s_full = transformer.forward(s_cfg, s_params, batch)[0][:, -1].float()
+    depths = []
+    t0 = time.time()
+    for n in sorted({min(d, cfg.num_layers)
+                     for d in (SHALLOW, MID_DEPTH, cfg.num_layers)}):
+        if n < cfg.num_layers:
+            d_cfg, d_params = first_layers(cfg, params, n)
+            d_prefill = transformer.forward(d_cfg, d_params, batch,
+                                            last_only=True)[0][:, -1].float()
+            d_full = transformer.forward(d_cfg, d_params, batch)[0][:, -1]
+            d_f32 = transformer.forward(d_cfg, d_params, batch,
+                                        compute_dtype=f32)[0][:, -1]
+            d_full, d_f32 = d_full.float(), d_f32.float()
+        else:
+            d_prefill, d_full, d_f32 = prefill[bf16], full[bf16], full[f32]
+        top = float(d_f32.abs().max())
+        rel = bf16_logit_rel(n)
+        depths.append({"layers": n, "max_abs_logit": top,
+                       "bf16_prefill_vs_forward": dist(d_prefill, d_full),
+                       "bf16_forward_vs_f32": dist(d_full, d_f32),
+                       "bf16_prefill_vs_f32": dist(d_prefill, d_f32),
+                       "derived_rel": rel, "derived_bound": rel * top})
+        if len(depths) == 1:
+            s_prefill, s_full = d_prefill, d_full
+    depths_s = time.time() - t0
     s_bound = BF16_LOGIT_REL * float(s_full.abs().max())
 
     f32_tol = 1e-4 * float(full[f32].abs().max())
@@ -1597,7 +1669,8 @@ def prefill_vs_forward(torch, steps, transformer, mods, cfg, params, seq_len,
            "bf16_bound": bound,
            "bf16_prefill_vs_f32": dist(prefill[bf16], full[f32]),
            "bf16_forward_vs_f32": dist(full[bf16], full[f32]),
-           "shallow_layers": s_cfg.num_layers,
+           "shallow_layers": depths[0]["layers"], "depths": depths,
+           "depths_s": round(depths_s, 3),
            "shallow_bf16_max_abs_err": dist(s_prefill, s_full),
            "shallow_bf16_bound": s_bound,
            "sequences": len(tok_p),
@@ -1614,6 +1687,8 @@ def prefill_vs_forward(torch, steps, transformer, mods, cfg, params, seq_len,
                  and res["bf16_prefill_vs_f32"]
                  <= res["bf16_forward_vs_f32"] + bound
                  and res["shallow_bf16_max_abs_err"] <= s_bound
+                 and all(d["bf16_prefill_vs_forward"] <= d["derived_bound"]
+                         for d in depths[1:])
                  and all(p == f or n for p, f, n in zip(tok_p, tok_f, near))
                  and flash_launches == 3 * cfg.num_layers
                  and core_launches == 0)
@@ -2102,6 +2177,513 @@ def family_phases(torch, serve, configs, check_serve, steps, transformer,
             "paged_decode_attention": {"serve_moe_paged":
                                        launches["serve_moe_paged"]},
             "flash_attention": flash}
+
+
+# --------------------------------------------------------------------------
+# The paper's design flow (A15) and training on one card (A13)
+# --------------------------------------------------------------------------
+
+FLOW_KERNELS = {"quickstart": ("blocked_matmul", "ell_spmv|ell_spmv_blocked"),
+                "spmv_pipeline": ("ell_spmv", "ell_spmv_blocked")}
+TRAIN_PARITY_ARCHS = ("qwen3_14b", "phi3_5_moe_42b")
+TRAIN_PARITY_REL = 1e-5              # of the step's largest |gradient|
+TRAIN_STEP_ABS = 1e-5                # the parameters after a step
+TRAIN_STEP_FLOOR = 1e-4              # of the largest |gradient|: below it
+                                     # AdamW's first step is ill-conditioned
+DANUBE_TRAIN = (4, 2048)             # batch x sequence
+DANUBE_TIMED = 5                     # timed steps after one warm step
+CUT_LAYERS = 4                       # train_resume_danube_cut's depth
+CUT_TRAIN = (2, 2048)                # its batch x sequence
+CUT_STEPS, CUT_CKPT, CUT_FAULT = 10, 6, 4
+CUT_FAULT_EVERY = 4                  # the fault run's checkpoints: 4, 8
+TRAIN_CLI = ["--arch", "qwen3_14b", "--smoke", "--batch", "8", "--seq", "64"]
+TRAIN_CLI_STEPS = (30, 40)           # the first run, then --resume
+TRAIN_LM_ARGV = ["--hundred-m", "--steps", "200"]
+
+
+def design_flow_phase(torch, mods, phase: str, device="cuda") -> dict:
+    """`examples.quickstart` or `examples.spmv_pipeline` on ``device`` in a
+    fresh tuning cache, every launch count set to 0 just before and read
+    just after.  Each kernel result must lie within its case's tolerance
+    (the examples hold B6 to `matmul.ref.row_tolerance`, 1e-5 in f32, and
+    B7/B8 to 1e-5 of each row's sum of |products|); on a card each kernel
+    the example drives must have launched ("a|b": either)."""
+    import os
+    import tempfile
+
+    from repro_torch.examples import quickstart, spmv_pipeline
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.matmul import kernel as mm
+    run = {"quickstart": quickstart.run,
+           "spmv_pipeline": spmv_pipeline.run}[phase]
+    old = os.environ.get(autotune.CACHE_ENV)
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ[autotune.CACHE_ENV] = str(pathlib.Path(tmp) / "at.json")
+        try:
+            reset_launch_counts(mods)
+            buf = io.StringIO()
+            t0 = time.time()
+            with contextlib.redirect_stdout(buf):
+                res = run(device)
+            seconds = time.time() - t0
+            counts = launch_counts(mods)
+            by_design = dict(mm.design_launches)
+        finally:
+            if old is None:
+                os.environ.pop(autotune.CACHE_ENV, None)
+            else:
+                os.environ[autotune.CACHE_ENV] = old
+    launches = {k: counts[k] for k in
+                ("blocked_matmul", "ell_spmv", "ell_spmv_blocked")}
+    launched = all(any(counts[k] > 0 for k in need.split("|"))
+                   for need in FLOW_KERNELS[phase])
+    out = {"device": str(device), "results": res, "launches": launches,
+           "blocked_matmul_by_design": by_design,
+           "seconds": round(seconds, 3),
+           "last_line": buf.getvalue().strip().splitlines()[-1]}
+    out["ok"] = (all(r["ok"] for r in res.values())
+                 and (launched or torch.device(device).type == "cpu"))
+    return out
+
+
+def _train_batch(torch, cfg, batch: int, seq: int, step: int, device):
+    from repro_torch.data import DataConfig, SyntheticSource
+    src = SyntheticSource(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch, seed=1,
+        frontend=cfg.frontend, frontend_dim=cfg.frontend_dim,
+        num_patches=4 if cfg.frontend == "patch" else 0))
+    return {k: torch.from_numpy(v).to(device)
+            for k, v in src.batch(step, 0, 1).items()}
+
+
+def train_step_parity(torch, configs, mods, device="cuda", archs=None
+                      ) -> dict:
+    """One f32 train step on ``device`` against the same step on the CPU
+    (TF32 off), for Qwen3-14B's and Phi-3.5-MoE's SMOKE configs from
+    seeded weights:
+
+    - the loss and every gradient within 1e-5 of the step's largest
+      |gradient| (each leaf's own worst ratio reported);
+    - `adamw.update` of the CPU's gradients on both sides: the
+      parameters within 1e-5;
+    - `make_train_step` on ``device`` bitwise equal to ``device``'s own
+      `loss_and_grads` followed by `adamw.update` (parameters, moments and
+      step), so the step is its two parts, each held above;
+    - the parameters after `make_train_step` on each side within 1e-5 on
+      every element whose CPU gradient is at least ``TRAIN_STEP_FLOOR``
+      of the largest.  AdamW's first step moves an element by
+      ``lr g / (|g| + eps)``, about lr whatever |g|: a gradient error d
+      (at most 1e-5 of the largest |g|) shifts it by at most
+      ``lr eps d / g^2``, which above the floor is at most
+      ``1e3 lr eps`` over the largest |g| (under 1e-5 whenever that
+      exceeds 1e-9), but where |g| is near eps or near d the shift reaches
+      lr.  The elements below the floor are counted, and their largest
+      difference reported;
+    - the flash kernel (no backward) never launched."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer
+    from repro_torch.optim import adamw
+
+    def clone(tree):
+        return tree_lib.map_structure(lambda t: t.clone(), tree)
+
+    rows = []
+    for arch in archs or TRAIN_PARITY_ARCHS:
+        cfg = configs.get_smoke(arch)
+        opt = adamw.AdamWConfig(peak_lr=1e-3, warmup_steps=1, total_steps=10)
+        host = transformer.init(cfg, torch.Generator().manual_seed(0))
+        batches = {"cpu": _train_batch(torch, cfg, 4, 32, 0, "cpu")}
+        batches["card"] = {k: v.to(device)
+                           for k, v in batches["cpu"].items()}
+        sides = {"cpu": host,
+                 "card": tree_lib.map_structure(lambda t: t.to(device),
+                                                host)}
+        reset_launch_counts(mods)
+        results = {dev: steps.loss_and_grads(cfg, params, batches[dev],
+                                             compute_dtype=torch.float32)
+                   for dev, params in sides.items()}
+        (l_cpu, _, _, g_cpu), (l_card, _, _, g_card) = (results["cpu"],
+                                                        results["card"])
+        gc_ = tree_lib.leaves(g_cpu)
+        gd_ = [g.cpu() for g in tree_lib.leaves(g_card)]
+        step_max = max(float(g.abs().max()) for g in gc_)
+        errs = [float((a - b).abs().max()) for a, b in zip(gc_, gd_)]
+        leaf_rel = max(e / max(float(a.abs().max()), 1e-30)
+                       for e, a in zip(errs, gc_))
+        # the optimizer alone: the CPU's gradients on both sides
+        updated = {}
+        for dev, params in sides.items():
+            p = clone(params)
+            g = tree_lib.map_structure(
+                lambda t: t.to(p["embed"]["table"].device), g_cpu)
+            adamw.update(p, g, adamw.init_state(p, opt), opt)
+            updated[dev] = p
+        upd_err = max(float((a - b.cpu()).abs().max()) for a, b in zip(
+            tree_lib.leaves(updated["cpu"]), tree_lib.leaves(updated["card"])))
+        # the whole step on each side
+        after, total = {}, {}
+        for dev, params in sides.items():
+            p = clone(params)
+            st = {"params": p, "opt": adamw.init_state(p, opt)}
+            _, m = steps.make_train_step(
+                cfg, opt, compute_dtype=torch.float32)(st, batches[dev])
+            after[dev], total[dev] = st, float(m["total_loss"])
+        lr = float(m["lr"])
+        # the card's step against its own parts
+        p = clone(sides["card"])
+        s = adamw.init_state(p, opt)
+        *_, g = steps.loss_and_grads(cfg, p, batches["card"],
+                                     compute_dtype=torch.float32)
+        adamw.update(p, g, s, opt)
+        composed = _bitwise(torch, after["card"], {"params": p, "opt": s})
+        del p, s, g
+        floor = TRAIN_STEP_FLOOR * step_max
+        kept_err = below_err = 0.0
+        below = n = 0
+        for a, b, g in zip(tree_lib.leaves(after["cpu"]["params"]),
+                           tree_lib.leaves(after["card"]["params"]), gc_):
+            d = (a - b.cpu()).abs()
+            small = g.abs() < floor
+            below += int(small.sum())
+            n += d.numel()
+            if (~small).any():
+                kept_err = max(kept_err, float(d[~small].max()))
+            if small.any():
+                below_err = max(below_err, float(d[small].max()))
+        flash_launches = launch_counts(mods)["flash_attention"]
+        row = {"arch": cfg.name, "loss_cpu": float(l_cpu),
+               "loss_card": float(l_card),
+               "loss_rel_err": abs(float(l_cpu) - float(l_card))
+               / abs(float(l_cpu)),
+               "grad_max_abs_err": max(errs), "grad_max": step_max,
+               "grad_worst_leaf_rel": leaf_rel,
+               "update_max_abs_err": upd_err,
+               "step_is_its_parts_bitwise": composed,
+               "step_grad_floor": floor,
+               "step_params_max_abs_err": kept_err,
+               "step_params_below_floor": below, "step_params": n,
+               "step_params_below_floor_max_abs_err": below_err, "lr": lr,
+               "flash_launches": flash_launches}
+        row["ok"] = (row["loss_rel_err"] <= TRAIN_PARITY_REL
+                     and max(errs) <= TRAIN_PARITY_REL * step_max
+                     and upd_err <= TRAIN_STEP_ABS and composed
+                     and kept_err <= TRAIN_STEP_ABS
+                     and total["card"] == float(l_card)
+                     and flash_launches == 0)
+        rows.append(row)
+    return {"rows": rows, "ok": all(r["ok"] for r in rows)}
+
+
+def _sync(torch, device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def train_danube(torch, configs, mods, smi, cfg=None, shape=DANUBE_TRAIN,
+                 timed=DANUBE_TIMED, device="cuda") -> dict:
+    """H2O-Danube-1.8B at full width and depth (``remat="full"``, its
+    config's), seeded f32 weights and f32 AdamW moments on the card (the
+    policy's below 100 G parameters), `make_train_step` (bf16 compute) on
+    ``shape`` batches of `SyntheticSource`: one warm step, then ``timed``
+    steps, each ended by a synchronise.  Reports the median step ms,
+    tokens/s, peak memory, every step's loss and grad norm, the flash
+    kernel's launches (must be 0) and the bound: 8 N T operations (6 N T
+    for the forward and backward, 2 N T for the recomputed forward) at the
+    bf16 peak, beside the bytes of reading and writing the state once; and
+    the f32 attention's operations at the f32 peak, which the bf16 bound
+    leaves out.  One more step under `torch.profiler` gives device time by
+    kernel."""
+    import statistics
+
+    from repro_torch import tree as tree_lib
+    from repro_torch.core import cost_model
+    from repro_torch.launch import policy, steps
+    from repro_torch.models import transformer
+    from repro_torch.optim import adamw
+    cfg = cfg or configs.get("h2o_danube_1_8b")
+    b, s = shape
+    opt = adamw.AdamWConfig(peak_lr=1e-4, warmup_steps=2,
+                            total_steps=timed + 2,
+                            moment_dtype=policy.moment_dtype(cfg))
+    if torch.device(device).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    params = transformer.init(cfg, torch.Generator(device=device)
+                              .manual_seed(0),
+                              dtype=policy.param_dtype(cfg))
+    state = {"params": params, "opt": adamw.init_state(params, opt)}
+    step = steps.make_train_step(cfg, opt)
+    reset_launch_counts(mods)
+    times, losses, norms = [], [], []
+    for t in range(timed + 1):
+        batch = _train_batch(torch, cfg, b, s, t, device)
+        _sync(torch, device)
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        _sync(torch, device)
+        dt = time.perf_counter() - t0
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        if t:
+            times.append(dt)
+    flash_launches = launch_counts(mods)["flash_attention"]
+    peak = (torch.cuda.max_memory_allocated()
+            if torch.device(device).type == "cuda" else None)
+    kernels = []
+    if torch.device(device).type == "cuda":
+        batch = _train_batch(torch, cfg, b, s, timed + 1, device)
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            step(state, batch)
+            torch.cuda.synchronize()
+        kernels = _by_kernel(torch, prof)[:TOP_KERNELS]
+    n = cfg.param_count()
+    tokens = b * s
+    ops = cost_model.model_flops_train(n, tokens) + \
+        cost_model.model_flops_decode(n, tokens)
+    state_bytes = sum(t.numel() * t.element_size() for t in
+                      tree_lib.leaves(state))
+    # QK^T and PV, 2 b H s^2 dh operations each, in the forward, the
+    # recomputed forward and the backward (twice the forward's)
+    attn_ops = (2 * 2 * b * cfg.num_heads * s * s * cfg.head_dim * 4
+                * cfg.num_layers)
+    med = statistics.median(times) if times else None
+    res = {"arch": cfg.name, "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "params": n, "batch": b, "seq": s,
+           "remat": cfg.remat, "device": str(device),
+           "step_ms": [round(x * 1e3, 3) for x in times],
+           "step_ms_median": None if med is None else med * 1e3,
+           "tokens_per_s": None if med is None else tokens / med,
+           "losses": losses, "grad_norms": norms,
+           "max_memory_allocated": peak, "state_bytes": state_bytes,
+           "bound_ops": ops, "bound_ms": ops / PEAK_OPS_PER_S["bfloat16"]
+           * 1e3, "bound_bytes_ms": 2 * state_bytes / HBM_BYTES_PER_S * 1e3,
+           "attention_f32_ops": attn_ops,
+           "attention_f32_ms": attn_ops / PEAK_OPS_PER_S["float32"] * 1e3,
+           "flash_launches": flash_launches, "kernels": kernels,
+           "nvidia_smi": smi}
+    res["ok"] = (all(math.isfinite(x) for x in losses + norms)
+                 and flash_launches == 0 and len(times) == timed)
+    del state, params
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    return res
+
+
+def _bitwise(torch, a, b) -> bool:
+    from repro_torch import tree as tree_lib
+    la, lb = tree_lib.leaves(a), tree_lib.leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def train_resume_cut(torch, configs, mods, cfg=None, shape=CUT_TRAIN,
+                     device="cuda", state_root=STATE_ROOT) -> dict:
+    """H2O-Danube-1.8B at full width cut to ``CUT_LAYERS`` layers (built
+    with `dataclasses.replace`): ten steps through `run_resilient` with a
+    `CheckpointManager` checkpointing at step 6 (and at its end); the
+    checkpoint restored and steps 6..9 replayed must end bitwise in the
+    uninterrupted run's state; then a run whose ``fault_hook`` raises at
+    step 4, checkpointing every 4 steps, recovers through ``on_restore``
+    (the step-4 checkpoint, written just before the fault, restored) and
+    ends in the same state.  The uninterrupted state is kept on the
+    device for the comparisons.  The state directory is removed after."""
+    import shutil
+
+    from repro_torch import tree as tree_lib
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.launch import policy, steps
+    from repro_torch.models import transformer
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.fault_tolerance import (ResilienceConfig,
+                                                     run_resilient)
+    cfg = cfg or dataclasses.replace(configs.get("h2o_danube_1_8b"),
+                                     num_layers=CUT_LAYERS)
+    b, s = shape
+    opt = adamw.AdamWConfig(peak_lr=1e-4, warmup_steps=2,
+                            total_steps=CUT_STEPS,
+                            moment_dtype=policy.moment_dtype(cfg))
+    step = steps.make_train_step(cfg, opt)
+    root = state_root / "train_resume_danube_cut"
+    shutil.rmtree(root, ignore_errors=True)
+
+    def fresh():
+        p = transformer.init(cfg, torch.Generator(device=device)
+                             .manual_seed(0), dtype=policy.param_dtype(cfg))
+        return {"params": p, "opt": adamw.init_state(p, opt)}
+
+    def batch_fn(t):
+        return _train_batch(torch, cfg, b, s, t, device)
+
+    out = {"arch": cfg.name, "layers": cfg.num_layers, "params":
+           cfg.param_count(), "batch": b, "seq": s, "device": str(device)}
+    try:
+        reset_launch_counts(mods)
+        ckpt = CheckpointManager(root / "run", keep=2)
+        t0 = time.time()
+        state, history, _ = run_resilient(
+            step, fresh(), CUT_STEPS, ckpt, batch_fn,
+            config=ResilienceConfig(checkpoint_every=CUT_CKPT))
+        out["run_s"] = round(time.time() - t0, 3)
+        out["losses"] = [h["loss"] for h in history]
+        want = state
+        del state
+        # `restore` reads only a template's keys
+        like = tree_lib.map_structure(lambda _: None, want)
+        meta_dir = root / "run" / f"step_{CUT_CKPT:010d}"
+        out["checkpoint_bytes"] = sum(f.stat().st_size
+                                      for f in meta_dir.glob("*.npy"))
+        t0 = time.time()
+        restored, meta = ckpt.restore(CUT_CKPT, like, device)
+        out["restore_s"] = round(time.time() - t0, 3)
+        for t in range(meta["step"], CUT_STEPS):
+            restored, _ = step(restored, batch_fn(t))
+        out["replay_bitwise"] = _bitwise(torch, restored, want)
+        del restored
+        gc.collect()
+
+        ckpt2 = CheckpointManager(root / "fault", keep=1)
+        fired = []
+
+        def fault_hook(t):
+            if t == CUT_FAULT and not fired:
+                fired.append(t)
+                raise RuntimeError("injected fault")
+
+        restored_at = []
+
+        def on_restore(_t):
+            st, m = ckpt2.restore(None, like, device)
+            restored_at.append(m["step"])
+            return st, m["step"]
+
+        t0 = time.time()
+        state, history, _ = run_resilient(
+            step, fresh(), CUT_STEPS, ckpt2, batch_fn,
+            config=ResilienceConfig(checkpoint_every=CUT_FAULT_EVERY),
+            fault_hook=fault_hook, on_restore=on_restore)
+        out["fault_run_s"] = round(time.time() - t0, 3)
+        out["fault_fired_at"] = fired
+        out["restored_at"] = restored_at
+        out["fault_steps_run"] = [h["step"] for h in history]
+        out["fault_bitwise"] = _bitwise(torch, state, want)
+        out["final_ckpt"] = ckpt2.latest_step()
+        del state, want
+        out["flash_launches"] = launch_counts(mods)["flash_attention"]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+    out["ok"] = (out["replay_bitwise"] and out["fault_bitwise"]
+                 and fired == [CUT_FAULT] and restored_at == [CUT_FAULT]
+                 and out["final_ckpt"] == CUT_STEPS
+                 and out["flash_launches"] == 0
+                 and all(math.isfinite(x) for x in out["losses"]))
+    return out
+
+
+def train_cli(torch, cli=(), state_root=STATE_ROOT) -> dict:
+    """`repro_torch.launch.train` in two processes: ``TRAIN_CLI`` for 30
+    steps, then ``--resume`` to 40.  Each must exit 0 and print the
+    reference's JSON keys; the second must say it resumed from step 30,
+    run 10 steps and end at checkpoint 40, its first loss below the first
+    run's first (it continues a trained state).  Tokens/s from each run's
+    ``wall_s``.  The checkpoint directory is removed after."""
+    import os
+    import shutil
+    root = state_root / "train_cli"
+    shutil.rmtree(root, ignore_errors=True)
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    runs = []
+    try:
+        for n, extra in zip(TRAIN_CLI_STEPS, ([], ["--resume"])):
+            argv = [sys.executable, "-m", "repro_torch.launch.train",
+                    *TRAIN_CLI, "--steps", str(n), "--ckpt-dir", str(root),
+                    "--ckpt-every", "10", *cli, *extra]
+            t0 = time.time()
+            p = subprocess.run(argv, capture_output=True, text=True,
+                               env=env, cwd=ROOT, timeout=600)
+            lines = p.stdout.strip().splitlines()
+            rec = json.loads(lines[-1]) if p.returncode == 0 else {}
+            runs.append({"rc": p.returncode, "process_s":
+                         round(time.time() - t0, 3), "summary": rec,
+                         "first_line": lines[0] if lines else None,
+                         "stderr_tail": p.stderr[-2000:]})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    batch, seq = int(_flag(TRAIN_CLI, "--batch", 8)), int(
+        _flag(TRAIN_CLI, "--seq", 64))
+    for r in runs:
+        s = r["summary"]
+        if s.get("wall_s"):
+            r["tokens_per_s"] = s["steps"] * batch * seq / s["wall_s"]
+    a, b = (r["summary"] for r in runs)
+    keys = {"arch", "steps", "wall_s", "first_loss", "last_loss",
+            "stragglers", "final_ckpt"}
+    ok = (all(r["rc"] == 0 for r in runs) and set(a) == keys
+          and set(b) == keys and a["steps"] == TRAIN_CLI_STEPS[0]
+          and a["final_ckpt"] == TRAIN_CLI_STEPS[0]
+          and runs[1]["first_line"] == f"resumed from step "
+                                       f"{TRAIN_CLI_STEPS[0]}"
+          and b["steps"] == TRAIN_CLI_STEPS[1] - TRAIN_CLI_STEPS[0]
+          and b["final_ckpt"] == TRAIN_CLI_STEPS[1]
+          and b["first_loss"] < a["first_loss"]
+          and a["last_loss"] < a["first_loss"])
+    return {"runs": runs, "ok": ok}
+
+
+def train_lm_phase(torch, argv=TRAIN_LM_ARGV, state_root=STATE_ROOT
+                   ) -> dict:
+    """`examples.train_lm` (``--hundred-m --steps 200`` on the card): its
+    JSON, the loss falling by 10 % (``loss_last < 0.9 loss_first``, as the
+    reference's test of its trainer), tokens/s."""
+    import shutil
+
+    from repro_torch.examples import train_lm
+    root = state_root / "train_lm"
+    shutil.rmtree(root, ignore_errors=True)
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            res = train_lm.main([*argv, "--ckpt-dir", str(root)])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    res = {**res, "first_line": buf.getvalue().splitlines()[0]}
+    res["ok"] = (res["loss_last"] < 0.9 * res["loss_first"]
+                 and res["steps"] == int(_flag(argv, "--steps", 200)))
+    return res
+
+
+def training_phases(torch, configs, mods, smi) -> dict:
+    """The design flow's and training's phases in order, one after
+    another, each emitted with its seconds and checked; returns B6-B8's
+    launches by design-flow phase."""
+    phases = [
+        ("quickstart", lambda: design_flow_phase(torch, mods, "quickstart")),
+        ("spmv_pipeline",
+         lambda: design_flow_phase(torch, mods, "spmv_pipeline")),
+        ("train_step_parity", lambda: train_step_parity(torch, configs,
+                                                        mods)),
+        ("train_danube", lambda: train_danube(torch, configs, mods, smi)),
+        ("train_resume_danube_cut",
+         lambda: train_resume_cut(torch, configs, mods)),
+        ("train_cli", lambda: train_cli(torch)),
+        ("train_lm", lambda: train_lm_phase(torch)),
+    ]
+    flow = {}
+    for phase, run in phases:
+        t0 = time.time()
+        res = run()
+        emit(phase, phase_s=round(time.time() - t0, 3), **res)
+        check(res["ok"], f"{phase} failed: " + json.dumps(
+            {k: v for k, v in res.items() if k != "kernels"}))
+        if "launches" in res:
+            flow[phase] = res["launches"]
+    return {kernel: {phase: n[kernel] for phase, n in flow.items()}
+            for kernel in ("blocked_matmul", "ell_spmv", "ell_spmv_blocked")}
 
 
 # --------------------------------------------------------------------------
@@ -2631,7 +3213,6 @@ def main() -> int:
     from repro_torch.runtime import lifecycle, paging, quantize
     mods = (decode, decode_int8, quantize, flash)
 
-    started = time.time()
     disable_tf32()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2792,6 +3373,9 @@ def main() -> int:
          "launches": rep["launches"]}))
     del t1, t2
 
+    # The paper's design flow (A15) and training on one card (A13).
+    flow_launches = training_phases(torch, configs, mods, smi)
+
     entries = []
     for name, (source, replaces) in KERNELS.items():
         mine = [c for c in cases if c["kernel"] == name]
@@ -2826,10 +3410,12 @@ def main() -> int:
             entry["main_path_span"] = span
             entry["main_path_span_ms"] = (sum(times) / len(times) if times
                                           else None)
+        if name in flow_launches:
+            entry["launches_by_phase"] = flow_launches[name]
         if name == "blocked_matmul":
             entry["launches_by_design"] = launches["blocked_matmul_by_design"]
         entries.append(entry)
-    emit("total", seconds=round(time.time() - started, 3))
+    emit("total", seconds=round(time.time() - STARTED, 3))
     print(json.dumps({"kernels": entries}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,0 +1,3 @@
+"""Checkpointing (counterpart of `repro.checkpoint`)."""
+
+from repro_torch.checkpoint.manager import CheckpointManager  # noqa: F401

@@ -1,6 +1,7 @@
-"""Carry parameter and cache trees across from the JAX package, every
-family's: stacked expert leaves (L, E, D, F), a hybrid's group dicts,
-the RWKV and Mamba leaves, a frontend's ``proj``.
+"""Carry parameter, optimizer-state and cache trees across from the JAX
+package, every family's: stacked expert leaves (L, E, D, F), a hybrid's
+group dicts, the RWKV and Mamba leaves, a frontend's ``proj``, AdamW's
+f32 or int8 moments.
 
 The JAX side hands over its trees as numpy (``jax.tree.map(np.asarray,
 tree)``, done by the caller); these functions map such a nested dict to
@@ -15,6 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.layers import pool_zeros
+from repro_torch.tree import map_structure
 
 
 def _to_torch(a, device) -> torch.Tensor:
@@ -25,15 +27,44 @@ def _to_torch(a, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-def _tree(tree, fn):
-    if isinstance(tree, dict):
-        return {k: _tree(v, fn) for k, v in tree.items()}
-    return fn(tree)
+def host_array(t: torch.Tensor) -> tuple[np.ndarray, str]:
+    """A host copy of ``t`` as numpy (a copy even of a CPU tensor) and
+    the name of its dtype.  numpy has no bfloat16: a bf16 tensor becomes
+    its uint16 bit pattern, named ``"bfloat16"``, as checkpoints
+    (`checkpoint.manager`) and serving snapshots (`launch.serve`) store
+    it."""
+    t = t.detach().to("cpu", copy=True)
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
+    a = t.numpy()
+    return a, str(a.dtype)
+
+
+def from_host_array(a: np.ndarray, dtype: str) -> torch.Tensor:
+    """The inverse of `host_array`: a CPU tensor on ``a``'s memory (a
+    copy only where ``a`` is not contiguous and writable, as an array
+    `np.load` returns is), whose 16-bit patterns are read as bfloat16
+    where ``dtype`` names it."""
+    if not (a.flags.c_contiguous and a.flags.writeable):
+        a = np.array(a, order="C")
+    if dtype == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 def params_from_numpy(tree: dict, device="cpu") -> dict:
     """Nested dict of numpy arrays (JAX params) -> same tree of tensors."""
-    return _tree(tree, lambda a: _to_torch(a, device))
+    return map_structure(lambda a: _to_torch(a, device), tree)
+
+
+def opt_state_from_numpy(tree: dict, device="cpu") -> dict:
+    """A JAX AdamW state as numpy (``{"step", "m", "v"}``) -> the port's
+    (`optim.adamw`): the 0-d int32 step, f32 moments or int8 ``{q,
+    scale}`` moments, every leaf in its own dtype.  `to_numpy` maps it
+    back."""
+    if set(tree) != {"step", "m", "v"}:
+        raise ValueError(f"not an AdamW state: keys {sorted(tree)}")
+    return params_from_numpy(tree, device)
 
 
 POOL_LEAVES = ("k", "v", "k_scale", "v_scale")
@@ -71,7 +102,7 @@ def to_numpy(tree: dict) -> dict:
         if t.dtype == torch.bfloat16:
             t = t.float()
         return t.numpy()
-    return _tree(tree, one)
+    return map_structure(one, tree)
 
 
 def disable_tf32() -> None:

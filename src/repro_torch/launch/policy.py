@@ -1,0 +1,32 @@
+"""Number-format policy per architecture (the paper's 'number format'
+knob).  Counterpart of `repro.launch.policy`, with the same thresholds.
+
+Models above ~100B parameters store bf16 weights and int8 blockwise
+optimizer moments; smaller models keep f32 master weights and f32
+moments.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models.config import ModelConfig
+
+BIG_MODEL_PARAMS = 100e9
+FSDP_PARAMS = 10e9
+
+
+def param_dtype(cfg: ModelConfig) -> torch.dtype:
+    return (torch.bfloat16 if cfg.param_count() > BIG_MODEL_PARAMS
+            else torch.float32)
+
+
+def moment_dtype(cfg: ModelConfig) -> str:
+    return "int8" if cfg.param_count() > BIG_MODEL_PARAMS else "float32"
+
+
+def use_fsdp(cfg: ModelConfig) -> bool:
+    """>=10B params: the reference stores parameters sharded over its data
+    axes too (FSDP).  The port trains on one card, unsharded; sharding
+    is ROADMAP A14."""
+    return cfg.param_count() >= FSDP_PARAMS

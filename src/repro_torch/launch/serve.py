@@ -86,7 +86,7 @@ import numpy as np
 import torch
 
 import repro_torch.configs as configs
-from repro_torch import resolve_device
+from repro_torch import convert, resolve_device
 from repro_torch.core import hardware
 from repro_torch.core.ioutil import atomic_write_json
 from repro_torch.kernels import autotune
@@ -386,12 +386,9 @@ class Server:
         snapshot's meta."""
         arrays, dtypes = {}, {}
         for name, t in _tensor_leaves(self.cache, "cache"):
-            t = t.detach().cpu()
-            if t.dtype == torch.bfloat16:
-                arrays[name] = t.view(torch.int16).numpy().view(np.uint16)
-                dtypes[name] = "bfloat16"
-            else:
-                arrays[name] = t.numpy().copy()
+            arrays[name], dtype = convert.host_array(t)
+            if dtype == "bfloat16":
+                dtypes[name] = dtype
         arrays["slot_len"] = self.slot_len.copy()
         arrays["slot_target"] = self.slot_target.copy()
         arrays["slot_req"] = self.slot_req.copy()
@@ -420,10 +417,7 @@ class Server:
                     f"snapshot leaf {name!r} is {got}{tuple(a.shape)}, "
                     f"server expects {want}{tuple(t.shape)} — snapshot "
                     f"from a different serving configuration")
-            src = torch.from_numpy(np.array(a, order="C"))
-            if stored is not None:
-                src = src.view(torch.int16).view(torch.bfloat16)
-            t.copy_(src)
+            t.copy_(convert.from_host_array(a, got))
         self.slot_len = np.asarray(arrays["slot_len"], np.int32).copy()
         self.slot_target = np.asarray(arrays["slot_target"], np.int32).copy()
         self.slot_req = np.asarray(arrays["slot_req"], np.int32).copy()

@@ -16,10 +16,12 @@ A sliding-window model's contiguous cache is a ring buffer of at most
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.attention import decode, decode_int8, ops
 from repro_torch.runtime import quantize
@@ -128,7 +130,8 @@ def _mask_block(q_pos, k_pos, causal: bool, window: int | None = None,
 
 def attention_core(q, k, v, q_pos, k_pos, *, causal: bool, scale: float,
                    window: int | None = None, k_valid=None,
-                   chunk_q: int | None = None) -> torch.Tensor:
+                   chunk_q: int | None = None,
+                   remat_chunks: bool = False) -> torch.Tensor:
     """Masked multi-head attention with GQA grouping (no cache repeat):
     query head h reads KV head h // g.
 
@@ -139,7 +142,10 @@ def attention_core(q, k, v, q_pos, k_pos, *, causal: bool, scale: float,
     f32); probabilities are rounded to v's dtype first, as there.  Masked
     logits are filled with -1e30.  When ``chunk_q`` divides Sq the query
     blocks run one after another, so the (Sq, Sk) logits never exist at
-    once.  Returns f32 (B, Sq, Hq, dh).
+    once; with ``remat_chunks`` (training under ``remat="full"``) each
+    block runs under `torch.utils.checkpoint`, so the backward recomputes
+    its logits and probabilities instead of keeping them.  Returns f32
+    (B, Sq, Hq, dh).
     """
     b, sq, hq, dh = q.shape
     hkv = k.shape[2]
@@ -158,10 +164,13 @@ def attention_core(q, k, v, q_pos, k_pos, *, causal: bool, scale: float,
                             probs.to(v.dtype).float(), v.float())
 
     if chunk_q and sq > chunk_q and sq % chunk_q == 0:
+        fn = blk
+        if remat_chunks and torch.is_grad_enabled():
+            fn = functools.partial(checkpoint, blk, use_reentrant=False)
         outs = []
         for i in range(0, sq, chunk_q):
             qp = q_pos[..., i:i + chunk_q]
-            outs.append(blk(qr[:, i:i + chunk_q], qp))
+            outs.append(fn(qr[:, i:i + chunk_q], qp))
         out = torch.cat(outs, dim=1)
     else:
         out = blk(qr, q_pos)
@@ -281,7 +290,8 @@ def attention_apply(params: Params, x: torch.Tensor, cfg,
         else:
             out = attention_core(q, k, v, positions, positions,
                                  causal=cfg.causal, scale=scale,
-                                 window=cfg.sliding_window, chunk_q=chunk_q)
+                                 window=cfg.sliding_window, chunk_q=chunk_q,
+                                 remat_chunks=cfg.remat == "full")
         out = out.reshape(b, s, cfg.q_dim).to(x.dtype)
         return out @ params["wo"].to(x.dtype), cache
 

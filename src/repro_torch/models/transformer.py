@@ -29,8 +29,10 @@ tuner picked when the server was built), handed to every attention layer.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
+from repro_torch import tree as tree_lib
 from repro_torch.models import layers, moe, rwkv, ssm
 from repro_torch.models.config import ModelConfig
 
@@ -39,20 +41,6 @@ Params = dict
 # through ``.to(compute dtype)``: each model module owns its part.
 OWN_DTYPE_LEAVES = (layers.OWN_DTYPE_LEAVES | moe.OWN_DTYPE_LEAVES
                     | rwkv.OWN_DTYPE_LEAVES | ssm.OWN_DTYPE_LEAVES)
-
-
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    else:
-        yield tree
 
 
 # ---------------------------------------------------------------------------
@@ -182,7 +170,7 @@ def init(cfg: ModelConfig, generator: torch.Generator,
             period = cfg.attn_period if key is not None else 0
             layer = _layer_init(generator, cfg, g * period + l, dtype)
             if stack is None:
-                stack = _tree_map(
+                stack = tree_lib.map_structure(
                     lambda a: torch.empty((n, *a.shape), dtype=a.dtype,
                                           device=dev), layer)
             _copy_layer(stack, layer, g)
@@ -280,14 +268,14 @@ def cache_reset_slot(cache: Params, slot: int, paged=None) -> Params:
         row = cache["pages"][slot]
         idx = torch.where(row >= 0, row.clamp(max=paged.num_pages - 1),
                           paged.num_pages).long()
-        for a in _leaves(cache["blocks"]):
+        for a in tree_lib.leaves(cache["blocks"]):
             if _is_pool_leaf(a, paged):
                 layers.with_trash_page(a, axis=1)[:, idx] = 0
             else:
                 a[:, slot] = 0
         cache["pages"][slot] = -1
     else:
-        for a in _leaves(cache["blocks"]):
+        for a in tree_lib.leaves(cache["blocks"]):
             a[:, slot] = 0
     cache["lengths"][slot] = 0
     return cache
@@ -305,7 +293,8 @@ def cache_poison_slot(cache: Params, slot: int, paged=None) -> Params:
     ``cache["pages"]`` names; entries of -1 name no page, and the trash
     page past the pool (`layers.pool_zeros`), where other slots' masked
     writes land, is never poisoned."""
-    leaves = [a for a in _leaves(cache["blocks"]) if a.is_floating_point()]
+    leaves = [a for a in tree_lib.leaves(cache["blocks"])
+              if a.is_floating_point()]
     if paged is not None:
         row = cache["pages"][slot]
         idx = row[row >= 0].long()
@@ -343,10 +332,20 @@ def _embed_inputs(cfg: ModelConfig, params: Params, inputs: dict
 def forward(cfg: ModelConfig, params: Params, inputs: dict,
             cache: Params | None = None, compute_dtype=torch.bfloat16,
             last_only: bool = False, active: torch.Tensor | None = None,
-            paged=None, return_aux: bool = False):
+            paged=None, return_aux: bool = False,
+            return_hidden: bool = False):
     """Returns ``(logits, new_cache)``, and with ``return_aux`` also the
     MoE load-balance loss summed over the MoE layers (0-d f32; 0 without
-    them), the JAX forward's third value.
+    them), the JAX forward's third value.  ``return_hidden`` returns the
+    final-norm hidden states (B, S, D) in place of the logits (the
+    training step fuses the unembedding into its chunked loss).
+
+    Training (no cache, autograd on) with ``cfg.remat == "full"`` runs
+    each layer, a hybrid's each sub-layer, under
+    `torch.utils.checkpoint`, as the reference's `jax.checkpoint`: the
+    backward recomputes a layer's activations from its input.  The stack's
+    leaves are split into per-layer views once (`torch.unbind`), whose
+    backward stacks the layers' gradients in one operation.
 
     ``inputs`` holds ``"tokens"`` (B, S) and, for a model with a frontend,
     ``"frames"`` or ``"patches"`` (B, P, frontend_dim) ahead of them.
@@ -378,19 +377,28 @@ def forward(cfg: ModelConfig, params: Params, inputs: dict,
         positions = ar
 
     prefill = last_only and cache is None
+    remat = (cfg.remat == "full" and cache is None
+             and torch.is_grad_enabled())
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     groups = _groups(cfg)
+    per_layer = {key: tree_lib.map_structure(lambda a: a.unbind(0),
+                                params["blocks"] if key is None
+                                else params["blocks"][key])
+                 for key, _, _ in groups}
     for g in range(groups[0][2]):
         for key, l, _ in groups:
-            pblk = params["blocks"] if key is None else params["blocks"][key]
-            gp = _tree_map(lambda a: a[g], pblk)
+            gp = tree_lib.map_structure(lambda a: a[g], per_layer[key])
             gc = None
             if cache is not None:
                 cblk = (cache["blocks"] if key is None
                         else cache["blocks"][key])
-                gc = _tree_map(lambda a: a[g], cblk)
-            x, a = _layer_apply(gp, x, cfg, l, positions, gc, lengths, act,
-                                pages, paged, prefill, span)
+                gc = tree_lib.map_structure(lambda a: a[g], cblk)
+            args = (gp, x, cfg, l, positions, gc, lengths, act, pages,
+                    paged, prefill, span)
+            if remat:
+                x, a = checkpoint(_layer_apply, *args, use_reentrant=False)
+            else:
+                x, a = _layer_apply(*args)
             aux = aux + a
 
     x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
@@ -407,10 +415,11 @@ def forward(cfg: ModelConfig, params: Params, inputs: dict,
         for key in ("pages", "decode_span"):
             if key in cache:
                 new_cache[key] = cache[key]
-    head = params["embed"] if cfg.tie_embeddings else params["head"]
-    if last_only:
-        x = x[:, -1:]
-    logits = layers.unembed(head, x)
+    if return_hidden:
+        out = x
+    else:
+        head = params["embed"] if cfg.tie_embeddings else params["head"]
+        out = layers.unembed(head, x[:, -1:] if last_only else x)
     if return_aux:
-        return logits, new_cache, aux
-    return logits, new_cache
+        return out, new_cache, aux
+    return out, new_cache

@@ -1,14 +1,24 @@
-"""Serving watchdog: rolling-median straggler detection.  The
-`StragglerReport` / `StragglerMonitor` / `DecodeWatchdog` part of
-`repro.runtime.fault_tolerance`, copied (numpy only).  The server builds
-the watchdog with the tuner's predicted step time
-(`kernels.autotune.predict_decode_step_us`), and the summary reports it
-beside the measured step times and the stragglers."""
+"""Fault-tolerance runtime: straggler detection, heartbeats and the
+restart policy.  Counterpart of `repro.runtime.fault_tolerance`.
+
+Serving: the server builds the `DecodeWatchdog` with the tuner's
+predicted step time (`kernels.autotune.predict_decode_step_us`), and the
+summary reports it beside the measured step times and the stragglers.
+
+Training: the trainer wraps its step loop in `run_resilient`, which
+checkpoints every N steps (async, atomic: `checkpoint.manager`), watches
+step wall time against a rolling median, and on an exception restores
+the latest committed checkpoint through the trainer's ``on_restore`` and
+resumes from the restored step with the same data order (the pipeline is
+(seed, step, shard)-deterministic).
+"""
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from collections import deque
+from typing import Callable
 
 import numpy as np
 
@@ -79,3 +89,86 @@ class DecodeWatchdog:
             "stragglers": [dataclasses.asdict(r)
                            for r in self.monitor.reports],
         }
+
+
+class Heartbeat:
+    """Per-host liveness: hosts `beat()`; the coordinator calls `dead()`."""
+
+    def __init__(self, num_hosts: int, timeout_s: float = 60.0,
+                 clock: Callable[[], float] = time.monotonic):
+        self.last = {h: clock() for h in range(num_hosts)}
+        self.timeout = timeout_s
+        self.clock = clock
+
+    def beat(self, host: int):
+        self.last[host] = self.clock()
+
+    def dead(self) -> list[int]:
+        now = self.clock()
+        return [h for h, t in self.last.items()
+                if now - t > self.timeout]
+
+
+@dataclasses.dataclass
+class ResilienceConfig:
+    checkpoint_every: int = 50
+    max_restarts: int = 3
+    straggler_threshold: float = 2.0
+
+
+def run_resilient(step_fn, state, num_steps: int, ckpt_manager,
+                  batch_fn, start_step: int = 0,
+                  config: ResilienceConfig = ResilienceConfig(),
+                  fault_hook=None, on_restore=None):
+    """Drive ``state = step_fn(state, batch)`` with checkpoint/restart.
+
+    ``fault_hook(step)`` may raise to inject a failure (tests).
+    ``on_restore(step)`` -> (state, step) rebuilds state from the latest
+    checkpoint.  A step's time runs to the host's reading of its metrics
+    (`to_float`, which waits for the card).  The final state is saved,
+    blocking, at ``num_steps``.  Returns (state, metrics_history,
+    monitor).
+    """
+    monitor = StragglerMonitor(threshold=config.straggler_threshold)
+    history = []
+    restarts = 0
+    step = start_step
+    while step < num_steps:
+        try:
+            t0 = time.monotonic()
+            if fault_hook is not None:
+                fault_hook(step)
+            batch = batch_fn(step)
+            state, metrics = step_fn(state, batch)
+            floats = to_float(metrics)
+            dt = time.monotonic() - t0
+            monitor.observe(step, dt)
+            history.append({"step": step, "time": dt, **floats})
+            step += 1
+            if step % config.checkpoint_every == 0:
+                ckpt_manager.save(step, state)
+        except KeyboardInterrupt:
+            raise
+        except Exception:
+            restarts += 1
+            if restarts > config.max_restarts or on_restore is None:
+                raise
+            try:
+                ckpt_manager.wait()  # drain any in-flight async save first
+            except Exception:
+                pass
+            state, step = on_restore(step)
+    ckpt_manager.save(num_steps, state, blocking=True)
+    return state, history, monitor
+
+
+def to_float(metrics: dict) -> dict:
+    """The metrics that convert to a Python float (0-d tensors, numbers);
+    the counterpart of the reference's ``jax_to_float``."""
+    out = {}
+    for k, v in metrics.items():
+        try:
+            out[k] = float(v)
+        except (TypeError, ValueError, RuntimeError):
+            pass
+    return out

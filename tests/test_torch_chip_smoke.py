@@ -468,3 +468,210 @@ def test_frontend_prefill_on_smoke_models(monkeypatch, arch, feats, toks,
     assert res["flash_launches"] == chip_smoke.PREFILL_TIMED * cfg.num_layers
     assert res["vs_forward"]["flash_launches_forward"] == 0
     assert set(causal) == {cfg.causal}
+
+
+@pytest.fixture
+def two_threads():
+    """Two intra-op threads for the training rehearsals: the suite runs
+    in several processes at once."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    yield
+    torch.set_num_threads(n)
+
+
+def test_bf16_logit_bound_grows_with_depth_from_the_2_layer_bound():
+    """The derived bound is queue C's 3e-2 at the 2 layers it was set at
+    and grows as the square root of the residual stream's roundings."""
+    rel = chip_smoke.bf16_logit_rel
+    assert rel(chip_smoke.SHALLOW) == pytest.approx(3e-2)
+    assert rel(8) == pytest.approx(3e-2 * (17 / 5) ** 0.5)
+    assert rel(24) == pytest.approx(0.0939, abs=1e-4)
+    assert rel(40) == pytest.approx(0.1207, abs=1e-4)
+    assert all(rel(n) < rel(n + 1) for n in range(1, 100))
+
+
+def test_prefill_vs_forward_records_every_depth(two_threads, monkeypatch):
+    """At a depth past ``MID_DEPTH`` the phase compares the two bf16 paths
+    at 2, 8 and all layers of the same weights, each row beside the
+    depth's derived bound, and gates on it."""
+    import dataclasses
+
+    import repro_torch.configs as configs
+    from repro_torch.kernels.attention import decode_int8
+    from repro_torch.kernels.attention import kernel as flash
+    from repro_torch.kernels.attention import ops
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer
+    from repro_torch.runtime import quantize
+    cfg = dataclasses.replace(configs.get_smoke("qwen3_14b"), num_layers=10)
+    params = transformer.init(cfg, torch.Generator().manual_seed(0),
+                              dtype=torch.bfloat16)
+    real = ops.mha_attention
+
+    def counting(*a, **kw):
+        flash.launches += 1
+        return real(*a, **kw)
+
+    monkeypatch.setattr(ops, "mha_attention", counting)
+    res = chip_smoke.prefill_vs_forward(
+        torch, steps, transformer, (decode, decode_int8, quantize, flash),
+        cfg, params, 40)
+    assert res["ok"], res
+    assert [d["layers"] for d in res["depths"]] == [2, 8, 10]
+    for d in res["depths"]:
+        assert d["derived_bound"] == pytest.approx(
+            chip_smoke.bf16_logit_rel(d["layers"]) * d["max_abs_logit"])
+    assert res["depths"][-1]["bf16_prefill_vs_forward"] == \
+        res["bf16_max_abs_err"]
+
+
+@pytest.mark.parametrize("phase", ["quickstart", "spmv_pipeline"])
+def test_design_flow_phase_on_the_cpu(phase):
+    res = chip_smoke.design_flow_phase(torch, _smoke_mods(), phase,
+                                       device="cpu")
+    assert res["ok"], res
+    assert res["launches"] == dict.fromkeys(
+        ("blocked_matmul", "ell_spmv", "ell_spmv_blocked"), 0)
+
+
+def test_design_flow_phase_fails_a_kernel_that_did_not_launch(monkeypatch):
+    """On a card the phase requires the example's kernels to have
+    launched: an example whose results pass but that launched nothing
+    fails it."""
+    from repro_torch.examples import quickstart
+
+    def run(device):
+        print("the flow ran")
+        return {"matmul": {"ok": True}, "spmv": {"ok": True}}
+
+    monkeypatch.setattr(quickstart, "run", run)
+    res = chip_smoke.design_flow_phase(torch, _smoke_mods(), "quickstart",
+                                       device="cuda")
+    assert not res["ok"] and res["last_line"] == "the flow ran"
+
+
+def test_train_step_parity_on_the_cpu(two_threads):
+    import repro_torch.configs as configs
+    res = chip_smoke.train_step_parity(torch, configs, _smoke_mods(),
+                                       device="cpu")
+    assert res["ok"], res
+    assert [r["arch"] for r in res["rows"]] == ["qwen3-14b-smoke",
+                                                "phi3.5-moe-smoke"]
+    for r in res["rows"]:
+        assert r["step_is_its_parts_bitwise"]
+        assert r["step_params_max_abs_err"] == 0.0
+        assert 0 <= r["step_params_below_floor"] < r["step_params"]
+
+
+def test_train_step_parity_fails_a_step_that_is_not_its_parts(
+        two_threads, monkeypatch):
+    """A second side's train step that moves one parameter 1e-4 past the
+    update (far above a gradient's floor) fails both the bitwise check of
+    the step against its parts and the 1e-5 check against the first
+    side's step."""
+    import repro_torch.configs as configs
+    from repro_torch.launch import steps
+    real = steps.make_train_step
+    calls = []
+
+    def make(cfg, opt_cfg, **kw):
+        step = real(cfg, opt_cfg, **kw)
+        calls.append(cfg.name)
+        if len(calls) % 2:                   # the first side's, as it is
+            return step
+
+        def nudged(state, batch):
+            state, m = step(state, batch)
+            state["params"]["final_norm"]["scale"][0] += 1e-4
+            return state, m
+        return nudged
+
+    monkeypatch.setattr(steps, "make_train_step", make)
+    res = chip_smoke.train_step_parity(torch, configs, _smoke_mods(),
+                                       device="cpu", archs=("qwen3_14b",))
+    (row,) = res["rows"]
+    assert not res["ok"]
+    assert not row["step_is_its_parts_bitwise"]
+    assert row["step_params_max_abs_err"] > chip_smoke.TRAIN_STEP_ABS
+
+
+def test_train_danube_on_a_smoke_model(two_threads):
+    import dataclasses
+
+    import repro_torch.configs as configs
+    cfg = dataclasses.replace(configs.get_smoke("h2o_danube_1_8b"),
+                              remat="full")
+    res = chip_smoke.train_danube(torch, configs, _smoke_mods(), "cpu",
+                                  cfg=cfg, shape=(2, 16), timed=2,
+                                  device="cpu")
+    assert res["ok"], res
+    assert len(res["step_ms"]) == 2 and len(res["losses"]) == 3
+    assert res["bound_ms"] == pytest.approx(
+        8 * cfg.param_count() * 32 / 989e12 * 1e3)
+    assert res["flash_launches"] == 0
+
+
+def test_train_resume_cut_on_a_smoke_model(two_threads, tmp_path):
+    import repro_torch.configs as configs
+    res = chip_smoke.train_resume_cut(
+        torch, configs, _smoke_mods(),
+        cfg=configs.get_smoke("h2o_danube_1_8b"), shape=(2, 16),
+        device="cpu", state_root=tmp_path)
+    assert res["ok"], res
+    assert res["fault_steps_run"] == list(range(10))
+    assert res["restored_at"] == [4] and res["fault_fired_at"] == [4]
+    assert not (tmp_path / "train_resume_danube_cut").exists()
+
+
+def test_train_resume_cut_catches_a_state_that_differs(two_threads, tmp_path,
+                                                       monkeypatch):
+    """A replay that is not bit for bit (here: one parameter nudged after
+    the restore) fails the phase."""
+    import repro_torch.configs as configs
+    from repro_torch.checkpoint import CheckpointManager
+    real = CheckpointManager.restore
+
+    def nudged(self, step, like, device=None):
+        state, meta = real(self, step, like, device)
+        state["params"]["final_norm"]["scale"][0] += 1e-3
+        return state, meta
+
+    monkeypatch.setattr(CheckpointManager, "restore", nudged)
+    res = chip_smoke.train_resume_cut(
+        torch, configs, _smoke_mods(),
+        cfg=configs.get_smoke("h2o_danube_1_8b"), shape=(2, 16),
+        device="cpu", state_root=tmp_path)
+    assert not res["ok"]
+    assert not res["replay_bitwise"] and not res["fault_bitwise"]
+
+
+def test_train_cli_phase_on_the_cpu(two_threads, tmp_path, monkeypatch):
+    """The card run's two processes and checks, at a smaller batch."""
+    monkeypatch.setattr(chip_smoke, "TRAIN_CLI", [
+        "--arch", "qwen3_14b", "--smoke", "--batch", "2", "--seq", "16"])
+    res = chip_smoke.train_cli(torch, cli=("--device", "cpu"),
+                               state_root=tmp_path)
+    assert res["ok"], res
+    assert [r["summary"]["final_ckpt"] for r in res["runs"]] == [30, 40]
+    assert all(r["tokens_per_s"] > 0 for r in res["runs"])
+
+
+def tiny_lm(hundred_m: bool):
+    """A stand-in for the example's configs on the CPU: the same family
+    and code path at a width a test affords."""
+    from repro_torch.models.config import ModelConfig
+    return ModelConfig(name="lm-tiny", family="dense", num_layers=2,
+                       d_model=64, d_ff=128, vocab_size=256, num_heads=4,
+                       num_kv_heads=2)
+
+
+def test_train_lm_phase_on_the_cpu(two_threads, tmp_path, monkeypatch):
+    from repro_torch.examples import train_lm
+    monkeypatch.setattr(train_lm, "model_config", tiny_lm)
+    res = chip_smoke.train_lm_phase(
+        torch, argv=["--device", "cpu", "--steps", "20", "--seq", "32"],
+        state_root=tmp_path)
+    assert res["ok"], res
+    assert res["first_line"].startswith("training lm-tiny")
+    assert not (tmp_path / "train_lm").exists()

@@ -17,7 +17,9 @@ CUDA cores for f32, as `kernel.design` routes them) against `matmul_ref`
 at ragged shapes with every activation, and the ELL SpMV kernels
 (`ell_spmv` with and without the row lengths, `ell_spmv_blocked` with
 slabs staged, gathered and skipped) against `spmv_ell_ref`,
-`spmv_csr_ref`, the slab walk `spmv_blocked_ref` and each other. Every
+`spmv_csr_ref`, the slab walk `spmv_blocked_ref` and each other; and the
+train step, which never launches a kernel (B5 has no backward) and is
+bitwise repeatable from a seed (resume relies on it). Every
 test here is marked ``cuda`` and skips on a host without a card; this file
 imports no JAX, so it also runs where only the port is installed:
 
@@ -1451,3 +1453,65 @@ def test_one_decode_step_of_each_family_is_finite(cuda, arch):
     want = 0 if cfg.sliding_window or cfg.family == "ssm" else attn
     assert decode.launches == want
     assert cache["lengths"].tolist() == [9, 8]
+
+
+def _train_setup(arch, device, seq=32, moment_dtype="float32"):
+    import repro_torch.configs as configs
+    from repro_torch.data import DataConfig, SyntheticSource
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer
+    from repro_torch.optim import adamw
+    cfg = configs.get_smoke(arch)
+    opt = adamw.AdamWConfig(peak_lr=1e-3, warmup_steps=2, total_steps=10,
+                            moment_dtype=moment_dtype)
+    params = transformer.init(
+        cfg, torch.Generator(device=device).manual_seed(0))
+    state = {"params": params, "opt": adamw.init_state(params, opt)}
+    src = SyntheticSource(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=seq, global_batch=4, seed=1,
+        frontend=cfg.frontend, frontend_dim=cfg.frontend_dim,
+        num_patches=4 if cfg.frontend == "patch" else 0))
+
+    def batch(t):
+        return {k: torch.from_numpy(v).to(device)
+                for k, v in src.batch(t, 0, 1).items()}
+    return steps.make_train_step(cfg, opt), state, batch
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3_14b", "h2o_danube_1_8b",
+                                  "internvl2_2b", "phi3_5_moe_42b"])
+def test_a_train_step_never_launches_the_flash_kernel(cuda, arch):
+    """B5 has no backward: a train step (bf16 compute, the reference's)
+    attends through `attention_core` and launches no kernel at all."""
+    from repro_torch.kernels.matmul import kernel as mm
+    from repro_torch.kernels.spmv import kernel as sp
+    step, state, batch = _train_setup(arch, cuda)
+    before = (flash.launches, decode.launches, decode_int8.launches,
+              mm.launches, sp.launches)
+    for t in range(2):
+        state, m = step(state, batch(t))
+    assert np.isfinite(float(m["loss"]))
+    assert (flash.launches, decode.launches, decode_int8.launches,
+            mm.launches, sp.launches) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch, moment_dtype", [
+    ("qwen3_14b", "float32"), ("qwen3_14b", "int8"),
+    ("h2o_danube_1_8b", "float32"), ("phi3_5_moe_42b", "float32"),
+    ("rwkv6_7b", "float32"), ("jamba_1_5_large_398b", "float32")])
+def test_the_train_step_is_bitwise_repeatable(cuda, arch, moment_dtype):
+    """Two runs of three steps from one seed end in the same state, bit
+    for bit: no operation of the forward, the backward or the update adds
+    in an order that changes from run to run (resume relies on it)."""
+    from repro_torch import tree as tree_lib
+    runs = []
+    for _ in range(2):
+        step, state, batch = _train_setup(arch, cuda,
+                                          moment_dtype=moment_dtype)
+        for t in range(3):
+            state, _ = step(state, batch(t))
+        runs.append(tree_lib.leaves(state))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)

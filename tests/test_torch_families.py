@@ -37,6 +37,7 @@ from repro.models import moe as jmoe  # noqa: E402
 from repro.models import transformer as jtf  # noqa: E402
 from repro.models.config import ModelConfig as JConfig  # noqa: E402
 from repro.runtime import paging as jpaging  # noqa: E402
+from repro_torch import tree as tree_lib  # noqa: E402
 from repro_torch.convert import (cache_from_numpy, disable_tf32,  # noqa: E402
                                  params_from_numpy, to_numpy)
 from repro_torch.launch import steps as tsteps  # noqa: E402
@@ -275,7 +276,7 @@ def test_masked_one_slot_prefill(arch):
                       jax.tree.leaves(jax.tree.map(np.asarray,
                                                    jc["blocks"]))):
         np.testing.assert_allclose(gl, wl, rtol=0, atol=F32_TOL)
-    for leaf in ttf._leaves(tc["blocks"]):
+    for leaf in tree_lib.leaves(tc["blocks"]):
         assert not leaf[:, [0, 2]].any() and leaf[:, 1].any()
 
 

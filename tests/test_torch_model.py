@@ -22,6 +22,7 @@ import numpy as np  # noqa: E402
 import repro.configs as jconfigs  # noqa: E402
 import repro_torch.configs as tconfigs  # noqa: E402
 from repro.models import transformer as jtf  # noqa: E402
+from repro_torch import tree as tree_lib  # noqa: E402
 from repro_torch.convert import (cache_from_numpy, disable_tf32,  # noqa: E402
                                  params_from_numpy, to_numpy)
 from repro_torch.models import transformer as ttf  # noqa: E402
@@ -235,7 +236,7 @@ def test_every_arch_init_tree_has_the_reference_shapes(arch):
                      (jnp.float32, torch.float32)):
         want = jax.tree.map(lambda a: (a.shape, a.dtype.name),
                             jtf.init(jcfg, jax.random.PRNGKey(0), dtype=jdt))
-        got = ttf._tree_map(
+        got = tree_lib.map_structure(
             lambda a: (tuple(a.shape), str(a.dtype).removeprefix("torch.")),
             ttf.init(tcfg, torch.Generator().manual_seed(0), dtype=tdt))
         assert got == want
