@@ -113,10 +113,18 @@ Phases, each printed as one JSON line:
    ``serve_moe_paged`` (Phi-3.5-MoE at full width, 16 of 32 layers: B1,
    B2) and ``moe_paged_vs_contiguous`` (the paged run's streams equal a
    contiguous server's with its weights at the same, default, span);
+   every serve run under the CLI's sharding rules (`serve.serving_rules`:
+   a (1, 1) mesh over a one-rank NCCL group), so MoE layers take
+   `moe.apply_sharded`'s expert exchange with its two-stage capacity, as
+   the JAX CLI's do;
    ``moe_vs_teacher_forcing`` (4 layers, capacity raised so nothing
    drops, 64 tokens through B1 in f32); ``serve_qwen3_moe`` twice
    (Qwen3-MoE-235B at full width, 128 experts, top 8, 4 of 94 layers: the
-   two runs' streams bitwise equal); ``serve_rwkv`` (RWKV6-7B, full width
+   two runs' streams bitwise equal); ``moe_expert_parallel`` (one
+   Phi-3.5-MoE MoE layer at full width, 4 x 128 tokens whose repeats
+   overflow two experts: `apply_sharded` over the NCCL group against
+   `apply_grouped` at the compounded capacity within 1e-5 in f32, the
+   items each stage dropped); ``serve_rwkv`` (RWKV6-7B, full width
    and depth, no kernel) and ``rwkv_vs_teacher_forcing``;
    ``serve_jamba_smoke`` and ``serve_chaos_jamba_smoke`` (Jamba's SMOKE
    shapes, the only ones one card holds; the chaos run's ``kv_corrupt``
@@ -186,10 +194,17 @@ Phases, each printed as one JSON line:
    wherever the gradient is above 1e-4 of the largest, B5 never
    launched.
    ``train_danube``: H2O-Danube-1.8B at full width and depth
-   (``remat="full"``), f32 weights and moments, 4 x 2,048 tokens a step
-   of `SyntheticSource`: step ms (median of 5 after a warm step),
+   (``remat="full"``), f32 weights and moments placed by
+   `launch.specs` on the trainer CLI's (1, 1) mesh (a one-rank NCCL
+   group), the data-parallel step, 4 x 2,048 tokens a step of
+   `SyntheticSource`: step ms (median of 5 after a warm step),
    tokens/s, peak memory, losses and grad norms, the bound, device time
-   by kernel.  ``train_resume_danube_cut``: Danube at full width cut to
+   by kernel, and the gradient tree's one-rank all-reduce and
+   `compressed_psum` times.  ``train_mesh_parity``: Danube at full width
+   cut to 4 layers, one step through the mesh path bitwise the plain
+   step (loss, gradients, every updated leaf), the ``grad_dtype=bf16``
+   gradients bitwise the f32 ones rounded, `compressed_psum` of the
+   gradient tree within each block's scale/2 (the worst ratio printed).  ``train_resume_danube_cut``: Danube at full width cut to
    4 layers, 10 steps through `run_resilient` with checkpoints, restored
    at 6 and replayed to the same state bit for bit, and a fault at step
    4 recovered to it too.  ``train_cli``: `repro_torch.launch.train` on
@@ -354,26 +369,12 @@ FLASH_CASES = [
 PREFILL_PHASES = [("prefill", "qwen3_14b", 4096),
                   ("prefill_danube", "h2o_danube_1_8b", 6144)]
 PREFILL_TIMED = 2                    # untraced forwards after a warm-up
-BF16_LOGIT_REL = 3e-2                # ROADMAP queue C's bf16 logit bound
-SHALLOW = 2                          # the SMOKE depth that bound was set at
 MID_DEPTH = 8                        # a depth between it and the full
-
-
-def bf16_logit_rel(layers: int) -> float:
-    """The bf16 logit bound at ``layers`` layers, as a fraction of the
-    largest |logit|: how far two bf16 evaluations of one model (or a bf16
-    and the f32 one) may put a last-position logit.
-
-    Error model: a bf16 forward rounds its residual stream once at the
-    embedding and once at each residual add, two a layer, each rounding
-    an independent relative error of at most 2^-9 per element (bf16's
-    unit roundoff) that the rest of the network carries to the logits
-    with one gain.  Independent errors add in quadrature, so after
-    ``layers`` layers the logit error grows as sqrt(2 layers + 1).  The
-    gain is not derived: it is fixed where queue C's bound of 3e-2 was set,
-    at ``SHALLOW`` layers (5 roundings).  So the bound is 3e-2 at 2
-    layers, 5.5e-2 at 8, 9.4e-2 at 24 and 0.121 at 40."""
-    return BF16_LOGIT_REL * math.sqrt((2 * layers + 1) / (2 * SHALLOW + 1))
+# One definition of the bf16 logit bound serves the server's near-tie
+# rule, `prefill_vs_forward` and `_near_tie`: 3e-2 of max |logit| at the
+# SMOKE depth of 2 layers, and `bf16_logit_rel(layers)` derived from it.
+from repro_torch.launch.serve import (  # noqa: E402
+    BF16_LOGIT_REL, BF16_SHALLOW as SHALLOW, bf16_logit_rel)
 MATMUL_MARKS = ("nvjet", "gemm", "xmma", "cutlass")
 
 
@@ -1119,12 +1120,16 @@ def _near_tie(torch, serve, cfg, device, kv_dtype, prompt, want, got):
                           kv_dtype=kv_dtype, autotune_kernels=False)
     _, last = server._prefill(0, 0, list(prompt) + want[:m], 1, logits=True)
     gap = abs(float(last[want[m]] - last[got[m]]))
-    bound = serve.BF16_LOGIT_REL * float(abs(last).max())
+    top = float(abs(last).max())
+    bound = serve.BF16_LOGIT_REL * top
     del server
     gc.collect()
     torch.cuda.empty_cache()
     return {"position": m, "uninterrupted": want[m], "resumed": got[m],
-            "gap": gap, "bound": bound, "near_tie": gap < bound}
+            "gap": gap, "max_abs_logit": top, "gap_rel": gap / top,
+            "bound_rel": serve.BF16_LOGIT_REL,
+            "derived_bound_rel": serve.bf16_logit_rel(cfg.num_layers),
+            "layers": cfg.num_layers, "bound": bound, "near_tie": gap < bound}
 
 
 def crash_resume_phase(torch, serve, check_serve, mods, configs, *, phase,
@@ -1742,6 +1747,12 @@ FAMILY_DECODE = [MOE_ARGV, MOE_PAGED_ARGV, QWEN3_MOE_ARGV, JAMBA_ARGV]
 FRONTEND_PHASES = [("prefill_hubert", "hubert_xlarge", (1000, None), 2),
                    ("prefill_internvl2", "internvl2_2b", (1024, 512), 1)]
 TF_REL = 1e-4                        # f32 decode vs forward, of max |logit|
+# moe_expert_parallel: one Phi-3.5-MoE MoE layer at full width, 4 x 128
+# tokens, the first 64 of each row one token (its two experts overflow)
+MOE_EP_TOKENS, MOE_EP_REPEAT, MOE_EP_TOL = (4, 128), 64, 1e-5
+# and at the serve runs' decode shape (batch 4, one token), host ms of a
+# call over MOE_EP_CALLS calls
+MOE_EP_DECODE, MOE_EP_CALLS = (4, 1), 50
 
 
 def _flag(argv, flag, default):
@@ -1796,8 +1807,9 @@ def cut_serve_run(torch, serve, mods, cfg, argv) -> dict:
     `dataclasses.replace`) through `serve.Server` and `serve.serve_loop`,
     set up as the CLI sets up ``argv``: its seeded requests, batch, cache
     dtype, paging and device, the scheduler a paged pool runs under and a
-    decode watchdog; every kernel's launch count set to 0 just before the
-    loop and read just after.  Returns `cli_run`'s record with the server;
+    decode watchdog, under the CLI's `serve.serving_rules` (MoE layers
+    take the expert exchange); every kernel's launch count set to 0 just
+    before the loop and read just after.  Returns `cli_run`'s record with the server;
     the log is the serving-plan and summary lines the CLI would print."""
     import numpy as np
     from repro_torch.kernels import autotune
@@ -1810,24 +1822,25 @@ def cut_serve_run(torch, serve, mods, cfg, argv) -> dict:
     spec = (paging.PageSpec.build(batch, max_len,
                                   int(_flag(argv, "--page-size", 16)))
             if "--paged" in argv else None)
-    server = serve.Server(cfg, batch, max_len, kv_dtype=kv_dtype,
-                          device=_flag(argv, "--device", "cuda"), paged=spec,
-                          prefill_len=prompt)
-    scheduler = (serve.Scheduler("fcfs", allocator=server.allocator)
-                 if spec is not None else None)
-    watchdog = serve.DecodeWatchdog(autotune.predict_decode_step_us(
-        cfg, batch, cache_len=max_len, kv_dtype=kv_dtype,
-        plans=server.kernel_plan, chip=serve._chip(server.device)))
-    rng = np.random.default_rng(0)
-    lc = lifecycle.Lifecycle()
-    for rid in range(int(_flag(argv, "--requests", 6))):
-        lc.submit(rid, rng.integers(0, cfg.vocab_size, size=prompt), gen)
-    reset_launch_counts(mods)
-    t0 = time.time()
-    stats = serve.serve_loop(server, lc, watchdog=watchdog,
-                             scheduler=scheduler)
-    seconds = time.time() - t0
-    counts = launch_counts(mods)
+    device = _flag(argv, "--device", "cuda")
+    with serve.serving_rules(device):
+        server = serve.Server(cfg, batch, max_len, kv_dtype=kv_dtype,
+                              device=device, paged=spec, prefill_len=prompt)
+        scheduler = (serve.Scheduler("fcfs", allocator=server.allocator)
+                     if spec is not None else None)
+        watchdog = serve.DecodeWatchdog(autotune.predict_decode_step_us(
+            cfg, batch, cache_len=max_len, kv_dtype=kv_dtype,
+            plans=server.kernel_plan, chip=serve._chip(server.device)))
+        rng = np.random.default_rng(0)
+        lc = lifecycle.Lifecycle()
+        for rid in range(int(_flag(argv, "--requests", 6))):
+            lc.submit(rid, rng.integers(0, cfg.vocab_size, size=prompt), gen)
+        reset_launch_counts(mods)
+        t0 = time.time()
+        stats = serve.serve_loop(server, lc, watchdog=watchdog,
+                                 scheduler=scheduler)
+        seconds = time.time() - t0
+        counts = launch_counts(mods)
     summary = serve._summary(server, lc, stats, seconds, batch=batch,
                              batch_source="flag", watchdog=watchdog,
                              scheduler=scheduler)
@@ -1874,6 +1887,7 @@ def family_serve(torch, serve, configs, check_serve, mods, *, phase, argv,
            "layers": cfg.num_layers, "attention_layers": attn,
            "depth_cut": None if depth is None else [own.num_layers, depth],
            "driven_by": "cli" if depth is None else "Server, serve_loop",
+           "rules": "serve.serving_rules: a (1, 1) mesh, specs.rules_for",
            "rc": run["rc"], "host_wall_s": round(run["seconds"], 3),
            "card": card, "batch": summary.get("batch"),
            "cache_rows": (int(server.cache["blocks"]["k"].shape[2])
@@ -1950,24 +1964,152 @@ def decode_vs_forward(torch, transformer, cfg, params, *, tokens, prefill=0,
             "ok": finite and err <= tol}
 
 
+def _host_ms(torch, fn, device, n: int) -> float:
+    """Host ms a call of ``fn`` over ``n`` calls after a warm one, the
+    device drained before and after: what a host-bound loop pays."""
+    fn()
+    _sync(torch, device)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    _sync(torch, device)
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def _syncs(torch, fn, device):
+    """The device-to-host synchronisations one call of ``fn`` makes, as
+    `torch.cuda.set_sync_debug_mode` reports them (None on the CPU)."""
+    import warnings
+    if torch.device(device).type != "cuda":
+        return None
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def moe_expert_parallel(torch, configs, smi, device="cuda", cfg=None,
+                        tokens=MOE_EP_TOKENS, repeat=MOE_EP_REPEAT) -> dict:
+    """One MoE layer of Phi-3.5-MoE at full width (d_model 4096, 16
+    experts of d_ff 6400, top 2), seeded f32 weights, ``MOE_EP_TOKENS``
+    tokens whose first ``MOE_EP_REPEAT`` of each row are one token:
+    `moe.apply_sharded` under the serve CLI's rules (`serving_rules`: a
+    (1, 1) mesh, NCCL on a card; the expert exchange through the group)
+    against its plain two-stage version, `apply_grouped` at the
+    compounded capacity ``c_local`` (with one shard the send buffer of
+    ``c_send`` slots holds every item), within ``MOE_EP_TOL``.  Reports
+    the items each stage dropped, the items `apply_grouped`'s one-stage
+    capacity (the JAX `Server`'s path) would drop, and each path's ms.
+    At the serve runs' decode shape (``MOE_EP_DECODE``) the host ms of a
+    call of each path (`apply_grouped` at its one-stage capacity, as the
+    server without rules runs it) and of one exchange and one aux
+    all-reduce over the group alone, and the synchronisations of each
+    path."""
+    import torch.distributed as dist
+    from repro_torch.core.loadbalance import expert_capacity
+    from repro_torch.launch import serve
+    from repro_torch.models import moe
+    cfg = cfg or configs.get("phi3_5_moe_42b")
+    b, s = tokens
+    t, d, k, e = b * s, cfg.d_model, cfg.top_k, cfg.num_experts
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = moe.moe_init(gen, cfg)
+    x = torch.randn(b, s, d, generator=gen, device=device)
+    x[:, :repeat] = x[0, 0]
+    c_send = expert_capacity(t * k, 1, 1, cfg.capacity_factor)
+    c_local = expert_capacity(c_send, e, 1, cfg.capacity_factor)
+    one_stage = expert_capacity(t, e, k, cfg.capacity_factor)
+    with serve.serving_rules(device):
+        out, aux = moe.apply_sharded(params, x, cfg)
+        ms = _timed_ms(torch, lambda: moe.apply_sharded(params, x, cfg),
+                       device)
+    want, want_aux = moe.apply_grouped(params, x.reshape(t, d), cfg,
+                                       capacity=c_local)
+    plain_ms = _timed_ms(torch, lambda: moe.apply_grouped(
+        params, x.reshape(t, d), cfg, capacity=c_local), device)
+    idx, _, _ = moe.route(params, x.reshape(t, d), cfg)
+    counts = torch.bincount(idx.reshape(-1), minlength=e)
+    res = {"arch": cfg.name, "d_model": d, "experts": e, "top_k": k,
+           "moe_d_ff": cfg.moe_d_ff, "tokens": [b, s], "device": str(device),
+           "capacity_factor": cfg.capacity_factor, "c_send": c_send,
+           "c_local": c_local, "one_stage_capacity": one_stage,
+           "items": t * k, "items_per_expert": counts.tolist(),
+           "send_stage_dropped": max(0, t * k - c_send),
+           "expert_stage_dropped": int((counts - c_local).clamp(min=0)
+                                       .sum()),
+           "one_stage_dropped": int((counts - one_stage).clamp(min=0)
+                                    .sum()),
+           "max_abs_err": float((out.reshape(t, d) - want).abs().max()),
+           "aux_abs_err": abs(float(aux) - float(want_aux)),
+           "tolerance": MOE_EP_TOL, "ms": ms, "plain_ms": plain_ms,
+           "nvidia_smi": smi}
+    xd = torch.randn(*MOE_EP_DECODE, d, generator=gen, device=device)
+    td = MOE_EP_DECODE[0] * MOE_EP_DECODE[1]
+    rows = torch.zeros(expert_capacity(td * k, 1, 1, cfg.capacity_factor),
+                       d, device=device)
+    one = torch.ones((), device=device)
+
+    def grouped():
+        moe.apply_grouped(params, xd.reshape(td, d), cfg)
+
+    def sharded():
+        moe.apply_sharded(params, xd, cfg)
+
+    def exchange():
+        dist.all_to_all_single(torch.empty_like(rows), rows, group=group)
+
+    def aux_mean():
+        dist.all_reduce(one.clone(), group=group)
+
+    with serve.serving_rules(device) as mesh:
+        from repro_torch.launch.mesh import axis_group
+        group = axis_group(mesh, "model")
+        res["decode"] = {
+            "tokens": list(MOE_EP_DECODE), "calls": MOE_EP_CALLS,
+            "grouped_host_ms": _host_ms(torch, grouped, device,
+                                        MOE_EP_CALLS),
+            "sharded_host_ms": _host_ms(torch, sharded, device,
+                                        MOE_EP_CALLS),
+            "all_to_all_host_ms": _host_ms(torch, exchange, device,
+                                           MOE_EP_CALLS),
+            "all_reduce_host_ms": _host_ms(torch, aux_mean, device,
+                                           MOE_EP_CALLS),
+            "grouped_syncs": _syncs(torch, grouped, device),
+            "sharded_syncs": _syncs(torch, sharded, device)}
+    res["ok"] = (res["max_abs_err"] <= MOE_EP_TOL
+                 and res["aux_abs_err"] <= MOE_EP_TOL
+                 and res["expert_stage_dropped"] > 0)
+    del params, x, xd, out, want
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    return res
+
+
 def moe_paged_vs_contiguous(torch, serve, lifecycle, cfg, params, argv,
                             paged_streams) -> dict:
     """The paged CLI run's streams against a contiguous server with its
     weights at the kernels' default span, as the paged run decodes: the
-    same requests (the CLI's seeded prompts), batch and admission, so the
-    streams must be equal."""
+    same requests (the CLI's seeded prompts), batch, admission and
+    sharding rules, so the streams must be equal."""
     import numpy as np
     prompt = int(argv[argv.index("--prompt-len") + 1])
     gen = int(argv[argv.index("--gen") + 1])
     n = int(argv[argv.index("--requests") + 1])
-    server = serve.Server(cfg, 4, prompt + gen + 8, params=params,
-                          autotune_kernels=False,
-                          device=params["embed"]["table"].device)
-    rng = np.random.default_rng(0)
-    lc = lifecycle.Lifecycle()
-    for rid in range(n):
-        lc.submit(rid, rng.integers(0, cfg.vocab_size, size=prompt), gen)
-    serve.serve_loop(server, lc)
+    device = params["embed"]["table"].device
+    with serve.serving_rules(device):
+        server = serve.Server(cfg, 4, prompt + gen + 8, params=params,
+                              autotune_kernels=False, device=device)
+        rng = np.random.default_rng(0)
+        lc = lifecycle.Lifecycle()
+        for rid in range(n):
+            lc.submit(rid, rng.integers(0, cfg.vocab_size, size=prompt),
+                      gen)
+        serve.serve_loop(server, lc)
     streams = {rid: list(r.tokens) for rid, r in lc.requests.items()}
     server.cache = None
     equal = streams == paged_streams
@@ -2133,6 +2275,10 @@ def family_phases(torch, serve, configs, check_serve, steps, transformer,
     emit("serve_qwen3_moe_repeat", card=card, streams_equal=runs[0] == runs[1],
          tokens=sum(len(t) for t in runs[0].values()))
     check(runs[0] == runs[1], "Qwen3-MoE: two runs gave different streams")
+
+    ep = moe_expert_parallel(torch, configs, card)
+    emit("moe_expert_parallel", **ep)
+    check(ep["ok"], f"expert parallelism != its plain version: {ep}")
 
     res = family_serve(torch, serve, configs, check_serve, mods,
                        phase="serve_rwkv", argv=RWKV_ARGV, kernel=None,
@@ -2380,26 +2526,77 @@ def _sync(torch, device):
         torch.cuda.synchronize()
 
 
+def _timed_ms(torch, fn, device, reps: int = 3) -> float:
+    """Mean ms of ``reps`` calls of ``fn``: between CUDA events on a card,
+    on the host clock on the CPU."""
+    fn()
+    if torch.device(device).type != "cuda":
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def reduce_costs(torch, leaves, group, device) -> dict:
+    """What the data-parallel reduce of a gradient tree's ``leaves``
+    costs on ``group``: one `all_reduce` a leaf (the train step's) and
+    `compressed_psum` a leaf, each the mean ms of 3 passes over the tree
+    after a warm one."""
+    import torch.distributed as dist
+
+    from repro_torch.parallel.compression import compressed_psum
+
+    def all_reduce():
+        for g in leaves:
+            dist.all_reduce(g, group=group)
+
+    def compressed():
+        for g in leaves:
+            compressed_psum(g, group)
+
+    return {"grad_bytes": sum(g.numel() * g.element_size() for g in leaves),
+            "grad_leaves": len(leaves),
+            "all_reduce_ms": _timed_ms(torch, all_reduce, device),
+            "compressed_psum_ms": _timed_ms(torch, compressed, device)}
+
+
 def train_danube(torch, configs, mods, smi, cfg=None, shape=DANUBE_TRAIN,
                  timed=DANUBE_TIMED, device="cuda") -> dict:
     """H2O-Danube-1.8B at full width and depth (``remat="full"``, its
-    config's), seeded f32 weights and f32 AdamW moments on the card (the
-    policy's below 100 G parameters), `make_train_step` (bf16 compute) on
-    ``shape`` batches of `SyntheticSource`: one warm step, then ``timed``
-    steps, each ended by a synchronise.  Reports the median step ms,
-    tokens/s, peak memory, every step's loss and grad norm, the flash
-    kernel's launches (must be 0) and the bound: 8 N T operations (6 N T
-    for the forward and backward, 2 N T for the recomputed forward) at the
-    bf16 peak, beside the bytes of reading and writing the state once; and
-    the f32 attention's operations at the f32 peak, which the bf16 bound
-    leaves out.  One more step under `torch.profiler` gives device time by
+    config's), seeded f32 weights and f32 AdamW moments (the policy's
+    below 100 G parameters) placed by `launch.train.build_state` on the
+    trainer CLI's mesh, a one-rank ``(1, 1)`` mesh (NCCL on a card) by
+    `specs.param_pspecs` / `opt_pspecs`, and `make_train_step` on it (the
+    data-parallel step; bf16 compute) on ``shape`` batches of
+    `SyntheticSource`: one warm step, then ``timed`` steps, each ended by
+    a synchronise.  Reports the median step ms, tokens/s, peak memory,
+    every step's loss and grad norm, the flash kernel's launches (must be
+    0) and the bound: 8 N T operations (6 N T for the forward and
+    backward, 2 N T for the recomputed forward) at the bf16 peak, beside
+    the bytes of reading and writing the state once; and the f32
+    attention's operations at the f32 peak, which the bf16 bound leaves
+    out.  `reduce_costs` of the last step's gradient tree: what its
+    one-rank all-reduce adds to a step, and `compressed_psum`'s time on
+    it.  One more step under `torch.profiler` gives device time by
     kernel."""
     import statistics
 
+    import torch.distributed as dist
+
     from repro_torch import tree as tree_lib
     from repro_torch.core import cost_model
-    from repro_torch.launch import policy, steps
-    from repro_torch.models import transformer
+    from repro_torch.launch import policy, specs, steps
+    from repro_torch.launch.mesh import axis_group, make_host_mesh
+    from repro_torch.launch.train import build_state
     from repro_torch.optim import adamw
     cfg = cfg or configs.get("h2o_danube_1_8b")
     b, s = shape
@@ -2408,18 +2605,18 @@ def train_danube(torch, configs, mods, smi, cfg=None, shape=DANUBE_TRAIN,
                             moment_dtype=policy.moment_dtype(cfg))
     if torch.device(device).type == "cuda":
         torch.cuda.reset_peak_memory_stats()
-    params = transformer.init(cfg, torch.Generator(device=device)
-                              .manual_seed(0),
-                              dtype=policy.param_dtype(cfg))
-    state = {"params": params, "opt": adamw.init_state(params, opt)}
-    step = steps.make_train_step(cfg, opt)
+    mesh = make_host_mesh(device_type=torch.device(device).type)
+    rules = specs.rules_for(mesh)
+    state = build_state(cfg, opt, 0, device, mesh, rules)
+    step = steps.make_train_step(cfg, opt, mesh=mesh, rules=rules)
     reset_launch_counts(mods)
     times, losses, norms = [], [], []
     for t in range(timed + 1):
         batch = _train_batch(torch, cfg, b, s, t, device)
         _sync(torch, device)
         t0 = time.perf_counter()
-        state, m = step(state, batch)
+        # the last step's gradients are kept for `reduce_costs`
+        state, m, *grads = step(state, batch, return_grads=t == timed)
         _sync(torch, device)
         dt = time.perf_counter() - t0
         losses.append(float(m["loss"]))
@@ -2429,6 +2626,9 @@ def train_danube(torch, configs, mods, smi, cfg=None, shape=DANUBE_TRAIN,
     flash_launches = launch_counts(mods)["flash_attention"]
     peak = (torch.cuda.max_memory_allocated()
             if torch.device(device).type == "cuda" else None)
+    costs = reduce_costs(torch, tree_lib.leaves(grads[0]),
+                         axis_group(mesh, ("data",)), device)
+    del grads
     kernels = []
     if torch.device(device).type == "cuda":
         batch = _train_batch(torch, cfg, b, s, timed + 1, device)
@@ -2452,11 +2652,15 @@ def train_danube(torch, configs, mods, smi, cfg=None, shape=DANUBE_TRAIN,
     res = {"arch": cfg.name, "layers": cfg.num_layers,
            "d_model": cfg.d_model, "params": n, "batch": b, "seq": s,
            "remat": cfg.remat, "device": str(device),
+           "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+           "backend": dist.get_backend(),
            "step_ms": [round(x * 1e3, 3) for x in times],
            "step_ms_median": None if med is None else med * 1e3,
            "tokens_per_s": None if med is None else tokens / med,
            "losses": losses, "grad_norms": norms,
-           "max_memory_allocated": peak, "state_bytes": state_bytes,
+           "max_memory_allocated": peak,
+           "peak_gb": None if peak is None else peak / 1e9,
+           "state_bytes": state_bytes, **costs,
            "bound_ops": ops, "bound_ms": ops / PEAK_OPS_PER_S["bfloat16"]
            * 1e3, "bound_bytes_ms": 2 * state_bytes / HBM_BYTES_PER_S * 1e3,
            "attention_f32_ops": attn_ops,
@@ -2465,11 +2669,99 @@ def train_danube(torch, configs, mods, smi, cfg=None, shape=DANUBE_TRAIN,
            "nvidia_smi": smi}
     res["ok"] = (all(math.isfinite(x) for x in losses + norms)
                  and flash_launches == 0 and len(times) == timed)
-    del state, params
+    del state
     gc.collect()
     if torch.device(device).type == "cuda":
         torch.cuda.empty_cache()
     return res
+
+
+def train_mesh_parity(torch, configs, mods, smi, cfg=None, shape=CUT_TRAIN,
+                      device="cuda") -> dict:
+    """H2O-Danube-1.8B at full width cut to ``CUT_LAYERS`` layers (the
+    resume phase's cut), one step from the same seeded state and batch
+    through the trainer CLI's path (`build_state` on a one-rank ``(1,
+    1)`` mesh, NCCL on a card; the data-parallel step) and through the
+    plain step:
+
+    - loss, total loss, every gradient and every updated leaf bitwise;
+    - with ``grad_dtype=bfloat16`` the reduced gradients bitwise the f32
+      ones rounded to bf16;
+    - `compressed_psum` of the f32 gradient tree over the group within
+      each 256-block's scale/2 (the block's largest |g| / 254, plus 2^-23
+      of it for f32's rounding of the dequantized value) of the tree:
+      the worst ratio to that bound is reported (at most 1), and
+      `reduce_costs` of the tree.
+    The flash kernel never launches."""
+    import torch.distributed as dist
+
+    from repro_torch import tree as tree_lib
+    from repro_torch.launch import policy, specs, steps
+    from repro_torch.launch.mesh import axis_group, make_host_mesh
+    from repro_torch.launch.train import build_state
+    from repro_torch.optim import adamw
+    from repro_torch.parallel.compression import QBLOCK, compressed_psum
+    cfg = cfg or dataclasses.replace(configs.get("h2o_danube_1_8b"),
+                                     num_layers=CUT_LAYERS)
+    b, s = shape
+    opt = adamw.AdamWConfig(peak_lr=1e-4, warmup_steps=2,
+                            total_steps=CUT_STEPS,
+                            moment_dtype=policy.moment_dtype(cfg))
+    mesh = make_host_mesh(device_type=torch.device(device).type)
+    rules = specs.rules_for(mesh)
+    group = axis_group(mesh, ("data",))
+    batch = _train_batch(torch, cfg, b, s, 0, device)
+    reset_launch_counts(mods)
+    plain = build_state(cfg, opt, 0, device)
+    plain, m0, g0 = steps.make_train_step(cfg, opt)(plain, batch,
+                                                     return_grads=True)
+    meshed = build_state(cfg, opt, 0, device, mesh, rules)
+    meshed, m1, g1 = steps.make_train_step(cfg, opt, mesh=mesh, rules=rules)(
+        meshed, batch, return_grads=True)
+    g0, g1 = tree_lib.leaves(g0), tree_lib.leaves(g1)
+    out = {"arch": cfg.name, "layers": cfg.num_layers, "batch": b, "seq": s,
+           "device": str(device), "backend": dist.get_backend(),
+           "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+           "loss": float(m0["loss"]),
+           "loss_bitwise": (torch.equal(m0["loss"], m1["loss"])
+                            and torch.equal(m0["total_loss"],
+                                            m1["total_loss"])),
+           "grads_bitwise": all(torch.equal(a, c) for a, c in zip(g0, g1)),
+           "state_bitwise": _bitwise(torch, plain, tree_lib.map_structure(
+               lambda t: t.to_local(), meshed))}
+    del plain, meshed, g1
+    bf = build_state(cfg, opt, 0, device, mesh, rules)
+    bf, _, g2 = steps.make_train_step(
+        cfg, opt, mesh=mesh, rules=rules, grad_dtype=torch.bfloat16)(
+            bf, batch, return_grads=True)
+    out["bf16_grads_bitwise"] = all(
+        torch.equal(a.to(torch.bfloat16), c)
+        for a, c in zip(g0, tree_lib.leaves(g2)))
+    del bf, g2
+    worst = 0.0
+    for g in g0:
+        pad = (-g.numel()) % QBLOCK
+        blocks = torch.nn.functional.pad(g.reshape(-1), (0, pad))
+        blocks = blocks.reshape(-1, QBLOCK)
+        err = torch.nn.functional.pad(
+            (compressed_psum(g, group) - g).reshape(-1), (0, pad))
+        top = blocks.abs().amax(dim=1, keepdim=True)
+        half = top / 127 / 2 + top * 2.0 ** -23   # + f32 rounding
+        ratio = torch.where(half > 0, err.reshape(-1, QBLOCK).abs() / half,
+                            err.reshape(-1, QBLOCK).abs() * float("inf"))
+        worst = max(worst, float(torch.nan_to_num(ratio, nan=0.0).max()))
+    out["compressed_worst_ratio_to_half_scale"] = worst
+    out.update(reduce_costs(torch, g0, group, device))
+    out["flash_launches"] = launch_counts(mods)["flash_attention"]
+    out["nvidia_smi"] = smi
+    out["ok"] = (out["loss_bitwise"] and out["grads_bitwise"]
+                 and out["state_bitwise"] and out["bf16_grads_bitwise"]
+                 and worst <= 1.0 and out["flash_launches"] == 0)
+    del g0
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    return out
 
 
 def _bitwise(torch, a, b) -> bool:
@@ -2668,6 +2960,8 @@ def training_phases(torch, configs, mods, smi) -> dict:
         ("train_step_parity", lambda: train_step_parity(torch, configs,
                                                         mods)),
         ("train_danube", lambda: train_danube(torch, configs, mods, smi)),
+        ("train_mesh_parity",
+         lambda: train_mesh_parity(torch, configs, mods, smi)),
         ("train_resume_danube_cut",
          lambda: train_resume_cut(torch, configs, mods)),
         ("train_cli", lambda: train_cli(torch)),

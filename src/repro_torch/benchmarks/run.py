@@ -5,7 +5,8 @@ Counterpart of ``benchmarks/run.py`` of the JAX package.
 Prints ``name,us_per_call,derived`` CSV lines (``table1.*``,
 ``table2.*``, ``attn.*``, ``bandwidth.*`` and the JAX package's
 ``roofline.unavailable`` line: the roofline rows read the dry-run
-artifacts, which this package does not write yet, ROADMAP A14) and writes
+artifacts, which this package does not write yet: the compile-analysis
+slice of ROADMAP A14) and writes
 the machine-readable report to ``--out``: this package's own file, never
 the root ``BENCH_kernels.json`` of the JAX benchmarks.  Its keys are the
 JAX report's, so ``tools/check_bench.py`` gates it unchanged:
@@ -151,7 +152,8 @@ def csv_lines(report: dict, device) -> list[str]:
         report["attention_decode"], report["decode_ragged"],
         report["decode_int8"])
     lines += bandwidth.main()
-    # The roofline rows read the dry-run artifacts (ROADMAP A14).
+    # The roofline rows read the dry-run artifacts (ROADMAP A14's
+    # compile-analysis slice).
     lines.append("roofline.unavailable,0.0,FileNotFoundError('no dry-run "
                  "artifacts: launch/dryrun.py is not ported')")
     return lines

@@ -17,6 +17,14 @@ trainer may update its state in place as soon as `save` returns.
 numpy has no bfloat16: a bf16 leaf is stored as its uint16 bit pattern
 with ``"bfloat16"`` as its dtype in ``meta.json``, as the serving
 snapshots store it (`convert.host_array`), and restored by view.
+
+A checkpoint is mesh-agnostic: a DTensor leaf (a state placed on a
+mesh) is gathered whole first, so every rank of a process group of more
+than one calls `save` at the same steps; rank 0 writes, at once, and the
+ranks meet at a barrier after, so each then reads the same directory.
+`restore` places each leaf on a mesh by its placements, as the
+reference's puts each on its sharding: any mesh, the one that wrote it
+or another (`runtime.elastic`).
 """
 
 from __future__ import annotations
@@ -29,19 +37,25 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import tree as tree_lib
 from repro_torch.convert import from_host_array, host_array
+from repro_torch.parallel.sharding import full_tensor
 
 COMMITTED = "COMMITTED"
 
 
+def _ranks() -> int:
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
 def _to_host(leaf) -> tuple[np.ndarray, str]:
     """A host copy of ``leaf`` (a copy even of a CPU tensor, which the
-    trainer may update in place while the write runs) and its dtype's
-    name."""
+    trainer may update in place while the write runs; a DTensor's whole
+    value) and its dtype's name."""
     if isinstance(leaf, torch.Tensor):
-        return host_array(leaf)
+        return host_array(full_tensor(leaf))
     a = np.array(leaf)
     return a, str(a.dtype)
 
@@ -58,10 +72,15 @@ class CheckpointManager:
 
     def save(self, step: int, state, blocking: bool = False):
         """Copy every leaf to host memory now (the consistency point),
-        write to disk on a background thread."""
+        write to disk on a background thread (by rank 0 at once, when
+        several ranks save)."""
         self.wait()  # one in-flight save at a time
         keys, leaves = tree_lib.flatten_with_paths(state)
         pairs = [_to_host(leaf) for leaf in leaves]
+        ranks = _ranks()
+        if ranks > 1 and dist.get_rank() != 0:
+            dist.barrier()
+            return
         host = [h for h, _ in pairs]
         meta = {
             "step": int(step),
@@ -91,8 +110,10 @@ class CheckpointManager:
 
         self._thread = threading.Thread(target=_write, daemon=True)
         self._thread.start()
-        if blocking:
+        if blocking or ranks > 1:
             self.wait()
+        if ranks > 1:
+            dist.barrier()
 
     def wait(self):
         if self._thread is not None:
@@ -120,12 +141,14 @@ class CheckpointManager:
         steps = self._committed_steps()
         return max(steps) if steps else None
 
-    def restore(self, step: int | None, like, device=None):
+    def restore(self, step: int | None, like, device=None, mesh=None,
+                placements=None):
         """Restore into the structure of ``like`` (a tree of tensors, or
-        anything with its keys).  ``device`` takes the place of the
-        reference's target shardings: the leaves are tensors on it, or on
-        the CPU for None.  Raises ValueError when the checkpoint's keys
-        are not ``like``'s."""
+        anything with its keys).  The leaves are tensors on ``device``
+        (the CPU for None), or, with ``mesh`` and ``placements`` (a tree
+        of DTensor placements of ``like``'s structure, the reference's
+        ``shardings``), DTensors on ``mesh`` (`distribute_tensor`).
+        Raises ValueError when the checkpoint's keys are not ``like``'s."""
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -141,4 +164,12 @@ class CheckpointManager:
                for i, dtype in enumerate(meta["dtypes"])]
         if device is not None:
             out = [t.to(device) for t in out]
-        return tree_lib.unflatten_like(like, out), meta
+        tree = tree_lib.unflatten_like(like, out)
+        if mesh is not None:
+            from torch.distributed.tensor import distribute_tensor
+            dev = ("cpu" if mesh.device_type == "cpu" else
+                   torch.device("cuda", torch.cuda.current_device()))
+            tree = tree_lib.map_structure(
+                lambda t, pl: distribute_tensor(t.to(dev), mesh, pl), tree,
+                placements)
+        return tree, meta

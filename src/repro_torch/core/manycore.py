@@ -11,8 +11,7 @@ policy (number formats).  The chip is `hardware.H100_SXM`, and the
 matmul tile plan comes from `tiling.solve_hopper` where the JAX package
 calls ``solve_tpu``.
 
-Only the one-card mesh of `host_test_config` is built (`make_mesh`):
-meshes over several cards are ROADMAP A14.
+`make_mesh` builds the mesh over the running ranks (`launch.mesh`).
 """
 
 from __future__ import annotations
@@ -70,26 +69,13 @@ class ManyCoreConfig:
                 else self.chip.smem_bytes)
 
     def make_mesh(self, device_type: str = "cuda"):
-        """A one-process `torch.distributed` `DeviceMesh` of this shape.
-        Only a mesh of one card, `host_test_config`'s (1, 1), is built
-        (a one-rank process group on ``device_type``'s backend is started
-        if none is); a larger shape raises."""
-        if self.num_chips != 1:
-            raise NotImplementedError(
-                f"a mesh of {self.num_chips} cards {self.mesh_shape}: "
-                f"meshes over several cards are ROADMAP A14")
-        import torch.distributed as dist
-        from torch.distributed.device_mesh import init_device_mesh
-        if not dist.is_initialized():
-            import socket
-            with socket.socket() as s:
-                s.bind(("localhost", 0))
-                port = s.getsockname()[1]
-            dist.init_process_group(
-                "nccl" if device_type == "cuda" else "gloo",
-                init_method=f"tcp://localhost:{port}", world_size=1, rank=0)
-        return init_device_mesh(device_type, self.mesh_shape,
-                                mesh_dim_names=self.mesh_axes)
+        """A `torch.distributed` `DeviceMesh` of this shape and these axes
+        (`launch.mesh.make_mesh`): over a one-rank process group it starts
+        itself for a mesh of one card, or over the ranks `torchrun`
+        started; a shape whose card count is not the world size raises,
+        naming both."""
+        from repro_torch.launch.mesh import make_mesh
+        return make_mesh(self.mesh_shape, self.mesh_axes, device_type)
 
     def axis(self, name: str) -> int:
         return self.mesh_shape[self.mesh_axes.index(name)]

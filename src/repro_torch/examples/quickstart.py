@@ -102,7 +102,7 @@ def run(device="cuda") -> dict:
     print(f"mesh: {dict(zip(mc.mesh_axes, mc.mesh_shape))}")
     print(f"matmul tile: {tuned}; kernels: {', '.join(mc.kernels)}")
     print("dry-running the full production mesh (the sweep) is "
-          "ROADMAP A14, not yet ported")
+          "the compile-analysis slice of ROADMAP A14, not yet ported")
     return {"matmul": {"max_abs_err": mm_err, "ok": mm_ok,
                        "tile": list(plan.knobs["tile"]),
                        "source": plan.source},

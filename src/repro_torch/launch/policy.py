@@ -26,7 +26,7 @@ def moment_dtype(cfg: ModelConfig) -> str:
 
 
 def use_fsdp(cfg: ModelConfig) -> bool:
-    """>=10B params: the reference stores parameters sharded over its data
-    axes too (FSDP).  The port trains on one card, unsharded; sharding
-    is ROADMAP A14."""
+    """>=10B params: parameters are stored sharded over the data axes too
+    (FSDP), as `launch.specs.param_pspecs` places them and the
+    data-parallel step gathers them at use."""
     return cfg.param_count() >= FSDP_PARAMS

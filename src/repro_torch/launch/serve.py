@@ -25,7 +25,10 @@ decodes on the plain path, as the JAX server's does; only dense and MoE
 models prefill in chunks or take ``--paged``; an encoder-only model has
 no decode path, and the CLI says so and exits 0.  The summary line conserves
 every submitted request: ``submitted == completed + timed_out + failed +
-rejected``.
+rejected``.  Like the JAX CLI, the CLI (and ``--resume``) serves under
+the sharding rules of a one-card mesh (`serving_rules`), so its MoE
+layers take `moe.apply_sharded`'s expert exchange; a `Server` driven
+without them takes `apply_grouped`.
 
 The KV cache is contiguous (f32, bf16 or int8 with per-row scales,
 ``--kv-dtype``) or paged (``--paged --page-size --pool-pages``): a pool of
@@ -77,8 +80,10 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import hashlib
 import json
+import math
 import pathlib
 import time
 
@@ -90,9 +95,11 @@ from repro_torch import convert, resolve_device
 from repro_torch.core import hardware
 from repro_torch.core.ioutil import atomic_write_json
 from repro_torch.kernels import autotune
-from repro_torch.launch import steps
+from repro_torch.launch import specs, steps
+from repro_torch.launch.mesh import make_host_mesh, set_mesh
 from repro_torch.launch.scheduler import POLICIES, Scheduler
 from repro_torch.models import transformer
+from repro_torch.parallel import sharding as shd
 from repro_torch.runtime import faults, loadgen, paging
 from repro_torch.runtime import journal as journal_mod
 from repro_torch.runtime import snapshot as snapshot_mod
@@ -111,6 +118,27 @@ CRASH_EXIT = 17
 # this share of the largest |logit| (the bf16 logit bound of ROADMAP
 # queue C).  Prefill and decode round differently in bf16.
 BF16_LOGIT_REL = 3e-2
+# The depth (SMOKE configs' 2 layers) ``BF16_LOGIT_REL`` was set at.
+BF16_SHALLOW = 2
+
+
+def bf16_logit_rel(layers: int) -> float:
+    """The bf16 logit bound at ``layers`` layers, as a fraction of the
+    largest |logit|: how far two bf16 evaluations of one model (or a bf16
+    and the f32 one) may put a last-position logit.
+
+    Error model: a bf16 forward rounds its residual stream once at the
+    embedding and once at each residual add, two a layer, each rounding
+    an independent relative error of at most 2^-9 per element (bf16's
+    unit roundoff) that the rest of the network carries to the logits
+    with one gain.  Independent errors add in quadrature, so after
+    ``layers`` layers the logit error grows as sqrt(2 layers + 1).  The
+    gain is not derived: it is fixed where ``BF16_LOGIT_REL`` was set, at
+    ``BF16_SHALLOW`` layers (5 roundings).  So the bound is 3e-2 at 2
+    layers, 5.5e-2 at 8, 9.4e-2 at 24 and 0.121 at 40.  The serving and
+    resume near-tie rules keep ``BF16_LOGIT_REL`` itself."""
+    return BF16_LOGIT_REL * math.sqrt((2 * layers + 1)
+                                      / (2 * BF16_SHALLOW + 1))
 
 
 def _cast_weights(params: dict, dtype, device) -> dict:
@@ -1083,6 +1111,19 @@ def _chip(device: torch.device) -> hardware.Chip:
     return hardware.detect() if device.type == "cuda" else hardware.H100_SXM
 
 
+@contextlib.contextmanager
+def serving_rules(device):
+    """The JAX CLI serves under the sharding rules of a one-device mesh,
+    where its MoE layers take `apply_sharded`'s exchange (a two-stage
+    capacity); so does this CLI: a (1, 1) mesh on ``device``'s type
+    (a one-rank NCCL group on a card, gloo on the CPU) and
+    `specs.rules_for` of it."""
+    mesh = make_host_mesh(data=1, model=1,
+                          device_type=resolve_device(device).type)
+    with set_mesh(mesh), shd.use_rules(specs.rules_for(mesh)):
+        yield mesh
+
+
 def _crash_line(cf, state_dir) -> str:
     return json.dumps({"crash": {"step": cf.step, "msg": str(cf),
                                  "state_dir": state_dir}})
@@ -1091,36 +1132,37 @@ def _crash_line(cf, state_dir) -> str:
 def _run_resume(args) -> int:
     """`serve --resume`: rebuild from --state-dir and drain to a summary
     whose completions are token for token those of the uninterrupted
-    run."""
+    run.  Under `serving_rules`, as the first run (`main`)."""
     t0 = time.time()
     try:
-        R = prepare_resume(args.state_dir, device=args.device)
-        server, lc, serving = R["server"], R["lc"], R["serving"]
-        print(json.dumps({"params_digest": params_digest(server.params)}))
-        if R["injector"] is not None:
-            autotune.install_dispatch_hook(R["injector"].dispatch_hook)
-        watchdog = DecodeWatchdog(autotune.predict_decode_step_us(
-            server.cfg, server.batch, cache_len=server.max_len,
-            kv_dtype=server.kv_dtype,
-            lengths=autotune._quantile_lengths(
-                server.batch, serving["dist"], server.max_len),
-            plans=server.kernel_plan, chip=_chip(server.device))
-            if server.kernel_plan else None)
-        prep_s = time.time() - t0
-        print(json.dumps({"recovery": {**R["recovery"],
-                                       "prepare_s": round(prep_s, 3)}}))
-        try:
-            stats = serve_loop(server, lc, watchdog=watchdog,
-                               source=R["source"], journal=R["journal"],
-                               snapshots=R["snapshots"],
-                               start_step=R["start_step"],
-                               scheduler=R["scheduler"])
-        except faults.CrashFault as cf:
-            print(_crash_line(cf, args.state_dir))
+        with serving_rules(args.device):
+            R = prepare_resume(args.state_dir, device=args.device)
+            server, lc, serving = R["server"], R["lc"], R["serving"]
+            print(json.dumps({"params_digest": params_digest(server.params)}))
+            if R["injector"] is not None:
+                autotune.install_dispatch_hook(R["injector"].dispatch_hook)
+            watchdog = DecodeWatchdog(autotune.predict_decode_step_us(
+                server.cfg, server.batch, cache_len=server.max_len,
+                kv_dtype=server.kv_dtype,
+                lengths=autotune._quantile_lengths(
+                    server.batch, serving["dist"], server.max_len),
+                plans=server.kernel_plan, chip=_chip(server.device))
+                if server.kernel_plan else None)
+            prep_s = time.time() - t0
+            print(json.dumps({"recovery": {**R["recovery"],
+                                           "prepare_s": round(prep_s, 3)}}))
+            try:
+                stats = serve_loop(server, lc, watchdog=watchdog,
+                                   source=R["source"], journal=R["journal"],
+                                   snapshots=R["snapshots"],
+                                   start_step=R["start_step"],
+                                   scheduler=R["scheduler"])
+            except faults.CrashFault as cf:
+                print(_crash_line(cf, args.state_dir))
+                R["journal"].close()
+                return CRASH_EXIT
+            wall = time.time() - t0
             R["journal"].close()
-            return CRASH_EXIT
-        wall = time.time() - t0
-        R["journal"].close()
     finally:
         autotune.install_dispatch_hook(None)
 
@@ -1362,32 +1404,36 @@ def main(argv=None) -> int:
     try:
         if injector is not None:
             autotune.install_dispatch_hook(injector.dispatch_hook)
-        server = Server(cfg, batch, max_len, kv_dtype=kv_dtype,
-                        device=device, paged=paged, prefill_len=prefill_len,
-                        slot_lengths=dist, injector=injector)
-        # A resumed process must rebuild these weights bit for bit.
-        print(json.dumps({"params_digest": params_digest(server.params)}))
-        scheduler = (Scheduler(args.sched, allocator=server.allocator)
-                     if (paged is not None or args.sched != "fcfs") else None)
-        watchdog = DecodeWatchdog(autotune.predict_decode_step_us(
-            cfg, batch, cache_len=max_len, kv_dtype=kv_dtype,
-            lengths=autotune._quantile_lengths(batch, dist, max_len),
-            plans=server.kernel_plan, chip=chip))
-        t0 = time.time()
-        try:
-            stats = serve_loop(server, lc, watchdog=watchdog, source=source,
-                               journal=journal, snapshots=snapshots,
-                               scheduler=scheduler)
-        except faults.CrashFault as cf:
-            # The one fault the process must not absorb: no summary, a
-            # distinct exit code; only the journal and snapshots survive.
-            print(_crash_line(cf, args.state_dir))
+        with serving_rules(device):
+            server = Server(cfg, batch, max_len, kv_dtype=kv_dtype,
+                            device=device, paged=paged,
+                            prefill_len=prefill_len, slot_lengths=dist,
+                            injector=injector)
+            # A resumed process must rebuild these weights bit for bit.
+            print(json.dumps({"params_digest": params_digest(server.params)}))
+            scheduler = (Scheduler(args.sched, allocator=server.allocator)
+                         if (paged is not None or args.sched != "fcfs")
+                         else None)
+            watchdog = DecodeWatchdog(autotune.predict_decode_step_us(
+                cfg, batch, cache_len=max_len, kv_dtype=kv_dtype,
+                lengths=autotune._quantile_lengths(batch, dist, max_len),
+                plans=server.kernel_plan, chip=chip))
+            t0 = time.time()
+            try:
+                stats = serve_loop(server, lc, watchdog=watchdog,
+                                   source=source, journal=journal,
+                                   snapshots=snapshots, scheduler=scheduler)
+            except faults.CrashFault as cf:
+                # The one fault the process must not absorb: no summary, a
+                # distinct exit code; only the journal and snapshots
+                # survive.
+                print(_crash_line(cf, args.state_dir))
+                if journal is not None:
+                    journal.close()
+                return CRASH_EXIT
+            wall = time.time() - t0
             if journal is not None:
                 journal.close()
-            return CRASH_EXIT
-        wall = time.time() - t0
-        if journal is not None:
-            journal.close()
     finally:
         autotune.install_dispatch_hook(None)
 

@@ -1,17 +1,24 @@
-"""End-to-end trainer on one card: config -> state -> data -> resilient
+"""End-to-end trainer: config -> mesh -> state -> data -> resilient
 step loop.  Counterpart of `repro.launch.train`, with its flags and its
 last-line JSON (``arch``, ``steps``, ``wall_s``, ``first_loss``,
 ``last_loss``, ``stragglers``, ``final_ckpt``).
 
-The state (``{"params", "opt"}``) is built unsharded on the device with
-`policy`'s dtypes (f32 weights and moments below 100 B parameters) from a
-seeded generator; the reference shards it over a host mesh.  Meshes, and
-so ``--production-mesh``, are ROADMAP A14.  Checkpoints are the
-reference's format (`checkpoint.manager`), so ``--resume`` also takes a
-checkpoint the JAX trainer wrote for the same config.
+The mesh is ``(data = ranks, model = 1)`` over the ranks `torchrun`
+started (`launch.mesh.make_host_mesh`), one rank on one card under plain
+``python -m``; ``--production-mesh`` takes the 16 x 16 pod mesh, which
+needs 256 ranks.  The state (``{"params", "opt"}``, `policy`'s dtypes:
+f32 weights and moments below 100 B parameters) is built from a seeded
+generator and placed on the mesh by `launch.specs` (moments ZeRO-sharded
+over the data axis, parameters too where `policy.use_fsdp`); the step is
+`steps.data_parallel_step`'s.  Checkpoints are the reference's
+mesh-agnostic format (`checkpoint.manager`, written by rank 0), so
+``--resume`` also takes a checkpoint the JAX trainer wrote for the same
+config, on any number of ranks.  Only rank 0 prints.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3_14b \\
       --smoke --steps 30 --batch 8 --seq 64 [--device cpu] [--resume]
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+      --smoke --steps 30
 """
 
 from __future__ import annotations
@@ -22,24 +29,37 @@ import time
 from pathlib import Path
 
 import torch
+import torch.distributed as dist
 
 import repro_torch.configs as configs
 from repro_torch import resolve_device
+from repro_torch import tree as tree_lib
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.data import DataConfig, make_source
-from repro_torch.launch import policy, steps
+from repro_torch.launch import policy, specs, steps
+from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
 from repro_torch.models import transformer
 from repro_torch.optim import adamw
+from repro_torch.parallel import sharding as shd
 from repro_torch.runtime.fault_tolerance import (ResilienceConfig,
-                                                 run_resilient)
+                                                 restore_onto, run_resilient)
 
 
-def build_state(cfg, opt_cfg, seed: int, device) -> dict:
+def build_state(cfg, opt_cfg, seed: int, device, mesh=None,
+                rules=None) -> dict:
     """The train state on ``device``: seeded parameters in
-    `policy.param_dtype` and zeroed AdamW moments."""
+    `policy.param_dtype` and zeroed AdamW moments; with ``mesh``, every
+    leaf a DTensor of its `specs.state_pspecs` spec under ``rules``
+    (each rank holding its block; every rank draws the same state)."""
     gen = torch.Generator(device=device).manual_seed(seed)
     params = transformer.init(cfg, gen, dtype=policy.param_dtype(cfg))
-    return {"params": params, "opt": adamw.init_state(params, opt_cfg)}
+    state = {"params": params, "opt": adamw.init_state(params, opt_cfg)}
+    if mesh is None:
+        return state
+    rules = rules if rules is not None else specs.rules_for(mesh)
+    _, pspecs = specs.state_pspecs(cfg, opt_cfg, mesh, rules)
+    return tree_lib.map_structure(
+        lambda t, spec: shd.distribute(t, spec, mesh), state, pspecs)
 
 
 def main(argv=None):
@@ -59,14 +79,21 @@ def main(argv=None):
                                                             "memmap"])
     ap.add_argument("--data-path", default=None)
     ap.add_argument("--production-mesh", action="store_true",
-                    help="the 16x16 pod mesh (ROADMAP A14: raises)")
+                    help="the 16x16 pod mesh (needs 256 ranks)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    if args.production_mesh:
-        raise SystemExit("--production-mesh: meshes over several cards are "
-                         "ROADMAP A14; the port trains on one card")
     device = resolve_device(args.device)
+    try:
+        mesh = (make_production_mesh(device_type=device.type)
+                if args.production_mesh else
+                make_host_mesh(data=_world(), model=1,
+                               device_type=device.type))
+    except RuntimeError as e:
+        raise SystemExit(f"--production-mesh: {e}" if args.production_mesh
+                         else str(e))
+    rules = specs.rules_for(mesh)
+    rank0 = dist.get_rank() == 0
     cfg = configs.get_smoke(args.arch) if args.smoke else configs.get(args.arch)
     opt_cfg = adamw.AdamWConfig(peak_lr=args.lr, warmup_steps=10,
                                 total_steps=args.steps,
@@ -79,22 +106,25 @@ def main(argv=None):
     source = make_source(dcfg)
 
     ckpt = CheckpointManager(Path(args.ckpt_dir) / cfg.name, keep=3)
-    train_step = steps.make_train_step(cfg, opt_cfg)
-    state = build_state(cfg, opt_cfg, 0, device)
+    train_step = steps.make_train_step(cfg, opt_cfg, mesh=mesh, rules=rules)
+    state = build_state(cfg, opt_cfg, 0, device, mesh, rules)
+    _, pspecs = specs.state_pspecs(cfg, opt_cfg, mesh, rules)
     start_step = 0
     if args.resume and ckpt.latest_step() is not None:
-        state, meta = ckpt.restore(None, state, device)
-        start_step = meta["step"]
-        print(f"resumed from step {start_step}")
+        state, start_step = restore_onto(ckpt, state, mesh, pspecs)
+        if rank0:
+            print(f"resumed from step {start_step}")
 
     def batch_fn(step):
+        # the global batch; the step takes this rank's rows of it
         b = source.batch(step, 0, 1)
         return {k: torch.from_numpy(v).to(device) for k, v in b.items()}
 
     def on_restore(_step):
-        restored, meta = ckpt.restore(None, state, device)
-        print(f"restored from step {meta['step']}")
-        return restored, meta["step"]
+        restored, step = restore_onto(ckpt, state, mesh, pspecs)
+        if rank0:
+            print(f"restored from step {step}")
+        return restored, step
 
     t0 = time.time()
     state, history, monitor = run_resilient(
@@ -104,6 +134,8 @@ def main(argv=None):
         on_restore=on_restore)
     wall = time.time() - t0
 
+    if not rank0:
+        return 0
     losses = [h["loss"] for h in history if "loss" in h]
     print(json.dumps({
         "arch": cfg.name,
@@ -115,6 +147,15 @@ def main(argv=None):
         "final_ckpt": ckpt.latest_step(),
     }))
     return 0
+
+
+def _world() -> int:
+    """The ranks of the running process group, else the number
+    `torchrun` started (1 without it)."""
+    import os
+    if dist.is_initialized():
+        return dist.get_world_size()
+    return int(os.environ.get("WORLD_SIZE", "1"))
 
 
 if __name__ == "__main__":

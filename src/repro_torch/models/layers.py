@@ -402,6 +402,22 @@ def attention_cache_init(cfg, batch: int, cache_len: int,
     return {"k": make(shape, dtype), "v": make(shape, dtype)}
 
 
+def attention_param_specs(cfg) -> Params:
+    """Logical axes of each `attention_init` leaf (`parallel.sharding`)."""
+    p = {
+        "wq": ("embed", "heads"),
+        "wk": ("embed", "kv_heads"),
+        "wv": ("embed", "kv_heads"),
+        "wo": ("heads", "embed"),
+    }
+    if cfg.qkv_bias:
+        p.update({"bq": ("heads",), "bk": ("kv_heads",), "bv": ("kv_heads",)})
+    if cfg.qk_norm:
+        p["q_norm"] = {"scale": (None,)}
+        p["k_norm"] = {"scale": (None,)}
+    return p
+
+
 # ---------------------------------------------------------------------------
 # MLPs
 # ---------------------------------------------------------------------------
@@ -412,6 +428,14 @@ def swiglu_init(generator: torch.Generator, d_model: int, d_ff: int,
         "w_gate": _dense_init(generator, (d_model, d_ff), dtype),
         "w_up": _dense_init(generator, (d_model, d_ff), dtype),
         "w_down": _dense_init(generator, (d_ff, d_model), dtype),
+    }
+
+
+def swiglu_param_specs() -> Params:
+    return {
+        "w_gate": ("embed", "ff"),
+        "w_up": ("embed", "ff"),
+        "w_down": ("ff", "embed"),
     }
 
 
@@ -427,6 +451,10 @@ def gelu_mlp_init(generator: torch.Generator, d_model: int, d_ff: int,
         "w_up": _dense_init(generator, (d_model, d_ff), dtype),
         "w_down": _dense_init(generator, (d_ff, d_model), dtype),
     }
+
+
+def gelu_mlp_param_specs() -> Params:
+    return {"w_up": ("embed", "ff"), "w_down": ("ff", "embed")}
 
 
 def gelu_mlp_apply(params: Params, x: torch.Tensor) -> torch.Tensor:

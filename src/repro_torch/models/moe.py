@@ -7,10 +7,12 @@
   buffer, one batched SwiGLU over the expert axis, a gathered combine.
   Items over an expert's capacity are dropped (combine weight 0) and
   scatter out of bounds, so they never clobber a kept item's slot.
-- `apply_sharded`: the expert-parallel entry of the model.  With no mesh,
-  which is every run of the port today, it is `apply_grouped` over the
-  flattened tokens, as the JAX code falls back to it without sharding
-  rules.
+- `apply_sharded`: the expert-parallel entry of the model.  Under
+  sharding rules that map ``experts`` (the serve CLI's, the trainer's)
+  it exchanges tokens with the experts' shards over the model axis of
+  the active mesh, two `all_to_all_single` out and one back; without
+  them it is `apply_grouped` over the flattened tokens, as the JAX code
+  falls back to it.
 
 Two choices keep a card's results fixed from run to run and equal to the
 JAX code's on the CPU: the router runs in float32 and picks the top k by a stable descending sort (equal probabilities: the
@@ -22,6 +24,7 @@ adds them on the CPU, not by atomics.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.core.loadbalance import expert_capacity
@@ -40,6 +43,15 @@ def moe_init(generator: torch.Generator, cfg, dtype=torch.float32) -> Params:
         "w_gate": layers._dense_init(generator, (e, d, f), dtype),
         "w_up": layers._dense_init(generator, (e, d, f), dtype),
         "w_down": layers._dense_init(generator, (e, f, d), dtype),
+    }
+
+
+def moe_param_specs() -> Params:
+    return {
+        "router": ("embed", None),
+        "w_gate": ("experts", "embed", None),
+        "w_up": ("experts", "embed", None),
+        "w_down": ("experts", None, "embed"),
     }
 
 
@@ -141,12 +153,152 @@ def apply_grouped(params: Params, x: torch.Tensor, cfg,
     return _combine(contrib.to(x.dtype), t, k), aux
 
 
-def apply_sharded(params: Params, x: torch.Tensor, cfg):
-    """(B, S, D) -> ((B, S, D), aux).  No mesh exists in the port, so
-    this is `apply_grouped` over the B*S rows: capacity counts every row
-    of the forward, inactive slots' padding included, as the reference's
-    does.  Expert parallelism over cards (the reference's `all_to_all`
-    path) is ROADMAP A14."""
+class _AllToAll(torch.autograd.Function):
+    """`all_to_all_single` of equal splits over ``group``; its gradient is
+    the same exchange of the gradient (an equal-split exchange is its own
+    transpose)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_to_all(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, ctx.group), None
+
+
+def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=group)
+    return out
+
+
+class _MeanOver(torch.autograd.Function):
+    """The mean of a tensor over ``group`` (an all-reduce); its gradient
+    is the mean of the gradients over the group."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _mean(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _mean(g, ctx.group), None
+
+
+def _mean(x: torch.Tensor, group) -> torch.Tensor:
+    y = x.clone()
+    dist.all_reduce(y, group=group)
+    return y / dist.get_world_size(group)
+
+
+def _gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    pieces = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(pieces, x.contiguous(), group=group)
+    return torch.cat(pieces, dim=dim)
+
+
+def apply_sharded(params: Params, x: torch.Tensor, cfg, mesh=None):
+    """(B, S, D) -> ((B, S, D), aux): expert parallelism over the mesh's
+    model axis.  With no active rules, or rules that map no ``experts``,
+    it is `apply_grouped` over the B*S rows.
+
+    Under rules the reference's ``shard_map`` body runs on this rank's
+    part, with explicit collectives over the active mesh (`launch.mesh`):
+    ``x`` is this rank's block over the batch axes (its caller's slice;
+    the same on every rank of the model axis).  The tokens split over the
+    model axis (by sequence where it divides, else by batch, else every
+    model rank routes them all); each item goes to its expert's shard in
+    a send buffer of ``c_send`` slots per shard, one `all_to_all_single`
+    each for the rows, the local expert ids and the valid flags; the
+    shard runs its ``e_loc`` experts over ``c_local`` slots each (invalid
+    slots routed to a phantom group ``e_loc`` so they take no capacity,
+    and dropped out of bounds), and one more exchange brings the results
+    home, where each token adds its k contributions in ascending k.  The
+    two capacities compound the capacity factor, as the reference's do.
+    ``aux`` is averaged over the batch and model axes.  The split
+    outputs are gathered over the model axis.  With one model shard every
+    exchange still goes through the group."""
+    from repro_torch.launch.mesh import axis_group, axis_index, axis_sizes
+    from repro_torch.launch.mesh import get_abstract_mesh
+    from repro_torch.parallel.sharding import active_rules
+    rules = active_rules()
     b, s, d = x.shape
-    out, aux = apply_grouped(params, x.reshape(b * s, d), cfg)
-    return out.reshape(b, s, d), aux
+    if rules is None or rules.table.get("experts") is None:
+        out, aux = apply_grouped(params, x.reshape(b * s, d), cfg)
+        return out.reshape(b, s, d), aux
+
+    model_axis = rules.table["experts"][0]
+    batch_axes = tuple(rules.table.get("batch") or ())
+    mesh = mesh if mesh is not None else get_abstract_mesh()
+    if mesh is None:
+        raise RuntimeError("sharding rules map experts, but no mesh is "
+                           "active (launch.mesh.set_mesh)")
+    sizes = axis_sizes(mesh)
+    n_shards = sizes[model_axis]
+    e = cfg.num_experts
+    if e % n_shards:
+        raise ValueError(f"{e} experts not divisible by model axis "
+                         f"{n_shards}")
+    e_loc = e // n_shards
+    m = axis_index(mesh, model_axis)
+    # the token split over the model axis
+    if s % n_shards == 0:
+        split, x_loc = 1, x[:, m * (s // n_shards):(m + 1) * (s // n_shards)]
+    elif b % n_shards == 0:
+        split, x_loc = 0, x[m * (b // n_shards):(m + 1) * (b // n_shards)]
+        batch_axes = batch_axes + (model_axis,)
+    else:
+        split, x_loc = None, x
+    t_loc = x_loc.shape[0] * x_loc.shape[1]
+    k = cfg.top_k
+    c_send = expert_capacity(t_loc * k, n_shards, 1, cfg.capacity_factor)
+    c_local = expert_capacity(n_shards * c_send, e_loc, 1,
+                              cfg.capacity_factor)
+    group = axis_group(mesh, model_axis)
+
+    xf = x_loc.reshape(t_loc, d)
+    idx, weights, aux = route({"router": params["router"]}, xf, cfg)
+    flat_e = idx.reshape(-1)                                   # global ids
+    flat_t = torch.arange(t_loc, device=x.device).repeat_interleave(k)
+    flat_w = weights.reshape(-1)
+    dest = flat_e // e_loc                                     # its shard
+    slot, keep = _dispatch_indices(dest, n_shards, c_send)
+
+    n_send = n_shards * c_send
+    send_tok = _scatter_slots(flat_t, slot, keep, n_send, t_loc)
+    send_eid = _scatter_slots(flat_e % e_loc, slot, keep, n_send, 0)
+    send_valid = _scatter_slots(torch.ones_like(flat_t), slot, keep, n_send,
+                                0)
+    x_pad = torch.cat([xf, xf.new_zeros((1, d))], dim=0)
+    recv_x = _AllToAll.apply(x_pad[send_tok], group)           # (n_send, d)
+    recv_eid = _all_to_all(send_eid, group)
+    recv_valid = _all_to_all(send_valid, group).bool()
+
+    # this shard's e_loc experts over what it received
+    r = n_send
+    lslot, lkeep = _dispatch_indices(
+        torch.where(recv_valid, recv_eid, e_loc), e_loc + 1, c_local)
+    lkeep = lkeep & recv_valid
+    slot_token = _scatter_slots(torch.arange(r, device=x.device), lslot,
+                                lkeep, e_loc * c_local, r)
+    rx_pad = torch.cat([recv_x, recv_x.new_zeros((1, d))], dim=0)
+    buf = rx_pad[slot_token].reshape(e_loc, c_local, d)
+    mine = slice(m * e_loc, (m + 1) * e_loc)
+    outb = _expert_ffn({w: params[w][mine] for w in
+                        ("w_gate", "w_up", "w_down")},
+                       buf).reshape(e_loc * c_local, d)
+    back = outb[torch.where(lkeep, lslot, 0)] * lkeep[:, None].to(outb.dtype)
+
+    res = _AllToAll.apply(back, group)                         # home again
+    contrib = res[torch.where(keep, slot, 0)] * \
+        (flat_w * keep.to(flat_w.dtype))[:, None]
+    out = _combine(contrib.to(xf.dtype), t_loc, k).reshape(x_loc.shape)
+    axes = tuple(dict.fromkeys(batch_axes + (model_axis,)))
+    aux = _MeanOver.apply(aux, axis_group(mesh, axes))
+    if split is not None and n_shards > 1:
+        out = _gather(out, split, group)
+    return out, aux

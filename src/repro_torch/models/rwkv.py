@@ -57,6 +57,26 @@ def rwkv_channel_init(generator: torch.Generator, cfg, dtype=torch.float32
     }
 
 
+def rwkv_time_param_specs(cfg) -> Params:
+    return {
+        "mix": (None, "embed"),
+        "wr": ("embed", "heads"), "wk": ("embed", "heads"),
+        "wv": ("embed", "heads"), "wg": ("embed", "heads"),
+        "wo": ("heads", "embed"),
+        "decay_w0": ("embed",),
+        "decay_a": ("embed", None), "decay_b": (None, "embed"),
+        "bonus_u": ("heads", None),
+        "ln_x": {"scale": (None,)},
+    }
+
+
+def rwkv_channel_param_specs(cfg) -> Params:
+    return {
+        "cmix": (None, "embed"),
+        "ck": ("embed", "ff"), "cv": ("ff", "embed"), "cr": ("embed", "embed"),
+    }
+
+
 def _token_shift(x: torch.Tensor, prev: torch.Tensor | None):
     """The sequence shifted by one, ``prev`` (the previous chunk's last
     token, zeros at the start) in front; and x's last token in ``prev``'s

@@ -44,6 +44,20 @@ def mamba_init(generator: torch.Generator, cfg, dtype=torch.float32
     }
 
 
+def mamba_param_specs(cfg) -> Params:
+    return {
+        "in_proj": ("embed", "ff"),
+        "conv_w": (None, "ff"),
+        "conv_b": ("ff",),
+        "x_proj": ("ff", None),
+        "dt_proj": (None, "ff"),
+        "dt_bias": ("ff",),
+        "A_log": ("ff", None),
+        "D": ("ff",),
+        "out_proj": ("ff", "embed"),
+    }
+
+
 def _causal_depthwise_conv(x: torch.Tensor, w: torch.Tensor,
                            b: torch.Tensor, tail: torch.Tensor | None = None):
     """x: (B, S, C); w: (W, C) depthwise causal taps; ``tail`` (B, W-1, C)

@@ -143,6 +143,93 @@ def _groups(cfg: ModelConfig) -> list[tuple[str | None, int, int]]:
 
 
 # ---------------------------------------------------------------------------
+# Logical sharding specs (the init and cache trees' structure exactly)
+# ---------------------------------------------------------------------------
+
+def _mlp_specs(cfg: ModelConfig, l: int):
+    if cfg.family == "ssm":
+        return rwkv.rwkv_channel_param_specs(cfg)
+    if cfg.is_moe_layer(l):
+        return moe.moe_param_specs()
+    if cfg.family == "encoder":
+        return layers.gelu_mlp_param_specs()
+    return layers.swiglu_param_specs()
+
+
+def _layer_specs(cfg: ModelConfig, l: int):
+    p = {"ln1": {"scale": (None,)}, "ln2": {"scale": (None,)}}
+    if cfg.family == "ssm":
+        p["mixer"] = rwkv.rwkv_time_param_specs(cfg)
+    elif cfg.is_attn_layer(l):
+        p["mixer"] = layers.attention_param_specs(cfg)
+    else:
+        p["mixer"] = ssm.mamba_param_specs(cfg)
+    p["mlp"] = _mlp_specs(cfg, l)
+    return p
+
+
+def _prepend_layer_axis(tree):
+    return tree_lib.map_structure(lambda axes: (None, *axes), tree)
+
+
+def _uniform_or_grouped(cfg: ModelConfig, layer_specs):
+    if cfg.family == "hybrid":
+        return _prepend_layer_axis({str(i): layer_specs(i)
+                                    for i in range(cfg.attn_period)})
+    return _prepend_layer_axis(layer_specs(0))
+
+
+def param_specs(cfg: ModelConfig):
+    """A tree of logical-axis tuples of `init`'s structure."""
+    specs: dict = {"embed": {"table": ("vocab", "embed")}}
+    if cfg.frontend:
+        specs["frontend"] = {"proj": (None, "embed")}
+    specs["blocks"] = _uniform_or_grouped(
+        cfg, lambda l: _layer_specs(cfg, l))
+    specs["final_norm"] = {"scale": (None,)}
+    if not cfg.tie_embeddings:
+        specs["head"] = {"table": ("vocab", "embed")}
+    return specs
+
+
+def _layer_cache_specs(cfg: ModelConfig, l: int, paged=None,
+                       quantized: bool = False):
+    if cfg.family == "ssm":
+        return {"shift_t": ("batch", None, "embed"),
+                "wkv": ("batch", "heads", None, None),
+                "shift_c": ("batch", None, "embed")}
+    if cfg.is_attn_layer(l):
+        if paged is not None:
+            # pools (num_pages, page_size, Hkv, dh): no batch axis, pages
+            # interleaved across slots, so only the heads shard
+            specs = {"k": (None, None, "kv_heads", None),
+                     "v": (None, None, "kv_heads", None)}
+            if quantized:
+                specs["k_scale"] = (None, None, "kv_heads")
+                specs["v_scale"] = (None, None, "kv_heads")
+            return specs
+        specs = {"k": ("batch", "kv_seq", "kv_heads", None),
+                 "v": ("batch", "kv_seq", "kv_heads", None)}
+        if quantized:
+            specs["k_scale"] = ("batch", "kv_seq", "kv_heads")
+            specs["v_scale"] = ("batch", "kv_seq", "kv_heads")
+        return specs
+    return {"conv": ("batch", None, "ff"), "h": ("batch", "ff", None)}
+
+
+def cache_specs(cfg: ModelConfig, paged=None, kv_dtype=None):
+    """A tree of logical-axis tuples of `cache_init`'s structure; an int8
+    ``kv_dtype`` adds the scale leaves, as `cache_init` does."""
+    quantized = kv_dtype is not None and kv_dtype == torch.int8
+    specs = {"blocks": _uniform_or_grouped(
+        cfg, lambda l: _layer_cache_specs(cfg, l, paged, quantized)),
+        "index": (), "lengths": ("batch",)}
+    if paged is not None:
+        specs["pages"] = ("batch", None)
+    return specs
+
+
+# ---------------------------------------------------------------------------
 # Init / cache init
 # ---------------------------------------------------------------------------
 
@@ -213,7 +300,9 @@ def cache_init(cfg: ModelConfig, batch: int, cache_len: int,
         # decodes at the kernels' default span.
         raise ValueError("a paged cache decodes at the kernels' default "
                          "span; decode_span is for a contiguous cache")
-    device = resolve_device(device)
+    # "meta": an abstract cache (shapes and dtypes, `launch.specs`)
+    device = (torch.device("meta") if str(device) == "meta"
+              else resolve_device(device))
     blocks: Params = {}
     for key, l, n in _groups(cfg):
         layer = _layer_cache_init(cfg, l, batch, cache_len, dtype, "meta",

@@ -117,14 +117,17 @@ def _f32(x: float, like: torch.Tensor) -> torch.Tensor:
 
 
 @torch.no_grad()
-def update(params, grads, opt_state: dict, cfg: AdamWConfig):
+def update(params, grads, opt_state: dict, cfg: AdamWConfig,
+           grad_norm: torch.Tensor | None = None):
     """One AdamW step, in place.  Returns ``(params, opt_state, metrics)``
     (the same trees, updated), ``metrics`` holding ``grad_norm`` (before
-    clipping) and ``lr``, 0-d f32 tensors."""
+    clipping) and ``lr``, 0-d f32 tensors.  ``grad_norm`` stands for
+    ``global_norm(grads)`` where the trees hold one rank's shards of the
+    leaves (ZeRO): the update is elementwise but for the clip."""
     step = opt_state["step"]
     step.add_(1)
     lr = schedule(cfg, step)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     scale = torch.clamp(
         _f32(cfg.clip_norm, gnorm) / torch.clamp(gnorm, min=1e-12), max=1.0)
     b1, b2 = cfg.b1, cfg.b2

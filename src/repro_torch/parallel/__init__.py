@@ -1,2 +1,2 @@
-"""Losses of the port (counterpart of `repro.parallel`; sharding and
-gradient compression are ROADMAP A14)."""
+"""Losses, sharding rules and gradient compression of the port
+(counterpart of `repro.parallel`)."""

@@ -26,7 +26,8 @@ def _chunk_stats(xi: torch.Tensor, li: torch.Tensor, table: torch.Tensor):
 
 
 def fused_cross_entropy(x: torch.Tensor, table: torch.Tensor,
-                        labels: torch.Tensor, chunk: int = 2048):
+                        labels: torch.Tensor, chunk: int = 2048,
+                        denominator: torch.Tensor | None = None):
     """Cross entropy with the unembedding folded in and chunked over
     tokens, so the (tokens, V) logits never exist at once.
 
@@ -37,6 +38,9 @@ def fused_cross_entropy(x: torch.Tensor, table: torch.Tensor,
     chunks' sums are added in order from zero, as the reference's scan
     carries them (the reference's ``unroll``, a switch for XLA's cost
     analysis, has no use here).  Returns ``(loss, {"loss", "tokens"})``.
+    The loss divides the summed nll by the count of labelled tokens, or
+    by ``denominator`` where given (a data-parallel rank divides its
+    shard's sum by the global batch's count).
     """
     b, s, d = x.shape
     xf = x.reshape(b * s, d)
@@ -58,7 +62,8 @@ def fused_cross_entropy(x: torch.Tensor, table: torch.Tensor,
         else:
             nll_c, cnt_c = _chunk_stats(xi, li, table)
         nll, cnt = nll + nll_c, cnt + cnt_c
-    loss = nll / torch.clamp(cnt, min=1.0)
+    loss = nll / (torch.clamp(cnt, min=1.0) if denominator is None
+                  else denominator)
     return loss, {"loss": loss, "tokens": cnt}
 
 

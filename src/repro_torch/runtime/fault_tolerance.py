@@ -10,7 +10,10 @@ checkpoints every N steps (async, atomic: `checkpoint.manager`), watches
 step wall time against a rolling median, and on an exception restores
 the latest committed checkpoint through the trainer's ``on_restore`` and
 resumes from the restored step with the same data order (the pipeline is
-(seed, step, shard)-deterministic).
+(seed, step, shard)-deterministic).  The trainer's ``on_restore`` is
+`restore_onto`: the checkpoint's whole arrays placed on a mesh by their
+specs, which may be a smaller mesh rebuilt from the surviving ranks
+(`runtime.elastic`).
 """
 
 from __future__ import annotations
@@ -160,6 +163,16 @@ def run_resilient(step_fn, state, num_steps: int, ckpt_manager,
             state, step = on_restore(step)
     ckpt_manager.save(num_steps, state, blocking=True)
     return state, history, monitor
+
+
+def restore_onto(ckpt_manager, like, mesh, pspecs, step=None):
+    """``(state, step)``: a checkpoint (the latest committed, or
+    ``step``) restored on the host into ``like``'s structure and placed
+    on ``mesh`` by ``pspecs`` (`elastic.reshard_state`), which need not
+    be the mesh that wrote it."""
+    from repro_torch.runtime import elastic
+    host, meta = ckpt_manager.restore(step, like)
+    return elastic.reshard_state(host, mesh, pspecs), meta["step"]
 
 
 def to_float(metrics: dict) -> dict:

@@ -1,0 +1,258 @@
+"""Multi-rank jobs of the port's CPU tests, each rank a process of its
+own in one gloo process group.
+
+`spawn(job, world, tmp_path, args)` starts ``world`` processes of
+
+    python tests/_torch_ranks.py <job> <rank> <world> <dir>
+
+which join through a `FileStore` in ``dir`` (no port to collide on under
+pytest-xdist), run ``job(rank, world, args)`` (``args`` read from
+``dir/args.pt``) and save what it returns to ``dir/<rank>.pt``.  The
+whole group has one time limit: past it every rank is killed and the
+test fails, so a hung rank cannot hold the suite.  The jobs import
+torch and the port only, never JAX.
+"""
+
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def spawn(job: str, world: int, tmp_path, args: dict | None = None,
+          timeout: float = 180.0) -> list:
+    """Run ``job`` on ``world`` ranks; the list of what each returned."""
+    d = Path(tmp_path) / f"{job}-{world}-{time.monotonic_ns()}"
+    d.mkdir(parents=True)
+    torch.save(args or {}, d / "args.pt")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "OMP_NUM_THREADS": "1"}
+    env.pop("WORLD_SIZE", None)
+    procs = []
+    for r in range(world):
+        with open(d / f"{r}.log", "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, __file__, job, str(r), str(world), str(d)],
+                env=env, cwd=ROOT, stdout=log, stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + timeout
+    try:
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 0.1))
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"{job} on {world} ranks: over {timeout} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    assert not bad, (f"{job}: ranks {bad} failed:\n"
+                     + (d / f"{bad[0]}.log").read_text()[-3000:])
+    return [torch.load(d / f"{r}.pt", weights_only=False)
+            for r in range(world)]
+
+
+# ---------------------------------------------------------------------------
+# Jobs (run inside a rank)
+# ---------------------------------------------------------------------------
+
+def _full(tree):
+    from repro_torch import tree as tree_lib
+    from repro_torch.parallel.sharding import full_tensor
+    return tree_lib.map_structure(lambda t: full_tensor(t).clone(), tree)
+
+
+def job_compression(rank, world, args):
+    """`compressed_psum` of row ``rank`` of ``args["vals"]``."""
+    from repro_torch.parallel.compression import compressed_psum
+    return {"out": compressed_psum(args["vals"][rank])}
+
+
+def job_placements(rank, world, args):
+    """``args["full"]`` on a (2, 2, 2) ``pod, data, model`` mesh under
+    ``(("pod", "data"), None)``: this rank's block by `local_shard` and
+    by `distribute_tensor` with `placements`, and the whole again."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.parallel import sharding as shd
+    mesh = mesh_lib.make_mesh((2, 2, 2), ("pod", "data", "model"),
+                              device_type="cpu")
+    full, spec = args["full"], (("pod", "data"), None)
+    mine = shd.local_shard(full, spec, mesh)
+    dt = distribute_tensor(full, mesh, shd.placements(spec, mesh))
+    rules = shd.multi_pod_rules().with_sizes(mesh)
+    with shd.use_rules(rules):
+        kept = shd.constrain(dt, "batch", "heads")  # 3 heads on 2: dropped
+        whole = shd.constrain(dt, None, None)
+    with shd.use_rules(shd.data_parallel_attention(rules)):
+        gathered_weight = shd.gather_weight(dt)
+    return {"coord": tuple(mesh.get_coordinate()), "mine": mine.clone(),
+            "dtensor": dt.to_local().clone(),
+            "gathered": shd.gather_full(mine, spec, mesh),
+            "full_tensor": shd.full_tensor(shd.distribute(full, spec, mesh)),
+            "spec_of": shd.spec_of(dt),
+            "constrained": (shd.spec_of(kept), kept.to_local().clone()),
+            "replicated": (shd.spec_of(whole), whole.to_local().clone()),
+            "gather_weight": (shd.spec_of(gathered_weight),
+                              gathered_weight.to_local().clone())}
+
+
+def job_moe(rank, world, args):
+    """`moe.apply_sharded` on a (2, 4) mesh under the single-pod rules,
+    this rank's data rows of ``args["x"]`` in, at each capacity factor."""
+    import dataclasses
+
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import moe
+    from repro_torch.parallel import sharding as shd
+    mesh = mesh_lib.make_host_mesh(2, 4, device_type="cpu")
+    rules = shd.single_pod_rules().with_sizes(mesh)
+    x = args["x"]
+    d = mesh_lib.axis_index(mesh, "data")
+    rows = x.shape[0] // 2
+    out = {"data": d, "model": mesh_lib.axis_index(mesh, "model")}
+    for cf in args["factors"]:
+        cfg = dataclasses.replace(args["cfg"], capacity_factor=cf)
+        with mesh_lib.set_mesh(mesh), shd.use_rules(rules):
+            y, aux = moe.apply_sharded(args["params"],
+                                       x[d * rows:(d + 1) * rows], cfg)
+        out[cf] = {"out": y, "aux": aux}
+    return out
+
+
+def _dp_state(cfg, opt, params, mesh, rules):
+    from repro_torch import tree as tree_lib
+    from repro_torch.launch import specs
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import sharding as shd
+    state = {"params": tree_lib.map_structure(lambda t: t.clone(), params),
+             "opt": adamw.init_state(params, opt)}
+    _, pspecs = specs.state_pspecs(cfg, opt, mesh, rules)
+    return tree_lib.map_structure(
+        lambda t, s: shd.distribute(t, s, mesh), state, pspecs), pspecs
+
+
+def job_train(rank, world, args):
+    """One data-parallel step of ``args["cfg"]`` from ``args["params"]``
+    on ``args["batch"]`` over a (world, 1) mesh, per variant: ``dp``
+    (moments ZeRO-sharded), ``fsdp`` (`policy.use_fsdp` forced on),
+    ``bf16`` (``grad_dtype=bfloat16``).  Returns the loss, the reduced
+    gradients, the whole state after the step, the step's specs."""
+    from repro_torch.convert import disable_tf32
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import policy, specs, steps
+    from repro_torch.optim import adamw
+    disable_tf32()
+    mesh = mesh_lib.make_host_mesh(world, 1, device_type="cpu")
+    rules = specs.rules_for(mesh)
+    cfg = args["cfg"]
+    opt = adamw.AdamWConfig(peak_lr=1e-3, warmup_steps=1, total_steps=10)
+    use_fsdp = policy.use_fsdp
+    out = {}
+    for variant in args["variants"]:
+        policy.use_fsdp = ((lambda c: True) if variant == "fsdp"
+                           else use_fsdp)
+        state, pspecs = _dp_state(cfg, opt, args["params"], mesh, rules)
+        step = steps.make_train_step(
+            cfg, opt, compute_dtype=torch.float32, mesh=mesh, rules=rules,
+            grad_dtype=torch.bfloat16 if variant == "bf16" else None)
+        state, m, grads = step(state, args["batch"], return_grads=True)
+        out[variant] = {"loss": float(m["loss"]),
+                        "total_loss": float(m["total_loss"]),
+                        "grad_norm": float(m["grad_norm"]),
+                        "grads": grads, "state": _full(state),
+                        "pspecs": pspecs}
+    policy.use_fsdp = use_fsdp
+    return out
+
+
+def job_elastic_save(rank, world, args):
+    """FSDP on a (world, 1) mesh: one step, then a checkpoint of the
+    state at step 1 in ``args["dir"]`` (written by rank 0)."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.convert import disable_tf32
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import policy, specs, steps
+    disable_tf32()
+    policy.use_fsdp = lambda c: True
+    mesh = mesh_lib.make_host_mesh(world, 1, device_type="cpu")
+    rules = specs.rules_for(mesh)
+    cfg, opt = args["cfg"], args["opt"]
+    state, pspecs = _dp_state(cfg, opt, args["params"], mesh, rules)
+    step = steps.make_train_step(cfg, opt, compute_dtype=torch.float32,
+                                 mesh=mesh, rules=rules)
+    state, _ = step(state, args["batch"])
+    CheckpointManager(args["dir"]).save(1, state, blocking=True)
+    return {"pspecs": pspecs}
+
+
+def job_elastic_restore(rank, world, args):
+    """The checkpoint restored onto ``remesh(world, 1)`` by its FSDP
+    specs, then the next step: the restored state (whole), the specs, and
+    the step's loss, gradients and state after."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.convert import disable_tf32
+    from repro_torch.launch import policy, specs, steps
+    from repro_torch.runtime import elastic
+    from repro_torch.runtime.fault_tolerance import restore_onto
+    disable_tf32()
+    policy.use_fsdp = lambda c: True
+    mesh = elastic.remesh(world, 1, device_type="cpu")
+    rules = specs.rules_for(mesh)
+    cfg, opt = args["cfg"], args["opt"]
+    like, pspecs = specs.state_pspecs(cfg, opt, mesh, rules)
+    state, at = restore_onto(CheckpointManager(args["dir"]), like, mesh,
+                             pspecs)
+    restored = _full(state)
+    local_shapes = tree_lib.map_structure(
+        lambda t: tuple(t.to_local().shape), state)
+    step = steps.make_train_step(cfg, opt, compute_dtype=torch.float32,
+                                 mesh=mesh, rules=rules)
+    state, m, grads = step(state, args["batch"], return_grads=True)
+    return {"step": at, "restored": restored, "pspecs": pspecs,
+            "local_shapes": local_shapes, "loss": float(m["loss"]),
+            "grads": grads, "state": _full(state)}
+
+
+def job_train_cli(rank, world, args):
+    """`launch.train.main` on every rank, as `torchrun` runs it, then
+    again with ``--resume``: each run's printed lines."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import train
+    out = []
+    for extra in ([], ["--resume"]):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = train.main(args["argv"] + extra + args["more"] * bool(extra))
+        out.append({"rc": rc, "lines": buf.getvalue().splitlines()})
+    return out
+
+
+def _main(job, rank, world, d):
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    d = Path(d)
+    dist.init_process_group("gloo", store=dist.FileStore(str(d / "store"),
+                                                         world),
+                            rank=rank, world_size=world)
+    try:
+        args = torch.load(d / "args.pt", weights_only=False)
+        res = globals()[f"job_{job}"](rank, world, args)
+        torch.save(res, d / f"{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    _main(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])

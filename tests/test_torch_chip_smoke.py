@@ -491,6 +491,27 @@ def test_bf16_logit_bound_grows_with_depth_from_the_2_layer_bound():
     assert all(rel(n) < rel(n + 1) for n in range(1, 100))
 
 
+def test_near_tie_reports_the_gap_beside_both_bounds(two_threads):
+    """Where a resumed stream parts, `_near_tie` reports the two tokens'
+    gap as a share of max |logit| beside the rule's 3e-2 and the bound
+    derived at the model's depth, and decides on 3e-2."""
+    import numpy as np
+
+    import repro_torch.configs as configs
+    from repro_torch.launch import serve
+    cfg = configs.get_smoke("qwen3_14b")
+    prompt = list(np.random.default_rng(0).integers(0, cfg.vocab_size, 6))
+    want, got = [3, 5, 7, 9], [3, 5, 8, 9]
+    res = chip_smoke._near_tie(torch, serve, cfg, "cpu", torch.float32,
+                               prompt, want, got)
+    assert res["position"] == 2 and res["layers"] == cfg.num_layers
+    assert res["gap_rel"] == pytest.approx(res["gap"]
+                                           / res["max_abs_logit"])
+    assert res["bound_rel"] == serve.BF16_LOGIT_REL == 3e-2
+    assert res["derived_bound_rel"] == serve.bf16_logit_rel(cfg.num_layers)
+    assert res["near_tie"] == (res["gap_rel"] < 3e-2)
+
+
 def test_prefill_vs_forward_records_every_depth(two_threads, monkeypatch):
     """At a depth past ``MID_DEPTH`` the phase compares the two bf16 paths
     at 2, 8 and all layers of the same weights, each row beside the
@@ -610,6 +631,61 @@ def test_train_danube_on_a_smoke_model(two_threads):
     assert res["bound_ms"] == pytest.approx(
         8 * cfg.param_count() * 32 / 989e12 * 1e3)
     assert res["flash_launches"] == 0
+    # through the trainer CLI's mesh: a one-rank gloo group on the CPU
+    assert res["mesh"] == {"data": 1, "model": 1}
+    assert res["backend"] == "gloo"
+    assert res["all_reduce_ms"] > 0 and res["compressed_psum_ms"] > 0
+    assert res["grad_bytes"] == 4 * cfg.param_count()
+
+
+def test_train_mesh_parity_on_a_smoke_model(two_threads):
+    import repro_torch.configs as configs
+    res = chip_smoke.train_mesh_parity(
+        torch, configs, _smoke_mods(), "cpu",
+        cfg=configs.get_smoke("h2o_danube_1_8b"), shape=(2, 16),
+        device="cpu")
+    assert res["ok"], res
+    assert res["backend"] == "gloo"
+    assert 0 < res["compressed_worst_ratio_to_half_scale"] <= 1
+
+
+def test_train_mesh_parity_catches_a_mesh_step_that_differs(two_threads,
+                                                            monkeypatch):
+    """A mesh step whose gradients differ in one element from the plain
+    step's fails the phase."""
+    import repro_torch.configs as configs
+    from repro_torch.launch import steps
+    real = steps.data_parallel_step
+
+    def nudged(*a, **kw):
+        step = real(*a, **kw)
+
+        def run(state, batch, return_grads=False):
+            state, m, g = step(state, batch, return_grads=True)
+            g["final_norm"]["scale"][0] += 1e-6
+            return (state, m, g) if return_grads else (state, m)
+        return run
+
+    monkeypatch.setattr(steps, "data_parallel_step", nudged)
+    res = chip_smoke.train_mesh_parity(
+        torch, configs, _smoke_mods(), "cpu",
+        cfg=configs.get_smoke("h2o_danube_1_8b"), shape=(2, 16),
+        device="cpu")
+    assert not res["ok"] and not res["grads_bitwise"]
+
+
+def test_moe_expert_parallel_on_a_smoke_model(two_threads):
+    """The phase at Phi-3.5-MoE's SMOKE width: the serve CLI's rules on
+    the CPU (gloo), the exchange equal to its plain two-stage version,
+    and the repeated token's experts overflowing."""
+    import repro_torch.configs as configs
+    res = chip_smoke.moe_expert_parallel(
+        torch, configs, "cpu", device="cpu",
+        cfg=configs.get_smoke("phi3_5_moe_42b"), tokens=(4, 16), repeat=14)
+    assert res["ok"], res
+    assert res["send_stage_dropped"] == 0
+    assert res["expert_stage_dropped"] > 0
+    assert sum(res["items_per_expert"]) == res["items"] == 4 * 16 * 2
 
 
 def test_train_resume_cut_on_a_smoke_model(two_threads, tmp_path):

@@ -1515,3 +1515,75 @@ def test_the_train_step_is_bitwise_repeatable(cuda, arch, moment_dtype):
         runs.append(tree_lib.leaves(state))
     for a, b in zip(*runs):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# Scale-out on one card: a one-rank NCCL group
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_host_mesh_on_the_card_is_nccl(cuda):
+    """`make_host_mesh()` (device type ``cuda``, the default) on a card
+    starts a one-rank NCCL group, never gloo."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as mesh_lib
+    mesh = mesh_lib.make_host_mesh()
+    assert dist.get_backend() == "nccl"
+    assert mesh.device_type == "cuda"
+    assert mesh_lib.axis_sizes(mesh) == {"data": 1, "model": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cf", [8.0, 1.25])
+def test_expert_parallel_on_one_card_is_its_two_stage_plain_version(cuda,
+                                                                    cf):
+    """`moe.apply_sharded` under the (1, 1) NCCL mesh's rules at the
+    SMOKE width (Phi-3.5-MoE's SMOKE config) equals `apply_grouped` at
+    the compounded capacity in f32 within 1e-5, with tokens repeated so
+    experts overflow at 1.25."""
+    import dataclasses
+
+    import repro_torch.configs as configs
+    from repro_torch.core.loadbalance import expert_capacity
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import specs
+    from repro_torch.models import moe
+    from repro_torch.parallel import sharding as shd
+    cfg = dataclasses.replace(configs.get_smoke("phi3_5_moe_42b"),
+                              capacity_factor=cf)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    params = moe.moe_init(g, cfg)
+    x = torch.randn(4, 16, cfg.d_model, generator=g, device=cuda)
+    x[:2] = x[0, 0]
+    mesh = mesh_lib.make_host_mesh()
+    with mesh_lib.set_mesh(mesh), shd.use_rules(specs.rules_for(mesh)):
+        out, aux = moe.apply_sharded(params, x, cfg)
+    t = 64
+    c_send = expert_capacity(t * cfg.top_k, 1, 1, cf)
+    c_local = expert_capacity(c_send, cfg.num_experts, 1, cf)
+    want, want_aux = moe.apply_grouped(params, x.reshape(t, -1), cfg,
+                                       capacity=c_local)
+    assert (out.reshape(t, -1) - want).abs().max().item() <= 1e-5
+    assert abs(float(aux) - float(want_aux)) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_compressed_psum_over_nccl_stays_within_half_a_scale(cuda):
+    """`compressed_psum` over the one-rank NCCL group: each element within
+    half its 256-block's scale (the block's largest |x| / 127), plus f32's
+    rounding of the dequantized value (2^-23 of the block's largest)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.parallel.compression import QBLOCK, compressed_psum
+    mesh_lib.make_host_mesh()
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn(3, 1000, generator=g, device=cuda) * 5
+    out = compressed_psum(x, dist.group.WORLD)
+    flat = torch.nn.functional.pad(x.reshape(-1), (0, (-x.numel()) % QBLOCK))
+    top = flat.reshape(-1, QBLOCK).abs().amax(1, keepdim=True)
+    err = torch.nn.functional.pad((out - x).reshape(-1),
+                                  (0, (-x.numel()) % QBLOCK)).abs()
+    assert bool((err.reshape(-1, QBLOCK)
+                 <= top / 127 / 2 + top * 2.0 ** -23).all())

@@ -99,8 +99,9 @@ def test_the_one_card_mesh_and_the_refusal_of_larger_ones():
         assert mesh.mesh_dim_names == ("data", "model")
     finally:
         dist.destroy_process_group()
-    for mc in (manycore.SINGLE_POD, manycore.host_test_config(2, 1)):
-        with pytest.raises(NotImplementedError, match="A14"):
+    for mc, n in ((manycore.SINGLE_POD, 256),
+                  (manycore.host_test_config(2, 1), 2)):
+        with pytest.raises(RuntimeError, match=f"{n} cards needs {n} ranks"):
             mc.make_mesh("cpu")
 
 

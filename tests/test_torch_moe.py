@@ -196,24 +196,188 @@ def test_capacity_counts_padded_rows_like_the_reference():
 
 
 def test_the_reference_cli_rules_take_a_two_stage_capacity():
-    """A difference inside the reference, logged in ROADMAP queue C: the
-    JAX serve CLI runs under sharding rules on a one-device mesh, so its
-    `apply_sharded` takes the `all_to_all` path with one model shard,
-    whose two capacities (send, then per expert) compound the capacity
-    factor; without the rules (the JAX `Server` as the tests drive it) it
-    is `apply_grouped`.  Where experts overflow the two drop different
-    items.  The port has no mesh and is `apply_grouped` (ROADMAP A14)."""
+    """The JAX serve CLI runs under sharding rules on a one-device mesh,
+    so its `apply_sharded` takes the `all_to_all` path with one model
+    shard, whose two capacities (send, then per expert) compound the
+    capacity factor; without the rules (the JAX `Server` as the tests
+    drive it) it is `apply_grouped`.  Where experts overflow the two drop
+    different items.  The port does the same: under its CLI's rules (a
+    (1, 1) mesh, gloo on the CPU) its `apply_sharded` equals the JAX CLI
+    path, and without rules the plain one, both within 1e-5."""
     from repro.launch import specs
     from repro.launch.mesh import make_host_mesh, set_mesh
     from repro.parallel import sharding as shd
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.launch import specs as tspecs
+    from repro_torch.parallel import sharding as tshd
     jcfg, tcfg, jp, tp, x = _layer(4, 2, 1.25, t=64)
     x3 = x.reshape(4, 16, -1)
     x3[:3] = x3[0, 0]                   # 48 copies of one token: overflow
     mesh = make_host_mesh(data=1, model=1)
     with set_mesh(mesh), shd.use_rules(specs.rules_for(mesh)):
-        cli, _ = jax.jit(lambda p, v: jmoe.apply_sharded(p, v, jcfg))(
+        cli, cli_aux = jax.jit(lambda p, v: jmoe.apply_sharded(p, v, jcfg))(
             jp, jnp.asarray(x3))
     plain, _ = jmoe.apply_sharded(jp, jnp.asarray(x3), jcfg)
     mine, _ = tmoe.apply_sharded(tp, torch.from_numpy(x3), tcfg)
     np.testing.assert_allclose(mine.numpy(), _np(plain), rtol=0, atol=TOL)
     assert np.abs(_np(cli) - _np(plain)).max() > 1e-4
+    tm = tmesh.make_host_mesh(1, 1, device_type="cpu")
+    with tmesh.set_mesh(tm), tshd.use_rules(tspecs.rules_for(tm)):
+        ruled, aux = tmoe.apply_sharded(tp, torch.from_numpy(x3), tcfg)
+    np.testing.assert_allclose(ruled.numpy(), _np(cli), rtol=0, atol=TOL)
+    assert abs(float(aux) - float(cli_aux)) <= TOL
+
+
+def test_two_stage_capacity_is_grouped_at_the_compound_capacity():
+    """With one model shard the exchange keeps an item iff it is among
+    the first ``c_send`` of the tokens' items (every item goes to shard 0)
+    and among its expert's first ``c_local`` of those: on a (1, 1) mesh
+    `apply_sharded` equals `apply_grouped` at capacity ``c_local`` when
+    ``c_send`` holds every item (the plain version of it `chip_smoke.py`
+    holds the card's to)."""
+    from repro_torch.core.loadbalance import expert_capacity
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.launch import specs as tspecs
+    from repro_torch.parallel import sharding as tshd
+    _, tcfg, _, tp, x = _layer(4, 2, 1.25, t=64)
+    x3 = x.reshape(4, 16, -1)
+    x3[:3] = x3[0, 0]
+    t, k, e = 64, tcfg.top_k, tcfg.num_experts
+    c_send = expert_capacity(t * k, 1, 1, tcfg.capacity_factor)
+    assert c_send >= t * k
+    c_local = expert_capacity(c_send, e, 1, tcfg.capacity_factor)
+    tm = tmesh.make_host_mesh(1, 1, device_type="cpu")
+    with tmesh.set_mesh(tm), tshd.use_rules(tspecs.rules_for(tm)):
+        ruled, _ = tmoe.apply_sharded(tp, torch.from_numpy(x3), tcfg)
+    plain, _ = tmoe.apply_grouped(tp, torch.from_numpy(x3).reshape(t, -1),
+                                  tcfg, capacity=c_local)
+    np.testing.assert_allclose(ruled.reshape(t, -1).numpy(), plain.numpy(),
+                               rtol=0, atol=TOL)
+
+
+MOE8_SNIPPET = r"""
+import os, sys
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+import dataclasses
+import jax, jax.numpy as jnp, numpy as np
+from repro.launch.mesh import axis_types_kwargs, set_mesh
+from repro.models import moe
+from repro.models.config import ModelConfig
+from repro.parallel import sharding as shd
+cfg = ModelConfig(name="t", family="moe", num_layers=1, d_model=32, d_ff=64,
+                  vocab_size=64, num_heads=4, num_kv_heads=2,
+                  num_experts=8, top_k=2, moe_d_ff=16, capacity_factor=8.0)
+mesh = jax.sharding.Mesh(np.array(jax.devices()).reshape(2, 4),
+                         ("data", "model"), **axis_types_kwargs(2))
+rules = shd.single_pod_rules().with_sizes(mesh)
+p = moe.moe_init(jax.random.PRNGKey(0), cfg)
+x = np.array(jax.random.normal(jax.random.PRNGKey(1), (4, 16, 32)))
+x[:2, :12] = x[0, 0]                 # one token repeated: experts overflow
+out = {"x": x, **{"p_" + k: np.asarray(v) for k, v in p.items()}}
+for cf in (8.0, 1.25):
+    c = dataclasses.replace(cfg, capacity_factor=cf)
+    with set_mesh(mesh), shd.use_rules(rules):
+        y, aux = jax.jit(lambda p, x: moe.apply_sharded(p, x, c))(
+            p, jnp.asarray(x))
+    out[f"out_{cf}"] = np.asarray(y)
+    out[f"aux_{cf}"] = np.asarray(aux)
+np.savez(sys.argv[1], **out)
+"""
+
+
+def test_expert_parallel_on_8_ranks_equals_the_reference(tmp_path):
+    """`apply_sharded` on a (2, 4) gloo mesh (each rank its data rows;
+    the tokens split over the model axis by sequence) against the
+    reference's on its 8-device mesh, within 1e-5, at capacity factor
+    8.0 (nothing drops) and at an overflowing 1.25."""
+    import os
+    import subprocess
+    import sys
+
+    import _torch_ranks
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    p = subprocess.run(
+        [sys.executable, "-c", MOE8_SNIPPET, str(tmp_path / "ref.npz")],
+        capture_output=True, text=True, cwd=root, timeout=180,
+        env={**os.environ, "PYTHONPATH": "src", "JAX_PLATFORMS": "cpu"})
+    assert p.returncode == 0, p.stderr[-3000:]
+    ref = np.load(tmp_path / "ref.npz")
+    _, tcfg = _cfgs(8, 2, 8.0)
+    params = params_from_numpy({k[2:]: ref[k] for k in ref.files
+                                if k.startswith("p_")})
+    res = _torch_ranks.spawn("moe", 8, tmp_path, {
+        "cfg": tcfg, "params": params, "x": torch.from_numpy(ref["x"]),
+        "factors": [8.0, 1.25]}, timeout=180)
+    for cf in (8.0, 1.25):
+        want = ref[f"out_{cf}"]
+        for r in res:
+            d = r["data"]
+            np.testing.assert_allclose(r[cf]["out"].numpy(),
+                                       want[2 * d:2 * d + 2], rtol=0,
+                                       atol=TOL)
+            assert abs(float(r[cf]["aux"]) - float(ref[f"aux_{cf}"])) <= TOL
+    # the overflow is real: the two factors give different outputs
+    assert np.abs(ref["out_8.0"] - ref["out_1.25"]).max() > 1e-4
+
+
+def test_cli_streams_equal_the_jax_clis_where_experts_overflow():
+    """The serve loop as each CLI runs it: a Server built and drained
+    under the rules of a (1, 1) mesh (gloo on the CPU in the port), on
+    Phi-3.5-MoE's SMOKE config with the same weights, 6 requests at batch
+    4, f32 cache.  Every stream equals the JAX CLI path's; without the
+    rules both are `apply_grouped` and equal each other, and at least
+    one stream differs from the rules path's, where the two-stage
+    capacity drops other items."""
+    import contextlib
+
+    from repro.launch import serve as jserve
+    from repro.launch import specs
+    from repro.launch.mesh import make_host_mesh, set_mesh
+    from repro.parallel import sharding as shd
+    from repro.runtime.lifecycle import Lifecycle as JLifecycle
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.launch import serve as tserve
+    from repro_torch.launch import specs as tspecs
+    from repro_torch.parallel import sharding as tshd
+    from repro_torch.runtime.lifecycle import Lifecycle as TLifecycle
+    jcfg = jconfigs.get_smoke("phi3_5_moe_42b")
+    tcfg = tconfigs.get_smoke("phi3_5_moe_42b")
+    spec = [(5, 6), (9, 4), (3, 6), (7, 5), (12, 6), (6, 6)]
+    reqs = [(rid, np.asarray(jax.random.randint(
+        jax.random.PRNGKey(100 + rid), (p,), 0, jcfg.vocab_size), np.int32),
+        g) for rid, (p, g) in enumerate(spec)]
+    max_len = max(p + g for p, g in spec) + 4
+
+    def run(with_rules):
+        jctx, tctx = contextlib.ExitStack(), contextlib.ExitStack()
+        if with_rules:
+            jm = make_host_mesh(data=1, model=1)
+            tm = tmesh.make_host_mesh(1, 1, device_type="cpu")
+            jctx.enter_context(set_mesh(jm))
+            jctx.enter_context(shd.use_rules(specs.rules_for(jm)))
+            tctx.enter_context(tmesh.set_mesh(tm))
+            tctx.enter_context(tshd.use_rules(tspecs.rules_for(tm)))
+        with jctx:
+            js = jserve.Server(jcfg, 4, max_len, autotune_kernels=False,
+                               kv_dtype=jnp.float32)
+            jlc = JLifecycle(clock=lambda: 0.0)
+            for rid, p, g in reqs:
+                jlc.submit(rid, p, g)
+            jserve.serve_loop(js, jlc, max_steps=400)
+        with tctx:
+            ts = tserve.Server(tcfg, 4, max_len, device="cpu",
+                               params=params_from_numpy(
+                                   jax.tree.map(np.asarray, js.params)),
+                               kv_dtype=torch.float32)
+            tlc = TLifecycle(clock=lambda: 0.0)
+            for rid, p, g in reqs:
+                tlc.submit(rid, p, g)
+            tserve.serve_loop(ts, tlc, max_steps=400)
+        return ({r: jlc.requests[r].tokens for r, _, _ in reqs},
+                {r: tlc.requests[r].tokens for r, _, _ in reqs})
+
+    jax_cli, port_cli = run(True)
+    jax_plain, port_plain = run(False)
+    assert port_cli == jax_cli
+    assert port_plain == jax_plain
+    assert port_cli != port_plain
