@@ -211,7 +211,25 @@ Phases, each printed as one JSON line:
    Qwen3-14B's SMOKE config for 30 steps, then ``--resume`` to 40 in a
    second process.  ``train_lm``: ``examples.train_lm --hundred-m
    --steps 200``, its loss falling by 10 %.
-14. ``total``: the script's seconds.  ``kernels``: one entry per ported
+14. Compile analysis (ROADMAP A14 items 6-10).  ``dryrun_counts``: one
+   more step of ``train_danube`` (through the one-rank NCCL mesh),
+   ``prefill`` (Qwen3-14B, 1 x 32,768 tokens, B5 launched once a layer)
+   and ``decode_step`` (batch 4, B1 launched once a layer) counted by
+   `core.hlo_stats.count_step` on the card and on meta (prefill and
+   decode on a meta mirror of the same arguments; the train step in a
+   process of its own over a one-rank ``fake`` group, `meta_count_main`):
+   FLOPs and collectives (counts and operand bytes) must be equal and
+   bytes within 1 %, any operator that differs named; beside each, the
+   counter's tracked peak and `torch.cuda.max_memory_allocated`, the
+   phase's measured step and the roofline bound of the counted step (a
+   model of the data sheet: `step_bound`).  ``dryrun_cells``: six cells
+   of ``python -m repro_torch.launch.dryrun`` on the single-pod mesh,
+   one process each, all at once (they need no card): Qwen3-14B's
+   ``train_4k``, ``prefill_32k`` and ``decode_32k``, Qwen3-MoE's
+   ``decode_32k``, Jamba's ``long_500k``, each ``ok``, and Qwen3-MoE's
+   ``train_4k``, which must come out ``skipped`` as not in the port;
+   then `benchmarks.roofline_report`'s table and CSV lines of them.
+15. ``total``: the script's seconds.  ``kernels``: one entry per ported
    kernel, with its TPU counterpart, its design, launches on its
    main-path run (B1, B3: the default CLI, ``serve_autobatch*``; B2, B4:
    their serve runs; B5: the ``prefill`` phase; B6: ``table1``; B7, B8:
@@ -1321,7 +1339,7 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def decode_step_breakdown(torch, configs, serve):
+def decode_step_breakdown(torch, configs, serve, mods):
     """One decode step of the serve shape at full width, with the decode
     span the server resolved from its plan and then with the kernels'
     default span, on one server (the span rides the cache): for each,
@@ -1329,7 +1347,9 @@ def decode_step_breakdown(torch, configs, serve):
     synchronisation, the copy of the next tokens), then device time by
     kernel over ``STEP_TRACED`` steps traced by `torch.profiler`.  The
     profiler slows the host, so the busy share of an untraced step is the
-    traced device time per step over the median untraced step."""
+    traced device time per step over the median untraced step.  Then
+    one more step at the server's span is counted on the card and on
+    meta (`decode_counts`)."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
     cfg = configs.get("qwen3_14b")
@@ -1382,6 +1402,10 @@ def decode_step_breakdown(torch, configs, serve):
                             for n, c, us in kernels[:TOP_KERNELS]]}
     out["decode_attention_ms_per_step"] = min(
         out[k]["decode_attention_ms_per_step"] for k in ("tuned", "default"))
+    server.cache.pop("decode_span", None)
+    server.cache["decode_span"] = server.decode_span
+    out["dryrun_counts"] = decode_counts(torch, mods, server,
+                                         out["tuned"]["host_median_ms"])
     return out
 
 
@@ -2587,7 +2611,9 @@ def train_danube(torch, configs, mods, smi, cfg=None, shape=DANUBE_TRAIN,
     out.  `reduce_costs` of the last step's gradient tree: what its
     one-rank all-reduce adds to a step, and `compressed_psum`'s time on
     it.  One more step under `torch.profiler` gives device time by
-    kernel."""
+    kernel.  One more step is counted (`hlo_stats.count_step`) where it
+    runs and on meta in a process of its own (`meta_train_count_process`),
+    under ``dryrun_counts``, with the flash kernel's launches in it."""
     import statistics
 
     import torch.distributed as dist
@@ -2669,6 +2695,17 @@ def train_danube(torch, configs, mods, smi, cfg=None, shape=DANUBE_TRAIN,
            "nvidia_smi": smi}
     res["ok"] = (all(math.isfinite(x) for x in losses + norms)
                  and flash_launches == 0 and len(times) == timed)
+    batch = _train_batch(torch, cfg, b, s, timed + 2, device)
+    reset_launch_counts(mods)
+    card = counted(torch, step, state, batch)
+    launches = {"flash_attention": launch_counts(mods)["flash_attention"]}
+    meta = meta_train_count_process(cfg, shape, opt)
+    pair = {"card": card, "meta": meta,
+            "compare": compare_counts(card, meta)}
+    bound = step_bound(cfg, card, kind="train", batch=b, seq=s,
+                       param_bytes=4, moment_bytes=4.0)
+    res["dryrun_counts"] = with_bound(pair, res["step_ms_median"], bound,
+                                      launches)
     del state
     gc.collect()
     if torch.device(device).type == "cuda":
@@ -2949,10 +2986,11 @@ def train_lm_phase(torch, argv=TRAIN_LM_ARGV, state_root=STATE_ROOT
     return res
 
 
-def training_phases(torch, configs, mods, smi) -> dict:
+def training_phases(torch, configs, mods, smi, counts) -> dict:
     """The design flow's and training's phases in order, one after
     another, each emitted with its seconds and checked; returns B6-B8's
-    launches by design-flow phase."""
+    launches by design-flow phase.  A phase's ``dryrun_counts`` goes to
+    ``counts`` under the phase's name, not to its line."""
     phases = [
         ("quickstart", lambda: design_flow_phase(torch, mods, "quickstart")),
         ("spmv_pipeline",
@@ -2971,6 +3009,8 @@ def training_phases(torch, configs, mods, smi) -> dict:
     for phase, run in phases:
         t0 = time.time()
         res = run()
+        if "dryrun_counts" in res:
+            counts[phase] = res.pop("dryrun_counts")
         emit(phase, phase_s=round(time.time() - t0, 3), **res)
         check(res["ok"], f"{phase} failed: " + json.dumps(
             {k: v for k, v in res.items() if k != "kernels"}))
@@ -2978,6 +3018,280 @@ def training_phases(torch, configs, mods, smi) -> dict:
             flow[phase] = res["launches"]
     return {kernel: {phase: n[kernel] for phase, n in flow.items()}
             for kernel in ("blocked_matmul", "ell_spmv", "ell_spmv_blocked")}
+
+
+# --------------------------------------------------------------------------
+# Compile analysis (ROADMAP A14 items 6-10): the dry run's counts held to
+# the card's, and dry-run cells through the module's CLI
+# --------------------------------------------------------------------------
+
+COUNT_BYTES_REL = 0.01               # card against meta: bytes within 1 %
+DIFFERING_OPS_SHOWN = 20
+# (arch, shape) cells of `launch.dryrun` on the single-pod mesh; the MoE
+# train cell is one the port cannot form ("not in the port:")
+DRYRUN_CELLS = [("qwen3_14b", "train_4k"), ("qwen3_14b", "prefill_32k"),
+                ("qwen3_14b", "decode_32k"), ("qwen3_moe_235b", "decode_32k"),
+                ("jamba_1_5_large_398b", "long_500k"),
+                ("qwen3_moe_235b", "train_4k")]
+DRYRUN_SKIPPED = {("qwen3_moe_235b", "train_4k")}
+DRYRUN_DIR = ROOT / "build" / "chip_smoke_dryrun"
+DRYRUN_TIMEOUT = 600                 # seconds a cell
+PREFILL_COUNT_SEED = 3               # the counted prefill's tokens
+
+
+def meta_like(torch, *trees) -> tuple:
+    """``trees`` (dicts of tensors) with every tensor replaced by an
+    empty meta tensor of its shape, strides and dtype."""
+    from repro_torch import tree as tree_lib
+
+    def meta(t):
+        if not isinstance(t, torch.Tensor):
+            return t
+        return torch.empty_strided(tuple(t.shape), t.stride(),
+                                   dtype=t.dtype, device="meta")
+
+    return tuple(tree_lib.map_structure(meta, t) for t in trees)
+
+
+def count_record(counts) -> dict:
+    """A `hlo_stats.StepCounts` as JSON: its totals and its operators."""
+    return {**counts.row(), "ops": counts.ops}
+
+
+def counted(torch, fn, *args) -> dict:
+    """`count_record` of ``fn(*args)`` counted where its tensors lie; on a
+    card with the peak of `torch.cuda.max_memory_allocated` over the call
+    beside the counter's tracked peak."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.core import hlo_stats
+    cuda = any(isinstance(t, torch.Tensor) and t.is_cuda
+               for a in args for t in tree_lib.leaves(a))
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    rec = count_record(hlo_stats.count_step(fn, *args))
+    if cuda:
+        torch.cuda.synchronize()
+        rec["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    return rec
+
+
+def compare_counts(card: dict, meta: dict) -> dict:
+    """The card's counts against meta's: FLOPs and collectives (counts
+    and bytes) equal, bytes within ``COUNT_BYTES_REL``; the operators
+    whose ``[calls, flops, bytes]`` differ are named."""
+    ops = sorted(set(card["ops"]) | set(meta["ops"]))
+    differ = {op: {"card": card["ops"].get(op), "meta": meta["ops"].get(op)}
+              for op in ops if card["ops"].get(op) != meta["ops"].get(op)}
+    rel = (abs(card["bytes_accessed"] - meta["bytes_accessed"])
+           / max(meta["bytes_accessed"], 1.0))
+    res = {"flops_equal": card["flops"] == meta["flops"],
+           "collectives_equal": (
+               card["collective_counts"] == meta["collective_counts"]
+               and card["collectives"] == meta["collectives"]),
+           "bytes_rel_diff": rel, "differing_ops": len(differ),
+           "differing": dict(list(differ.items())[:DIFFERING_OPS_SHOWN])}
+    res["ok"] = (res["flops_equal"] and res["collectives_equal"]
+                 and rel <= COUNT_BYTES_REL)
+    return res
+
+
+def count_summary(rec: dict) -> dict:
+    """What the ``dryrun_counts`` line prints of one side's counts."""
+    keys = ("flops", "bytes_accessed", "collective_counts", "collectives",
+            "argument_bytes", "peak_bytes", "kernels",
+            "max_memory_allocated")
+    return {k: rec[k] for k in keys if k in rec}
+
+
+def step_bound(cfg, rec: dict, *, kind: str, batch: int, seq: int,
+               param_bytes: int, moment_bytes: float = 4.0,
+               cache_len: int = 0) -> dict:
+    """The roofline of one counted step on one card, a model of the
+    H100 SXM data sheet: the counted FLOPs at the bf16 peak, the memory
+    term of `estimate.bytes_model`, the counted collective bytes at
+    NVLink's rate (a one-rank group moves nothing); and the counted
+    bytes at the memory rate, an unfused upper bound."""
+    from repro_torch.core import cost_model, estimate
+    bm = estimate.bytes_model(cfg, batch=batch, seq=seq, kind=kind,
+                              param_bytes=param_bytes,
+                              moment_bytes=moment_bytes,
+                              cache_len=cache_len)
+    roof = cost_model.roofline(rec["flops"], bm["total"],
+                               rec["collective_bytes"], 1)
+    return {"roofline": roof.row(), "bound_ms": roof.bound_s * 1e3,
+            "counted_bytes_ms": rec["bytes_accessed"] / HBM_BYTES_PER_S
+            * 1e3}
+
+
+def count_pair(torch, fn, args, meta_args) -> dict:
+    """``fn`` counted on the card's ``args`` and on their ``meta_args``
+    mirror, and the two compared."""
+    card = counted(torch, fn, *args)
+    meta = counted(torch, fn, *meta_args)
+    return {"card": card, "meta": meta, "compare": compare_counts(card, meta)}
+
+
+def with_bound(pair: dict, measured_ms, bound: dict, launches: dict) -> dict:
+    """One entry of the ``dryrun_counts`` line."""
+    ms = bound["bound_ms"]
+    return {"card": count_summary(pair["card"]),
+            "meta": count_summary(pair["meta"]), **pair["compare"],
+            "launches": launches, "measured_ms": measured_ms,
+            "bound_ms": ms, "measured_over_bound":
+            None if not (measured_ms and ms) else measured_ms / ms,
+            "counted_bytes_ms": bound["counted_bytes_ms"],
+            "roofline": bound["roofline"],
+            "tracked_peak_bytes": pair["card"]["peak_bytes"],
+            "max_memory_allocated": pair["card"].get(
+                "max_memory_allocated")}
+
+
+def prefill_counts(torch, steps, mods, cfg, params, measured_ms,
+                   seq=None) -> dict:
+    """One more `make_prefill_step` forward of the ``prefill`` phase's
+    shape (1 x ``seq``, by default ``prefill_32k``'s length) counted on
+    the card (B5 must launch once per layer) and on meta."""
+    from repro_torch.configs import shapes
+    seq = seq or shapes.SHAPES["prefill_32k"].seq_len
+    dev = params["final_norm"]["scale"].device
+    tokens = torch.randint(0, cfg.vocab_size, (1, seq), device=dev,
+                           generator=torch.Generator(device=dev)
+                           .manual_seed(PREFILL_COUNT_SEED))
+    batch = {"tokens": tokens}
+    step = steps.make_prefill_step(cfg)
+    reset_launch_counts(mods)
+    pair = count_pair(torch, step, (params, batch),
+                      meta_like(torch, params, batch))
+    launches = {"flash_attention": launch_counts(mods)["flash_attention"]}
+    pbytes = params["embed"]["table"].element_size()
+    entry = with_bound(pair, measured_ms, step_bound(
+        cfg, pair["card"], kind="prefill", batch=1, seq=seq,
+        param_bytes=pbytes), launches)
+    entry["ok"] = (entry["ok"] and launches["flash_attention"]
+                   == cfg.num_layers)
+    return entry
+
+
+def decode_counts(torch, mods, server, measured_ms) -> dict:
+    """One more guarded decode step of the `decode_step` server (every
+    slot active) counted on the card (B1 must launch once per layer) and
+    on meta.  It writes the cache's next rows but not its lengths: the
+    server is done with after it."""
+    dev = server.device
+    tokens = torch.as_tensor(server.last_tok, device=dev)
+    active = torch.ones((server.batch,), dtype=torch.bool, device=dev)
+    args = (server.params, server.cache, tokens, active)
+    meta_args = meta_like(torch, *args)
+    reset_launch_counts(mods)
+    pair = count_pair(torch, server.serve_step, args, meta_args)
+    launches = {"decode_attention": launch_counts(mods)["decode_attention"]}
+    pbytes = server.params["embed"]["table"].element_size()
+    entry = with_bound(pair, measured_ms, step_bound(
+        server.cfg, pair["card"], kind="decode", batch=server.batch, seq=1,
+        param_bytes=pbytes, cache_len=server.max_len), launches)
+    entry["ok"] = (entry["ok"] and launches["decode_attention"]
+                   == server.cfg.num_layers)
+    return entry
+
+
+def meta_train_count(torch, cfg, shape, opt) -> dict:
+    """`count_record` of the ``train_danube`` step on meta: the state of
+    `specs.state_pspecs` on the trainer CLI's (1, 1) mesh over a one-rank
+    ``fake`` group, a meta mirror of the step's batch."""
+    from repro_torch.core import hlo_stats
+    from repro_torch.launch import dryrun, specs, steps
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh(device_type="meta")
+    rules = specs.rules_for(mesh)
+    state_abs, pspecs = specs.state_pspecs(cfg, opt, mesh, rules)
+    state = dryrun._placed(state_abs, pspecs, mesh)
+    (batch,) = meta_like(torch, _train_batch(torch, cfg, *shape, 0, "cpu"))
+    step = steps.make_train_step(cfg, opt, mesh=mesh, rules=rules)
+    return count_record(hlo_stats.count_step(step, state, batch))
+
+
+def meta_count_main(spec: str) -> int:
+    """`meta_train_count` of a JSON ``{"cfg", "shape", "opt"}``, printed
+    as one JSON line (a process of its own: the card's process holds an
+    NCCL group, and a fake one needs the default group)."""
+    import torch
+
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.optim import adamw
+    spec = json.loads(spec)
+    rec = meta_train_count(torch, ModelConfig(**spec["cfg"]),
+                           tuple(spec["shape"]),
+                           adamw.AdamWConfig(**spec["opt"]))
+    rec.pop("result", None)
+    print(json.dumps(rec))
+    return 0
+
+
+def meta_train_count_process(cfg, shape, opt) -> dict:
+    """`meta_count_main` in a process of its own."""
+    import os
+    spec = json.dumps({"cfg": dataclasses.asdict(cfg), "shape": list(shape),
+                       "opt": dataclasses.asdict(opt)})
+    p = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--meta-count", spec],
+        capture_output=True, text=True, cwd=ROOT, timeout=900,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    check(p.returncode == 0, f"the meta train count failed: "
+                             f"{p.stderr[-2000:]}")
+    return json.loads(p.stdout.strip().splitlines()[-1])
+
+
+def dryrun_cells(cells=DRYRUN_CELLS, out=DRYRUN_DIR,
+                 timeout=DRYRUN_TIMEOUT) -> dict:
+    """`python -m repro_torch.launch.dryrun` for each of ``cells`` on the
+    single-pod mesh, all at once, one process each (they need no card);
+    then `roofline_report`'s table and CSV lines of their records.  Every
+    cell must come out ``ok``, but those of ``DRYRUN_SKIPPED``, which
+    must be ``skipped`` as not in the port."""
+    import os
+    import shutil
+
+    from repro_torch.benchmarks import roofline_report
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    procs = []
+    t0 = time.time()
+    for arch, shape in cells:
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", "single", "--out", str(out)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            cwd=ROOT, env=env))
+    rows, ok = [], True
+    for (arch, shape), p in zip(cells, procs):
+        try:
+            stdout, stderr = p.communicate(
+                timeout=max(timeout - (time.time() - t0), 1))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            stdout, stderr = p.communicate()
+        f = out / f"{arch}__{shape}__single.json"
+        rec = json.loads(f.read_text()) if f.exists() else {}
+        want = "skipped" if (arch, shape) in DRYRUN_SKIPPED else "ok"
+        good = (p.returncode == 0 and rec.get("status") == want
+                and (want == "ok" or rec.get("reason", "").startswith(
+                    "not in the port:")))
+        ok = ok and good
+        row = {"arch": arch, "shape": shape, "rc": p.returncode,
+               "status": rec.get("status"), "line": stdout.strip()[-400:],
+               "ok": good}
+        for k in ("reason", "trace_s", "probe_s", "fits", "peak_bytes",
+                  "roofline"):
+            if k in rec:
+                row[k] = rec[k]
+        if not good:
+            row["stderr_tail"] = stderr[-2000:]
+        rows.append(row)
+    return {"cells": rows, "seconds": round(time.time() - t0, 3),
+            "table": roofline_report.markdown_table("single", out),
+            "csv": roofline_report.csv_lines("single", out), "ok": ok}
 
 
 # --------------------------------------------------------------------------
@@ -3589,7 +3903,7 @@ def main() -> int:
           + json.dumps([c for c in fcases if not c["ok"]]))
     cases += fcases
 
-    prefill_launches = {}
+    prefill_launches, counts = {}, {}
     for phase, arch, check_len in PREFILL_PHASES:
         cfg = configs.get(arch)
         params = transformer.init(
@@ -3600,6 +3914,9 @@ def main() -> int:
         emit(phase, **res)
         check(res["ok"], f"{phase} failed: {res}")
         prefill_launches[phase] = res["flash_launches"]
+        if phase == "prefill":
+            counts["prefill"] = prefill_counts(
+                torch, steps, mods, cfg, params, res["host_median_ms"])
         pvf = prefill_vs_forward(torch, steps, transformer, mods, cfg,
                                  params, check_len)
         emit("prefill_vs_forward", **pvf)
@@ -3652,7 +3969,8 @@ def main() -> int:
     emit("paged_vs_contiguous", **pvc)
     check(pvc["ok"], f"paged and contiguous token streams differ: {pvc}")
 
-    step = decode_step_breakdown(torch, configs, serve)
+    step = decode_step_breakdown(torch, configs, serve, mods)
+    counts["decode_step"] = step.pop("dryrun_counts")
     emit("decode_step", **step)
     check(step["decode_attention_ms_per_step"] > 0,
           "decode_step found no device time of the decode kernel")
@@ -3668,7 +3986,27 @@ def main() -> int:
     del t1, t2
 
     # The paper's design flow (A15) and training on one card (A13).
-    flow_launches = training_phases(torch, configs, mods, smi)
+    flow_launches = training_phases(torch, configs, mods, smi, counts)
+
+    # Compile analysis (A14 items 6-10): the dry run's counter on the
+    # card against meta, then dry-run cells through the module's CLI.
+    counts = {k: counts[k] for k in ("train_danube", "prefill",
+                                     "decode_step")}
+    emit("dryrun_counts", nvidia_smi=smi, phases=counts,
+         ok=all(c["ok"] for c in counts.values()))
+    check(all(c["ok"] for c in counts.values()),
+          "the card's counts and meta's disagree: " + json.dumps(
+              {k: {f: c[f] for f in ("flops_equal", "collectives_equal",
+                                     "bytes_rel_diff", "differing",
+                                     "launches")}
+               for k, c in counts.items() if not c["ok"]}))
+    cells = dryrun_cells()
+    print(cells["table"], flush=True)
+    for line in cells["csv"]:
+        print(line, flush=True)
+    emit("dryrun_cells", **cells)
+    check(cells["ok"], "a dry-run cell failed: " + json.dumps(
+        [c for c in cells["cells"] if not c["ok"]]))
 
     entries = []
     for name, (source, replaces) in KERNELS.items():
@@ -3719,6 +4057,8 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
+        if sys.argv[1:2] == ["--meta-count"]:      # `meta_count_main`
+            sys.exit(meta_count_main(sys.argv[2]))
         sys.exit(main())
     except Fail as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

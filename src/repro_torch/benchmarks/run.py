@@ -3,10 +3,9 @@ Table I, Table II, the attention rows and the bandwidth rows.
 Counterpart of ``benchmarks/run.py`` of the JAX package.
 
 Prints ``name,us_per_call,derived`` CSV lines (``table1.*``,
-``table2.*``, ``attn.*``, ``bandwidth.*`` and the JAX package's
-``roofline.unavailable`` line: the roofline rows read the dry-run
-artifacts, which this package does not write yet: the compile-analysis
-slice of ROADMAP A14) and writes
+``table2.*``, ``attn.*``, ``bandwidth.*``, and ``roofline.*`` from the
+dry-run records under ``build/dryrun/`` (`roofline_report`; none when
+there are none, as in the JAX package)) and writes
 the machine-readable report to ``--out``: this package's own file, never
 the root ``BENCH_kernels.json`` of the JAX benchmarks.  Its keys are the
 JAX report's, so ``tools/check_bench.py`` gates it unchanged:
@@ -136,6 +135,7 @@ def csv_lines(report: dict, device) -> list[str]:
     """The CSV lines of a report (Table II's rows are timed again)."""
     from repro_torch.benchmarks import attention_prefill as attn
     from repro_torch.benchmarks import bandwidth_extrapolation as bandwidth
+    from repro_torch.benchmarks import roofline_report
     from repro_torch.benchmarks import table2_spmv as table2
     lines = []
     for r in report["matmul_tuned_vs_fixed"]:
@@ -152,10 +152,10 @@ def csv_lines(report: dict, device) -> list[str]:
         report["attention_decode"], report["decode_ragged"],
         report["decode_int8"])
     lines += bandwidth.main()
-    # The roofline rows read the dry-run artifacts (ROADMAP A14's
-    # compile-analysis slice).
-    lines.append("roofline.unavailable,0.0,FileNotFoundError('no dry-run "
-                 "artifacts: launch/dryrun.py is not ported')")
+    try:
+        lines += roofline_report.main()
+    except Exception as e:  # the dry-run records may be unreadable
+        lines.append(f"roofline.unavailable,0.0,{e!r}")
     return lines
 
 

@@ -101,8 +101,8 @@ def run(device="cuda") -> dict:
     print("\n=== deploy plan ===")
     print(f"mesh: {dict(zip(mc.mesh_axes, mc.mesh_shape))}")
     print(f"matmul tile: {tuned}; kernels: {', '.join(mc.kernels)}")
-    print("dry-running the full production mesh (the sweep) is "
-          "the compile-analysis slice of ROADMAP A14, not yet ported")
+    print("dry-run the full production mesh (no card needed): "
+          "python -m repro_torch.launch.sweep --mesh both")
     return {"matmul": {"max_abs_err": mm_err, "ok": mm_ok,
                        "tile": list(plan.knobs["tile"]),
                        "source": plan.source},

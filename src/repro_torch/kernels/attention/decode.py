@@ -21,14 +21,25 @@ A wrapper takes the plain version only for tensors that lie on the CPU.
 A CUDA tensor launches the kernel or raises: there is no fallback.
 ``launches`` and ``paged_launches`` count kernel launches, so a run can
 show that its decode steps went through the kernels.
+
+On ``meta`` tensors (the dry run's, `launch.dryrun`) a wrapper runs its
+shape checks and returns an empty meta tensor of the output's shape: it
+computes nothing and launches nothing, so it is no fallback.  On a meta
+tensor and on a launch it adds its operations and bytes (`cost`) to the
+running `core.hlo_stats.count_step`, if one runs.  A meta tensor holds no
+lengths, so the charge reads every row of the cache: an upper bound where
+the slots are shallower than the cache, and the same on the card, where
+reading the lengths would cost a host synchronisation.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
+from repro_torch.core import hlo_stats
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
@@ -182,6 +193,35 @@ def _launch(name: str, q: torch.Tensor, ptrs, ints, strides, *, batch: int,
     return out
 
 
+def cost(q: torch.Tensor, rows: int, *caches: torch.Tensor
+         ) -> tuple[float, float]:
+    """(operations, bytes) of one decode call over ``rows`` key rows a
+    slot: ``4 dh Hq B rows`` operations; q and the output, and every
+    slot's ``rows`` rows of each cache array (K and V codes or values,
+    int8 scales; a row of a (.., rows, Hkv[, dh]) array or pool is its
+    trailing dims), each once."""
+    b, hq, dh = q.shape
+    row_bytes = sum(math.prod(c.shape[2:]) * c.element_size()
+                    for c in caches)
+    return (4.0 * dh * hq * b * rows,
+            2.0 * q.numel() * q.element_size() + float(b * rows * row_bytes))
+
+
+def charge(name: str, q: torch.Tensor, rows: int, *caches) -> None:
+    """A call's `cost` added to the running `count_step`, if one
+    runs."""
+    if hlo_stats.counting():
+        hlo_stats.charge(name, *cost(q, rows, *caches))
+
+
+def meta_output(name: str, q: torch.Tensor, rows: int, *caches
+                ) -> torch.Tensor:
+    """The meta branch of a decode wrapper: its `charge`, and an empty
+    (B, Hq, dh) meta output in q's dtype."""
+    charge(name, q, rows, *caches)
+    return torch.empty(q.shape, dtype=q.dtype, device="meta")
+
+
 def check_gqa(q: torch.Tensor, hkv: int, dh: int) -> int:
     """The group size g = Hq / Hkv of ``q`` (B, Hq, dh) against a cache of
     ``hkv`` heads of ``dh``; raises on a mismatch."""
@@ -303,7 +343,9 @@ def gqa_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     of length 0 gets zeros.  The cache is read in place through its
     strides (no transpose or fold copies), which needs its last axis
     contiguous.  ``block_k`` is the keys of one split (`split_span`); the
-    plain version on the CPU computes the same function at any span.
+    plain version on the CPU computes the same function at any span.  On
+    meta tensors: the output's shape, nothing computed, and the call's
+    `cost` at L rows charged to a running count.
     """
     b, _, dh = q.shape
     _, kl, hkv, _ = k.shape
@@ -312,6 +354,8 @@ def gqa_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
     g = check_gqa(q, hkv, dh)
     span = split_span(block_k)
+    if q.device.type == "meta":
+        return meta_output("decode_attention", q, kl, k, v)
     if scale is None:
         scale = 1.0 / (dh ** 0.5)
     lengths = _lengths(length, b, kl, q.device)
@@ -330,6 +374,7 @@ def gqa_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         batch=b, hkv=hkv, g=g, dh=dh, rows=kl, span=span, scale=scale)
     global launches
     launches += 1
+    charge("decode_attention", q, kl, k, v)
     return out
 
 
@@ -347,7 +392,8 @@ def paged_gqa_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     pool); keys at or past a slot's length, and so the -1 entries past its
     last page, are never read.  ``block_k`` is the keys of one split
     (`split_span`), counted in key positions whatever the page size.
-    Returns (B, Hq, dh) in q's dtype.
+    Returns (B, Hq, dh) in q's dtype.  On meta tensors as
+    `gqa_decode_attention`, at max_pages * page_size rows.
     """
     b, _, dh = q.shape
     num_pages, page_size, hkv, _ = k_pool.shape
@@ -357,9 +403,12 @@ def paged_gqa_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                          f"{tuple(v_pool.shape)}")
     g = check_gqa(q, hkv, dh)
     span = split_span(block_k)
+    max_pages = pages.shape[1]
+    if q.device.type == "meta":
+        return meta_output("paged_decode_attention", q,
+                           max_pages * page_size, k_pool, v_pool)
     if scale is None:
         scale = 1.0 / (dh ** 0.5)
-    max_pages = pages.shape[1]
     lengths = _lengths(length, b, max_pages * page_size, q.device)
     if q.device.type == "cpu" and k_pool.device.type == "cpu":
         return paged_decode_ref(q, k_pool, v_pool, pages, length=lengths,
@@ -381,4 +430,6 @@ def paged_gqa_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
         span=span, scale=scale)
     global paged_launches
     paged_launches += 1
+    charge("paged_decode_attention", q, max_pages * page_size, k_pool,
+           v_pool)
     return out

@@ -15,7 +15,9 @@ The work is done by the hand-written CUDA kernels
 ``paged_quantized_decode_ref`` are their plain PyTorch versions, ports of
 the JAX oracles.  A wrapper takes the plain version only for tensors that
 lie on the CPU; a CUDA tensor launches the kernel or raises.
-``launches`` and ``paged_launches`` count kernel launches.
+``launches`` and ``paged_launches`` count kernel launches.  On ``meta``
+tensors a wrapper returns the output's shape and charges a running count
+(`decode.cost`, the scales' bytes included), as the float wrappers do.
 """
 
 from __future__ import annotations
@@ -94,6 +96,9 @@ def quantized_gqa_decode_attention(q: torch.Tensor, kq: torch.Tensor,
     if kq.shape[0] != b:
         raise ValueError(f"cache batch {kq.shape[0]} != q batch {b}")
     span = _d.split_span(block_k)
+    if q.device.type == "meta":
+        return _d.meta_output("quantized_decode_attention", q, kl, kq, ks,
+                              vq, vs)
     if scale is None:
         scale = 1.0 / (dh ** 0.5)
     lengths = _d._lengths(length, b, kl, q.device)
@@ -112,6 +117,7 @@ def quantized_gqa_decode_attention(q: torch.Tensor, kq: torch.Tensor,
         batch=b, hkv=hkv, g=g, dh=dh, rows=kl, span=span, scale=scale)
     global launches
     launches += 1
+    _d.charge("quantized_decode_attention", q, kl, kq, ks, vq, vs)
     return out
 
 
@@ -135,9 +141,13 @@ def paged_quantized_gqa_decode_attention(
                 tuple(kq_pool.shape[:3]))
     g = _d.check_gqa(q, hkv, dh)
     span = _d.split_span(block_k)
+    max_pages = pages.shape[1]
+    if q.device.type == "meta":
+        return _d.meta_output("paged_quantized_decode_attention", q,
+                              max_pages * page_size, kq_pool, ks_pool,
+                              vq_pool, vs_pool)
     if scale is None:
         scale = 1.0 / (dh ** 0.5)
-    max_pages = pages.shape[1]
     lengths = _d._lengths(length, b, max_pages * page_size, q.device)
     if _on_cpu(q, (kq_pool, ks_pool, vq_pool, vs_pool)):
         return paged_quantized_decode_ref(q, kq_pool, ks_pool, vq_pool,
@@ -159,4 +169,6 @@ def paged_quantized_gqa_decode_attention(
         span=span, scale=scale)
     global paged_launches
     paged_launches += 1
+    _d.charge("paged_quantized_decode_attention", q, max_pages * page_size,
+              kq_pool, ks_pool, vq_pool, vs_pool)
     return out

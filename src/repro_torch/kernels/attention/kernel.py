@@ -11,6 +11,12 @@ keys; bf16 at the other head dims on ``mma.sync`` and f32 on CUDA cores,
 both in tiles of 64 by 64 (`TILES`).  ``launches`` counts kernel
 launches, so a run can show that its prefill went through a kernel.
 
+On ``meta`` tensors (the dry run's, `launch.dryrun`) the wrapper runs its
+shape checks and returns an empty meta tensor of the output's shape: it
+computes nothing and launches nothing, so it is no fallback.  On a meta
+tensor and on a launch it adds its operations and bytes (`cost`) to the
+running `core.hlo_stats.count_step`, if one runs.
+
 The JAX prefill picks ``(block_q, block_k)`` through the tuner.  Each
 CUDA kernel here is built for one tile, so `flash_attention` takes
 ``block_q``/``block_k`` only when they are that tile (`tile`) and refuses
@@ -24,6 +30,7 @@ import ctypes
 
 import torch
 
+from repro_torch.core import cost_model, hlo_stats
 from repro_torch.kernels import _build
 from repro_torch.kernels.attention import ref
 
@@ -108,6 +115,28 @@ def _check_cuda(q, k, v) -> None:
                              "16 bytes")
 
 
+def cost(q, k, v, *, causal: bool = True, window: int | None = None
+         ) -> tuple[float, float]:
+    """(operations, bytes) of one call: ``4 dh Hq B`` times the (query,
+    key) pairs of the tiles the kernel reads
+    (`cost_model.attention_active_block_pairs` at the tile of `design`),
+    and q, k, v and the output, each once."""
+    b, sq, hq, dh = q.shape
+    bq, bk = tile(q.dtype, dh)
+    active, _ = cost_model.attention_active_block_pairs(
+        sq, k.shape[1], bq, bk, causal=causal, window=window)
+    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
+    return 4.0 * dh * hq * b * active * bq * bk, float(nbytes)
+
+
+def _charge(q, k, v, causal: bool, window: int | None) -> None:
+    """A call's `cost` added to the running `count_step`, if one
+    runs."""
+    if hlo_stats.counting():
+        hlo_stats.charge("flash_attention",
+                         *cost(q, k, v, causal=causal, window=window))
+
+
 def _entry(name: str):
     fn = getattr(_build.library("flash_attention"), name)
     if fn.argtypes is None:
@@ -133,10 +162,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     `design`) are never read.  Operands are read in place through their
     strides.  ``block_q``/``block_k`` may name the design's tile (`tile`)
     and nothing else; the plain version on the CPU holds them to the same
-    rule.
+    rule.  On meta tensors: the output's shape, nothing computed, and the
+    call's `cost` charged to a running count.
     """
     _check(q, k, v, window)
     _check_tile(q, block_q, block_k)
+    if q.device.type == "meta":
+        _charge(q, k, v, causal, window)
+        return torch.empty(q.shape, dtype=q.dtype, device="meta")
     if q.device.type == "cpu" and k.device.type == "cpu" \
             and v.device.type == "cpu":
         return ref.attention_ref(q, k, v, scale=scale, causal=causal,
@@ -158,4 +191,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                            f"{err}")
     global launches
     launches += 1
+    _charge(q, k, v, causal, window)
     return out

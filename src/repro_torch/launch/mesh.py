@@ -10,7 +10,11 @@ this module starts no process group.
   ranks as the mesh has cards; without one, a mesh of one card starts a
   one-rank group itself (NCCL on ``cuda``, the default; gloo only when
   the caller asks for the CPU), and a larger mesh raises, naming the
-  ranks it needs (`torchrun --nproc-per-node N` starts them).
+  ranks it needs (`torchrun --nproc-per-node N` starts them).  On the
+  ``meta`` device type (the dry run's, `launch.dryrun`) a mesh of any
+  size starts a group on the ``fake`` backend instead, in which this
+  process is rank 0 and every collective returns at once, moving
+  nothing: the counterpart of the reference's forced host devices.
 - `set_mesh` / `get_abstract_mesh`: the active mesh, a context variable.
 - `MeshShape` and `axis_sizes`: the rules and state specs read only a
   mesh's axis names and sizes, so a plain ``MeshShape(names, shape)``
@@ -77,18 +81,34 @@ def get_abstract_mesh():
 
 
 def _backend(device_type: str) -> str:
-    return "nccl" if device_type == "cuda" else "gloo"
+    return {"cuda": "nccl", "meta": "fake"}.get(device_type, "gloo")
+
+
+def _start_fake_group(ranks: int) -> None:
+    """A ``fake`` group of ``ranks`` ranks with this process as rank 0,
+    replacing a fake group of another size (it holds nothing)."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        if dist.get_backend() != "fake" or dist.get_world_size() == ranks:
+            return
+        dist.destroy_process_group()
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=ranks)
 
 
 def ensure_process_group(device_type: str = "cuda", ranks: int = 1) -> int:
     """The world size of the running process group, started first if
     none runs: from `torchrun`'s environment (``WORLD_SIZE``, ``RANK``,
     ``MASTER_ADDR``, ``MASTER_PORT``), or, with none, as one rank in an
-    in-process store.  ``ranks`` is what the caller's mesh needs: a
+    in-process store; on ``meta``, as ``ranks`` fake ranks
+    (`_start_fake_group`).  ``ranks`` is what the caller's mesh needs: a
     group of another size, or one on another backend than
     ``device_type``'s, raises."""
-    resolve_device(device_type)       # cuda without a card raises
     want = _backend(device_type)
+    if device_type == "meta":
+        _start_fake_group(ranks)
+    else:
+        resolve_device(device_type)   # cuda without a card raises
     if not dist.is_initialized():
         world = int(os.environ.get("WORLD_SIZE", "1"))
         if world > 1:
@@ -134,7 +154,8 @@ def make_mesh(axis_shapes, axis_names, device_type: str = "cuda"):
 def make_production_mesh(*, multi_pod: bool = False,
                          device_type: str = "cuda"):
     """The pod mesh: (16, 16) over ``data, model``, or (2, 16, 16) over
-    ``pod, data, model``; it needs 256 (512) ranks."""
+    ``pod, data, model``; it needs 256 (512) ranks, or ``device_type``
+    ``meta`` for a mesh over as many fake ones."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     return make_mesh(shape, axes, device_type)

@@ -20,6 +20,11 @@ from repro_torch.parallel.loss import cross_entropy, fused_cross_entropy
 AUX_WEIGHT = 1e-2
 
 
+class NotInPort(NotImplementedError):
+    """A step the port does not form; its message names the ROADMAP
+    item that records it."""
+
+
 def loss_and_grads(cfg: ModelConfig, params, batch,
                    compute_dtype=torch.bfloat16, denominator=None,
                    aux_weight: float = AUX_WEIGHT):
@@ -125,9 +130,10 @@ def data_parallel_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig, mesh,
     other = [a for a in axis_names(mesh)
              if a not in batch_axes and sizes[a] > 1]
     if other and any(cfg.is_moe_layer(l) for l in range(cfg.num_layers)):
-        raise NotImplementedError(
+        raise NotInPort(
             f"an MoE model trains data parallel on a model axis of 1; axes "
-            f"{other} have sizes {[sizes[a] for a in other]}")
+            f"{other} have sizes {[sizes[a] for a in other]} (ROADMAP A14: "
+            f"no MoE training over a model axis > 1)")
     group = axis_group(mesh, batch_axes)
 
     def update(state, params, grads, gnorm):

@@ -105,11 +105,16 @@ def _dispatch_indices(flat_e: torch.Tensor, num_groups: int, capacity: int):
     """flat_e: (N,) destination group of each item -> (slot (N,), keep
     (N,)).  Items keep their order within a group (a stable sort); the
     first ``capacity`` of each group are kept, and ``slot`` is unique
-    among the kept items."""
+    among the kept items.  The groups' sizes are counted into
+    ``num_groups`` bins by a scatter-add of fixed size, which needs no
+    host read (`torch.bincount` reads the largest group on the host) and
+    has a meta kernel."""
     n = flat_e.shape[0]
     order = torch.argsort(flat_e, stable=True)
     se = flat_e[order]
-    counts = torch.bincount(flat_e, minlength=num_groups)
+    counts = torch.zeros(num_groups, dtype=torch.int64,
+                         device=flat_e.device).scatter_add_(
+        0, flat_e, torch.ones_like(flat_e))
     starts = torch.cumsum(counts, 0) - counts
     pos = torch.arange(n, device=flat_e.device) - starts[se]
     keep_sorted = pos < capacity

@@ -353,15 +353,20 @@ def test_report_runner_writes_the_reference_report_keys(tmp_path,
     report has the JAX report's keys (the root BENCH_kernels.json, written
     by ``benchmarks/run.py``), each row holding every key of the JAX row
     but ``interpret`` (the port has no interpret mode), and passes
-    `tools/check_bench.py` unchanged; the CPU measured nothing."""
+    `tools/check_bench.py` unchanged; the CPU measured nothing.  With no
+    dry-run records it prints no ``roofline.`` line, as the JAX runner;
+    with records, their ``roofline.*`` lines."""
     import io
     import json
     import pathlib
     import sys
     from contextlib import redirect_stdout
 
-    from repro_torch.benchmarks import run
+    from repro_torch.benchmarks import roofline_report, run
     repo = pathlib.Path(__file__).resolve().parents[1]
+    records = tmp_path / "dryrun"
+    records.mkdir()
+    monkeypatch.setattr(roofline_report, "ARTIFACTS", records)
     sys.path.insert(0, str(repo / "tools"))
     import check_bench
     monkeypatch.setenv(autotune.CACHE_ENV, str(tmp_path / "tune.json"))
@@ -386,4 +391,14 @@ def test_report_runner_writes_the_reference_report_keys(tmp_path,
     assert report["attention_decode"]["tuned_us"] is None
     text = log.getvalue()
     assert text.startswith("name,us_per_call,derived")
-    assert "roofline.unavailable" in text and "bandwidth.spmv_smem_x" in text
+    assert "roofline." not in text and "bandwidth.spmv_smem_x" in text
+    roof = {"compute_s": 0.5, "memory_s": 0.25, "collective_s": 0.125,
+            "dominant": "compute", "useful_fraction": 0.75,
+            "mfu_bound": 0.5}
+    (records / "a__train_4k__single.json").write_text(json.dumps(
+        {"arch": "a", "shape": "train_4k", "status": "ok",
+         "roofline": roof}))
+    lines = run.csv_lines(report, torch.device("cpu"))
+    assert [ln for ln in lines if ln.startswith("roofline.")] == [
+        "roofline.a.train_4k.single,500000.0,"
+        "dominant=compute;mfu_bound=0.500;useful=0.75"]

@@ -636,6 +636,17 @@ def test_train_danube_on_a_smoke_model(two_threads):
     assert res["backend"] == "gloo"
     assert res["all_reduce_ms"] > 0 and res["compressed_psum_ms"] > 0
     assert res["grad_bytes"] == 4 * cfg.param_count()
+    # one more step counted on the CPU and on meta in a process of its own
+    # (a one-rank fake group): equal FLOPs, collectives and bytes
+    counts = res["dryrun_counts"]
+    assert counts["ok"], counts
+    assert counts["flops_equal"] and counts["collectives_equal"]
+    assert counts["bytes_rel_diff"] == 0.0 and counts["differing_ops"] == 0
+    # one all-reduce a gradient leaf and one of the loss
+    assert counts["card"]["collective_counts"]["all-reduce"] > 2
+    # read around the counted step: the f32 training never reaches B5
+    assert counts["launches"] == {"flash_attention": 0}
+    assert counts["card"]["flops"] > 0 and counts["bound_ms"] > 0
 
 
 def test_train_mesh_parity_on_a_smoke_model(two_threads):
@@ -751,3 +762,81 @@ def test_train_lm_phase_on_the_cpu(two_threads, tmp_path, monkeypatch):
     assert res["ok"], res
     assert res["first_line"].startswith("training lm-tiny")
     assert not (tmp_path / "train_lm").exists()
+
+
+# -- compile analysis: the dry run's counts and cells -------------------------
+
+def _rec(ops):
+    flops = sum(v[1] for v in ops.values())
+    nbytes = sum(v[2] for v in ops.values())
+    return {"flops": flops, "bytes_accessed": nbytes, "ops": ops,
+            "collective_counts": {"all-reduce": 1},
+            "collectives": {"all-reduce": 8.0}}
+
+
+def test_compare_counts_names_the_operator_that_differs():
+    a = _rec({"aten.mm": [1, 10.0, 100], "aten.add": [2, 0.0, 1000]})
+    assert chip_smoke.compare_counts(a, a)["ok"]
+    b = _rec({"aten.mm": [1, 10.0, 100], "aten.add": [2, 0.0, 1005]})
+    res = chip_smoke.compare_counts(a, b)
+    assert res["ok"] and res["differing"] == {
+        "aten.add": {"card": [2, 0.0, 1000], "meta": [2, 0.0, 1005]}}
+    c = _rec({"aten.mm": [1, 12.0, 100], "aten.add": [2, 0.0, 1000]})
+    assert not chip_smoke.compare_counts(a, c)["ok"]
+    d = _rec({"aten.mm": [1, 10.0, 100], "aten.add": [2, 0.0, 2000]})
+    assert chip_smoke.compare_counts(a, d)["bytes_rel_diff"] > 0.01
+    assert not chip_smoke.compare_counts(a, d)["ok"]
+    e = {**a, "collective_counts": {"all-reduce": 2}}
+    assert not chip_smoke.compare_counts(a, e)["collectives_equal"]
+
+
+def test_decode_counts_on_a_smoke_model(two_threads):
+    """A ring-buffer model decodes on the plain path on both sides, so
+    the CPU's counts equal meta's exactly; no decode kernel launched."""
+    import numpy as np
+
+    import repro_torch.configs as configs
+    from repro_torch.launch import serve
+    cfg = configs.get_smoke("h2o_danube_1_8b")
+    server = serve.Server(cfg, 2, 24, device="cpu")
+    rng = np.random.default_rng(0)
+    server.admit_chunk([(s, s, rng.integers(0, cfg.vocab_size, 6), 4)
+                        for s in range(2)])
+    res = chip_smoke.decode_counts(torch, _smoke_mods(), server, 1.0)
+    assert res["flops_equal"] and res["collectives_equal"]
+    assert res["bytes_rel_diff"] == 0.0 and res["differing_ops"] == 0
+    assert res["launches"] == {"decode_attention": 0} and not res["ok"]
+    assert res["card"]["flops"] > 0 and res["bound_ms"] > 0
+
+
+def test_prefill_counts_name_the_kernel_the_cpu_does_not_run(two_threads):
+    """On the CPU the prefill runs the flash kernel's plain version, whose
+    operators the counter sees; on meta the kernel charges its cost.  So
+    the two differ, and the kernel is named."""
+    import repro_torch.configs as configs
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer
+    cfg = configs.get_smoke("qwen3_14b")
+    params = transformer.init(cfg, torch.Generator().manual_seed(0),
+                              dtype=torch.bfloat16)
+    res = chip_smoke.prefill_counts(torch, steps, _smoke_mods(), cfg,
+                                    params, 1.0, seq=64)
+    assert res["meta"]["kernels"]["flash_attention"]["calls"] == \
+        cfg.num_layers
+    assert "flash_attention" not in res["card"]["kernels"]
+    assert "kernel:flash_attention" in res["differing"]
+    assert not res["ok"]
+
+
+def test_dryrun_cells_on_the_cpu(tmp_path):
+    """Two cells through the dry run's CLI: an ok one with its roofline
+    row, and the MoE train cell the port cannot form, skipped."""
+    res = chip_smoke.dryrun_cells(
+        cells=[("qwen3_14b", "decode_32k"), ("qwen3_moe_235b", "train_4k")],
+        out=tmp_path / "dryrun", timeout=300)
+    assert res["ok"], res
+    ok, skipped = res["cells"]
+    assert ok["status"] == "ok" and "roofline" in ok
+    assert skipped["reason"].startswith("not in the port:")
+    assert res["csv"][0].startswith("roofline.qwen3_14b.decode_32k.single,")
+    assert "| qwen3_moe_235b | train_4k |" in res["table"]

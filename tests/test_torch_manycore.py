@@ -113,8 +113,9 @@ def test_quickstart_on_the_cpu(tmp_path, monkeypatch, capsys):
     assert res["matmul"]["ok"] and res["spmv"]["ok"]
     assert res["matmul"]["max_abs_err"] < 1e-4
     assert res["spmv"]["max_abs_err"] < 1e-4
-    assert "=== deploy plan ===" in out and "A14" in out
-    assert out.splitlines()[-1].endswith("ROADMAP A14, not yet ported")
+    assert "=== deploy plan ===" in out
+    assert out.splitlines()[-1].endswith(
+        "python -m repro_torch.launch.sweep --mesh both")
     assert quickstart.main(["--device", "cpu"]) == 0
 
 
