@@ -13,6 +13,21 @@ Phases, each printed as one JSON line:
    ``nvcc`` for ``sm_90a`` (B1-B8 in nine sources: B6's wgmma kernel in
    its own, its mma.sync and f32 kernels in another, the two SpMV kernels
    in one), one ``nvcc`` per source, all at once, and the seconds.
+   Then, while this process holds nothing on the card,
+   ``tensor_parallel``: tensor and expert parallelism over a (1, 2) mesh
+   of two processes of this script on the one card over a gloo group
+   (`tensor_parallel`): H2O-Danube-1.8B at full width, 2 layers, one f32
+   train step against the one-rank step (loss, gradients and their norm
+   within 1e-5 of the largest |value|; the rank's step ms and its
+   collectives' ms, recorded, not gated), its prefill through B5 at the
+   rank's 16 query heads with the one-rank greedy token, 16 decode steps
+   under `decode_rules` over a cache split by sequence (Danube's ring,
+   and Qwen3-14B at 2 layers through B1 with its softmax statistics)
+   with the one-rank decode's tokens, and Phi-3.5-MoE at 2 layers, one
+   train step with its experts over the model axis at a capacity where
+   neither side drops an item.  ``kernel_cases`` holds B1 with its
+   statistics on a rank's segment of the rows, and ``flash_cases`` B5 at
+   a rank's heads of Qwen3-14B's prefill.
 3. ``kernel_cases``: each CUDA decode-attention kernel against its plain
    PyTorch version on the card at Qwen3-14B decode shapes (Hq 40, Hkv 8,
    dh 128), up to its 32,768-key context at batch 1 and 4: contiguous
@@ -226,16 +241,18 @@ Phases, each printed as one JSON line:
    of ``python -m repro_torch.launch.dryrun`` on the single-pod mesh,
    one process each, all at once (they need no card): Qwen3-14B's
    ``train_4k``, ``prefill_32k`` and ``decode_32k``, Qwen3-MoE's
-   ``decode_32k``, Jamba's ``long_500k``, each ``ok``, and Qwen3-MoE's
-   ``train_4k``, which must come out ``skipped`` as not in the port;
-   then `benchmarks.roofline_report`'s table and CSV lines of them.
+   ``decode_32k``, Jamba's ``long_500k`` and Qwen3-MoE's ``train_4k``
+   (its experts trained over the model axis), each ``ok``; then
+   `benchmarks.roofline_report`'s table and CSV lines of them.
 15. ``total``: the script's seconds.  ``kernels``: one entry per ported
    kernel, with its TPU counterpart, its design, launches on its
    main-path run (B1, B3: the default CLI, ``serve_autobatch*``; B2, B4:
    their serve runs; B5: the ``prefill`` phase; B6: ``table1``; B7, B8:
    ``table2``) and each kernel's launches by phase (the chaos,
    crash-resume, ``serving_load`` and other families' phases among them;
-   B6-B8's in the two design-flow phases), error and times.
+   B6-B8's in the two design-flow phases), error and times; B1's and
+   B5's entries also carry ``per_rank``, their case at one rank's shape
+   on a model axis of 2, and their ``tensor_parallel`` launches.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed phase
 exits non-zero without it; so does a host without a CUDA card.
@@ -374,6 +391,8 @@ STEP_WARMUP, STEP_COUNT = 2, 8       # untraced steps
 STEP_TRACED = 4                      # then traced steps
 TOP_KERNELS = 12
 # flash_cases: (name, batch, Sq, Sk, Hq, Hkv, dh, causal, window, dtype)
+TP_FLASH_CASE = "qwen3_prefill_8k_heads_of_2"
+TP_STATS_CASE = "serve_shape_segment_of_2"
 FLASH_CASES = [
     ("qwen3_prefill_32k", 1, 32768, 32768, 40, 8, 128, True, None, "bf16"),
     ("qwen3_prefill_4k", 1, 4096, 4096, 40, 8, 128, True, None, "bf16"),
@@ -382,6 +401,8 @@ FLASH_CASES = [
     ("window_sq_gt_sk", 1, 700, 500, 32, 8, 80, True, 64, "bf16"),
     ("window_sq_gt_sk_dh128", 1, 700, 500, 40, 8, 128, True, 64, "bf16"),
     ("qwen3_4k_f32", 1, 4096, 4096, 40, 8, 128, True, None, "f32"),
+    # one rank's heads of Qwen3-14B's prefill on a model axis of 2
+    (TP_FLASH_CASE, 1, 8192, 8192, 20, 4, 128, True, None, "bf16"),
 ]
 # (phase, arch, prefill_vs_forward's length: past Danube's 4096 window)
 PREFILL_PHASES = [("prefill", "qwen3_14b", 4096),
@@ -535,6 +556,75 @@ def kernel_case(torch, decode, flush, *, name, lengths, q_dtype, kv_dtype,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": nbytes, "operations": ops,
             **split_plan(decode, lengths, cache_len, hkv)}
+
+
+def stats_case(torch, decode, flush, *, name, lengths, q_dtype, kv_dtype,
+               cache_len):
+    """B1 with its softmax statistics (``return_stats``) at Qwen3-14B's
+    decode heads on one rank's segment of a cache split by sequence over
+    2 ranks: rows [cache_len, 2 * cache_len) of the slots' ``lengths``,
+    each clamped to the segment, as `models.layers` calls it.  The output
+    against `decode_ref`'s (`row_errors`), m and l against its statistics
+    (m within 1e-4 of max(1, |m|), l within 1e-4 of l; m = -1e30 and l = 0
+    exactly for a slot with no key there), and the call's time beside the
+    call without statistics."""
+    dev = torch.device("cuda")
+    hq, hkv, dh = 40, 8, 128
+    gen = torch.Generator(device=dev).manual_seed(0)
+    seg = [min(max(n - cache_len, 0), cache_len) for n in lengths]
+    b = len(seg)
+    # q holds values of the cache's type, as the layers' f32 copy of a
+    # query in that type does (the kernel meets the keys in it)
+    q = torch.randn((b, hq, dh), generator=gen, device=dev).to(
+        kv_dtype).to(q_dtype)
+    k = torch.randn((b, cache_len, hkv, dh), generator=gen,
+                    device=dev).to(kv_dtype)
+    v = torch.randn((b, cache_len, hkv, dh), generator=gen,
+                    device=dev).to(kv_dtype)
+    lv = torch.tensor(seg, dtype=torch.int32, device=dev)
+    scale = dh ** -0.5
+
+    def kernel():
+        return decode.gqa_decode_attention(q, k, v, length=lv, scale=scale,
+                                           return_stats=True)
+    out, m, l = kernel()
+    ref, rm, rl = decode.decode_ref(q, k, v, length=lv, scale=scale,
+                                    return_stats=True)
+    torch.cuda.synchronize()
+    err, err_over_tol = row_errors(torch, out, ref, q_dtype == torch.float32)
+    m_err = float(((m - rm).abs() / rm.abs().clamp_min(1.0)).max())
+    l_err = float(((l - rl).abs() / rl.clamp_min(1e-30)).max())
+    empty = [i for i, n in enumerate(seg) if n == 0]
+    empty_ok = all(bool((m[i] == decode.NEG_INF).all())
+                   and not bool(l[i].any()) for i in empty)
+    ms = median_ms(torch, kernel, 21, flush)
+    plain_ms = median_ms(torch, lambda: decode.decode_ref(
+        q, k, v, length=lv, scale=scale, return_stats=True), 5, flush)
+    no_stats_ms = median_ms(torch, lambda: decode.gqa_decode_attention(
+        q, k, v, length=lv, scale=scale), 21, flush)
+    valid = sum(seg)
+    nbytes = (2 * valid * hkv * dh * k.element_size()
+              + q.numel() * q.element_size()
+              + out.numel() * out.element_size() + lv.numel() * 4
+              + 2 * b * hq * 4)
+    ops = 4 * valid * hq * dh
+    kv_name = str(kv_dtype).removeprefix("torch.")
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[kv_name] * 1e3
+    return {"name": name, "kernel": "decode_attention", "stats": True,
+            "batch": b, "cache_len": cache_len, "lengths": seg,
+            "q_dtype": str(q_dtype).removeprefix("torch."),
+            "kv_dtype": kv_name, "max_abs_err": err,
+            "max_err_over_tol": err_over_tol, "m_rel_err": m_err,
+            "l_rel_err": l_err, "empty_rows_ok": empty_ok,
+            "tolerance": ("out as row_errors; m 1e-4 of max(1, |m|); "
+                          "l 1e-4 relative"),
+            "ok": (err_over_tol <= 1 and m_err <= 1e-4 and l_err <= 1e-4
+                   and empty_ok),
+            "ms": ms, "no_stats_ms": no_stats_ms, "plain_ms": plain_ms,
+            "library_ms": None, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "operations": ops}
 
 
 def shuffled_pool(torch, lengths, rows, page_size, hkv, dh, seed):
@@ -3021,19 +3111,456 @@ def training_phases(torch, configs, mods, smi, counts) -> dict:
 
 
 # --------------------------------------------------------------------------
+# Tensor and expert parallelism over the model axis: two ranks on one card
+# --------------------------------------------------------------------------
+
+TP_RANKS = 2                         # ranks of the (1, 2) mesh, one card
+TP_LAYERS = 2                        # the depth cut of the models
+TP_TRAIN = (2, 256)                  # batch x sequence of a train step
+TP_PREFILL = 1024                    # tokens of the per-rank-heads prefill
+TP_DECODE_LENGTHS = [0, 100, 127, 130]   # slots straddling the segments
+TP_DECODE_ROWS = 256                 # cache rows, two segments of 128
+TP_DECODE_STEPS = 16
+# Phi-3.5-MoE: 16 experts, top 2, 512 tokens a step.  At a capacity
+# factor of 4 an expert takes 256 items on one rank (64 on average), and
+# on two ranks a shard's send buffer takes every item a rank routes and
+# its experts 1,024 each: the phase counts the drops, which must be 0.
+TP_MOE_CAPACITY = 4.0
+TP_TIMEOUT = 600                     # seconds for both ranks
+TP_REL = 1e-5                        # f32: of the largest |value|
+
+
+def _rel_err(torch, got, want) -> float:
+    """max |got - want| over max |want|, over trees of tensors."""
+    from repro_torch import tree as tree_lib
+    got, want = tree_lib.leaves(got), tree_lib.leaves(want)
+    top = max(float(w.abs().max()) for w in want)
+    err = max(float((g.float() - w.float()).abs().max())
+              for g, w in zip(got, want))
+    return err / max(top, 1e-30)
+
+
+def _timed_collectives(torch, fn) -> dict:
+    """``fn()`` with each `torch.distributed` collective the step calls
+    timed alone (the card synchronised around it, so the step itself runs
+    slower): ms and calls per operation."""
+    import torch.distributed as dist
+    names = ("all_reduce", "all_gather", "all_to_all_single")
+    real = {n: getattr(dist, n) for n in names}
+    spent = {n: [0.0, 0] for n in names}
+
+    def timed(name):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real[name](*a, **kw)
+            torch.cuda.synchronize()
+            spent[name][0] += (time.perf_counter() - t0) * 1e3
+            spent[name][1] += 1
+            return out
+        return run
+
+    for n in names:
+        setattr(dist, n, timed(n))
+    try:
+        fn()
+    finally:
+        for n in names:
+            setattr(dist, n, real[n])
+    return {n: {"ms": round(ms, 3), "calls": c}
+            for n, (ms, c) in spent.items() if c}
+
+
+def _counted_drops(moe):
+    """A wrapper of `moe._dispatch_indices` that counts the real items it
+    drops, by its number of groups (the local stage's last group is the
+    phantom one of invalid slots, whose items are not counted)."""
+    real = moe._dispatch_indices
+    dropped: dict = {}
+
+    def run(flat_e, num_groups, capacity):
+        slot, keep = real(flat_e, num_groups, capacity)
+        lost = ~keep
+        if getattr(run, "phantom", None) == num_groups:
+            lost = lost & (flat_e != num_groups - 1)
+        dropped[num_groups] = dropped.get(num_groups, 0) + int(lost.sum())
+        return slot, keep
+
+    return run, dropped
+
+
+def _split_aux(moe, b: int, s: int, n: int):
+    """A wrapper of `moe.route` for the one-rank step held to the step over
+    ``n`` model ranks: the aux of a batch of ``b`` x ``s`` tokens is the
+    mean of the aux of its ``n`` sequence blocks, which is what
+    `moe.apply_sharded` computes where the tokens split by sequence over
+    the model axis (the reference's ``pmean`` of each shard's aux); the
+    load-balancing aux of the whole batch is another number.  The routing
+    is the real one's."""
+    real = moe.route
+
+    def run(params, x, cfg):
+        idx, weights, aux = real(params, x, cfg)
+        if x.shape[0] != b * s:
+            return idx, weights, aux
+        blocks = x.reshape(b, n, s // n, x.shape[-1])
+        return idx, weights, sum(
+            real(params, blocks[:, r].reshape(-1, x.shape[-1]), cfg)[2]
+            for r in range(n)) / n
+
+    return run
+
+
+def _tp_state(torch, cfg, opt, mesh, rules, params) -> dict:
+    """`launch.train.build_state`'s state on ``mesh`` from its whole
+    ``params``, leaf by leaf: each moment is drawn whole and cut to this
+    rank's block one leaf at a time, so the whole moments never exist at
+    once."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.launch import specs
+    from repro_torch.parallel import sharding as shd
+    _, pspecs = specs.state_pspecs(cfg, opt, mesh, rules)
+    dev = tree_lib.leaves(params)[0].device
+
+    def zeros(p, spec):
+        return shd.distribute(torch.zeros(p.shape, dtype=torch.float32,
+                                          device=dev), spec, mesh)
+
+    blocks = tree_lib.map_structure(
+        lambda t, spec: shd.distribute(t, spec, mesh), params,
+        pspecs["params"])
+    return {"params": blocks,
+            "opt": {"step": shd.distribute(torch.zeros(
+                        (), dtype=torch.int32, device=dev), (), mesh),
+                    "m": tree_lib.map_structure(zeros, blocks,
+                                                pspecs["opt"]["m"]),
+                    "v": tree_lib.map_structure(zeros, blocks,
+                                                pspecs["opt"]["v"])}}
+
+
+def tp_rank_main(rank: int, world: int, workdir: str) -> int:
+    """One rank of `tensor_parallel`, all on ``cuda:0`` over a gloo group
+    (NCCL refuses two ranks of one card); writes its results as
+    ``<workdir>/<rank>.json``."""
+    import torch
+    import torch.distributed as dist
+
+    import repro_torch.configs as configs
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.convert import disable_tf32
+    from repro_torch.kernels.attention import decode
+    from repro_torch.kernels.attention import kernel as flash
+    from repro_torch.launch import policy, specs, steps
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import build_state
+    from repro_torch.models import moe, transformer
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import sharding as shd
+
+    wd = pathlib.Path(workdir)
+    dist.init_process_group("gloo", store=dist.FileStore(str(wd / "store"),
+                                                         world),
+                            rank=rank, world_size=world)
+    dev, f32 = "cuda", torch.float32
+    torch.cuda.set_device(0)
+    disable_tf32()
+    mesh = make_host_mesh(1, world, device_type=dev, backend="gloo")
+    rules = specs.rules_for(mesh)
+    out = {"rank": rank, "backend": dist.get_backend(),
+           "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape))}
+    t_start = time.time()
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # 1. H2O-Danube-1.8B, full width, 2 layers: one f32 train step on the
+    # mesh against the one-rank step from the same state and batch.
+    cfg = dataclasses.replace(configs.get("h2o_danube_1_8b"),
+                              num_layers=TP_LAYERS)
+    opt = adamw.AdamWConfig(peak_lr=1e-4, warmup_steps=1, total_steps=10)
+    b, s = TP_TRAIN
+    batch = _train_batch(torch, cfg, b, s, 0, dev)
+    plain = build_state(cfg, opt, 0, dev)
+    plain, m0, g0 = steps.make_train_step(cfg, opt, compute_dtype=f32)(
+        plain, batch, return_grads=True)
+    params0 = build_state(cfg, opt, 0, dev)["params"]   # before the step
+    state = build_state(cfg, opt, 0, dev, mesh, rules)
+    step = steps.make_train_step(cfg, opt, compute_dtype=f32, mesh=mesh,
+                                 rules=rules)
+    state, m1, g1 = step(state, batch, return_grads=True)
+    train = {"arch": cfg.name, "layers": cfg.num_layers, "batch": b,
+             "seq": s, "loss": float(m1["loss"]),
+             "loss_rel_err": abs(float(m1["loss"]) - float(m0["loss"]))
+             / abs(float(m0["loss"])),
+             "grad_rel_err": _rel_err(torch, g1, g0),
+             "grad_norm_rel_err": abs(float(m1["grad_norm"])
+                                      - float(m0["grad_norm"]))
+             / float(m0["grad_norm"])}
+    del plain, g0, g1
+    free()
+    train["step_ms"] = _timed_ms(torch, lambda: step(state, batch), dev,
+                                 reps=2)
+    train["collectives"] = _timed_collectives(
+        torch, lambda: step(state, batch))
+    train["ok"] = (train["loss_rel_err"] <= TP_REL
+                   and train["grad_rel_err"] <= TP_REL
+                   and train["grad_norm_rel_err"] <= TP_REL)
+    out["danube_train"] = train
+    del state
+    free()
+
+    # 2. Its prefill at the rank's heads (B5, 16 of 32 query heads) against
+    # the one-rank prefill: greedy tokens equal.
+    gen = torch.Generator(device=dev).manual_seed(7)
+    tokens = torch.randint(0, cfg.vocab_size, (1, TP_PREFILL),
+                           generator=gen, device=dev)
+    want = steps.make_prefill_step(cfg, f32)(params0, {"tokens": tokens})
+    n0 = flash.launches
+    got = steps.make_prefill_step(cfg, f32, mesh=mesh, rules=rules)(
+        params0, {"tokens": tokens})
+    out["danube_prefill"] = {
+        "tokens": TP_PREFILL, "equal": bool(torch.equal(got, want)),
+        "flash_launches": flash.launches - n0,
+        "ok": bool(torch.equal(got, want))
+        and flash.launches - n0 == TP_LAYERS}
+
+    # 3. Decode under decode_rules, the cache split by sequence: Danube's
+    # ring (the plain path) and Qwen3-14B's contiguous cache (B1 with its
+    # statistics), each 16 steps against the one-rank decode.
+    def decode_run(cfg, params, name):
+        lengths = TP_DECODE_LENGTHS
+        nb = len(lengths)
+        cache = transformer.cache_init(cfg, nb, TP_DECODE_ROWS, dtype=f32,
+                                       device=dev)
+        g = torch.Generator(device=dev).manual_seed(3)
+        for leaf in tree_lib.leaves(cache["blocks"]):
+            leaf.copy_(torch.randn(leaf.shape, generator=g, device=dev))
+        cache["lengths"] = torch.tensor(lengths, dtype=torch.int32,
+                                        device=dev)
+        tok0 = torch.randint(0, cfg.vocab_size, (nb, 1), generator=g,
+                             device=dev, dtype=torch.int32)
+        drules = specs.rules_for(mesh, ShapeSpec("d", "decode",
+                                                 TP_DECODE_ROWS, nb))
+        mine = transformer.cache_block(cfg, cache, drules, mesh)
+        one = steps.make_serve_step(cfg, f32)
+        split = steps.make_serve_step(cfg, f32, mesh=mesh, rules=drules)
+        seen = {"one": [], "split": []}
+        n0 = decode.launches
+        for key, fn, c in (("split", split, mine), ("one", one, cache)):
+            tok = tok0
+            for _ in range(TP_DECODE_STEPS):
+                tok, c = fn(params, c, tok)
+                seen[key].append(tok)
+            if key == "split":
+                launched = decode.launches - n0
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        split(params, mine, tok0)
+        _sync(torch, dev)
+        a, c_ = (torch.cat(seen[k], 1) for k in ("split", "one"))
+        return {"arch": name, "slots": nb, "rows": TP_DECODE_ROWS,
+                "kv_split": bool(mine.get("kv_split")),
+                "segment_rows": int(mine["blocks"]["k"].shape[2]),
+                "steps": TP_DECODE_STEPS, "equal": bool(torch.equal(a, c_)),
+                "decode_launches": launched,
+                "step_ms": round((time.perf_counter() - t0) * 1e3, 3)}
+
+    res = decode_run(cfg, params0, cfg.name)
+    res["ok"] = res["equal"] and res["kv_split"]
+    out["danube_decode"] = res
+    del params0
+    free()
+    qcfg = dataclasses.replace(configs.get("qwen3_14b"),
+                               num_layers=TP_LAYERS)
+    qparams = transformer.init(qcfg, torch.Generator(device=dev)
+                               .manual_seed(0), dtype=f32)
+    res = decode_run(qcfg, qparams, qcfg.name)
+    res["ok"] = (res["equal"] and res["kv_split"] and
+                 res["decode_launches"] == TP_LAYERS * TP_DECODE_STEPS)
+    out["qwen3_decode"] = res
+    del qparams
+    free()
+
+    # 4. Phi-3.5-MoE, full width, 2 layers: one train step with the
+    # experts over the model axis, at a capacity that drops nothing,
+    # against the one-rank step from the same state and batch (its aux
+    # the mean over the sequence blocks, `_split_aux`).  Each rank keeps
+    # only its block of the step's gradients, then computes the one-rank
+    # gradients whole in its turn and compares that block.
+    mcfg = dataclasses.replace(configs.get("phi3_5_moe_42b"),
+                               num_layers=TP_LAYERS,
+                               capacity_factor=TP_MOE_CAPACITY)
+    mopt = adamw.AdamWConfig(peak_lr=1e-4, warmup_steps=1, total_steps=10)
+    mbatch = _train_batch(torch, mcfg, b, s, 0, dev)
+
+    def moe_params():
+        return transformer.init(mcfg, torch.Generator(device=dev)
+                                .manual_seed(0),
+                                dtype=policy.param_dtype(mcfg))
+
+    real, real_route = moe._dispatch_indices, moe.route
+    moe._dispatch_indices, dropped = _counted_drops(moe)
+    try:
+        # one rank at a time holds the whole weights while it cuts its
+        # blocks of the state
+        for turn in range(world):
+            if rank == turn:
+                params = moe_params()
+                mstate = _tp_state(torch, mcfg, mopt, mesh, rules, params)
+                del params
+                free()
+            dist.barrier()
+        moe._dispatch_indices.phantom = mcfg.num_experts // world + 1
+        mstep = steps.make_train_step(mcfg, mopt, compute_dtype=f32,
+                                      mesh=mesh, rules=rules)
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        mstate, mm, g2 = mstep(mstate, mbatch, return_grads=True)
+        _sync(torch, dev)
+        step_ms = (time.perf_counter() - t0) * 1e3
+        model_drops = sum(dropped.values())
+        pspecs = tree_lib.map_structure(shd.spec_of, mstate["params"])
+        mine = tree_lib.map_structure(
+            lambda g, sp: shd.local_shard(g, sp, mesh).clone(), g2, pspecs)
+        del mstate, g2
+        free()
+        dist.barrier()
+        dropped.clear()
+        moe._dispatch_indices.phantom = None
+        moe.route = _split_aux(moe, b, s, world)
+        for turn in range(world):
+            if rank == turn:
+                params = moe_params()
+                _, m0, _, g0 = steps.loss_and_grads(mcfg, params, mbatch, f32)
+                del params
+                loss0 = float(m0["loss"])
+                norm0 = float(adamw.global_norm(g0))
+                top = max(float(g.abs().max()) for g in tree_lib.leaves(g0))
+                err = max(float((shd.local_shard(w, sp, mesh) - g)
+                                .abs().max())
+                          for w, g, sp in zip(*(tree_lib.leaves(t) for t in (
+                              g0, mine, pspecs))))
+                del g0
+                free()
+            dist.barrier()
+        one_rank_drops = sum(dropped.values())
+    finally:
+        moe._dispatch_indices, moe.route = real, real_route
+    del mine
+    free()
+    res = {"arch": mcfg.name, "layers": mcfg.num_layers, "batch": b,
+           "seq": s, "capacity_factor": TP_MOE_CAPACITY,
+           "items_dropped": {"one_rank": one_rank_drops,
+                             "model_axis": model_drops},
+           "loss": float(mm["loss"]),
+           "loss_rel_err": abs(float(mm["loss"]) - loss0) / abs(loss0),
+           "aux_loss": float(mm["aux_loss"]),
+           "grad_norm": float(mm["grad_norm"]),
+           "grad_norm_rel_err": abs(float(mm["grad_norm"]) - norm0) / norm0,
+           "grad_rel_err": err / max(top, 1e-30),
+           "grads_compared": "this rank's block of every leaf",
+           "first_step_ms": round(step_ms, 3)}
+    res["ok"] = (res["loss_rel_err"] <= TP_REL
+                 and res["grad_rel_err"] <= TP_REL
+                 and res["grad_norm_rel_err"] <= TP_REL
+                 and not any(res["items_dropped"].values()))
+    out["moe_train"] = res
+    out["seconds"] = round(time.time() - t_start, 3)
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["ok"] = all(v["ok"] for v in out.values() if isinstance(v, dict)
+                    and "ok" in v)
+    (wd / f"{rank}.json").write_text(json.dumps(out))
+    dist.destroy_process_group()
+    return 0
+
+
+def tensor_parallel(torch, smi) -> dict:
+    """Tensor and expert parallelism over a (1, 2) mesh on the one card:
+    ``TP_RANKS`` processes of this script (`tp_rank_main`), each on
+    ``cuda:0`` over a gloo group, started at once and waited for
+    together (killed past ``TP_TIMEOUT`` seconds).  Each rank:
+
+    - H2O-Danube-1.8B at full width, 2 layers, f32: one train step
+      against the one-rank step from the same state and batch (loss,
+      gradients and their norm within 1e-5 of the largest |value|), the
+      step's ms and its collectives' ms (recorded, not gated: the ranks
+      share the card's SMs); its prefill at the rank's 16 query heads
+      (B5, one launch a layer) with the one-rank prefill's greedy token;
+    - 16 greedy decode steps under `decode_rules` (slots straddling the
+      two segments of the cache's rows, one of length 0) against the
+      one-rank decode, tokens equal: Danube's ring on the plain path and
+      Qwen3-14B (2 layers) through B1 with its statistics, once a layer
+      a step;
+    - Phi-3.5-MoE at full width, 2 layers: one train step with its
+      experts over the model axis at capacity factor ``TP_MOE_CAPACITY``,
+      where neither side drops an item (counted), against the one-rank
+      step from the same state and batch, its aux taken over the two
+      sequence blocks as the split step takes it (`_split_aux`): loss,
+      gradients (each rank's block of every leaf) and their norm within
+      1e-5 of the largest |value|.
+    A collective gloo cannot carry for CUDA tensors fails the phase with
+    gloo's error."""
+    import os
+    import shutil
+    wd = STATE_ROOT / "tensor_parallel"
+    shutil.rmtree(wd, ignore_errors=True)
+    wd.mkdir(parents=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           # two processes share the card: keep freed blocks reusable
+           "PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}
+    env.pop("WORLD_SIZE", None)
+    t0 = time.time()
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--tp-rank", str(r),
+         str(TP_RANKS), str(wd)], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(TP_RANKS)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(
+                timeout=max(TP_TIMEOUT - (time.time() - t0), 1))[0])
+    except subprocess.TimeoutExpired:
+        logs.append("timed out")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    res = {"ranks": [], "seconds": round(time.time() - t0, 3),
+           "nvidia_smi": smi,
+           "this_process_reserved_bytes": torch.cuda.memory_reserved()}
+    for r, p in enumerate(procs):
+        f = wd / f"{r}.json"
+        if p.returncode != 0 or not f.exists():
+            res["ranks"].append({"rank": r, "rc": p.returncode, "ok": False,
+                                 "log_tail": (logs[r] if r < len(logs)
+                                              else "")[-3000:]})
+        else:
+            res["ranks"].append(json.loads(f.read_text()))
+    shutil.rmtree(wd, ignore_errors=True)
+    res["ok"] = all(r["ok"] for r in res["ranks"])
+    return res
+
+
+# --------------------------------------------------------------------------
 # Compile analysis (ROADMAP A14 items 6-10): the dry run's counts held to
 # the card's, and dry-run cells through the module's CLI
 # --------------------------------------------------------------------------
 
 COUNT_BYTES_REL = 0.01               # card against meta: bytes within 1 %
 DIFFERING_OPS_SHOWN = 20
-# (arch, shape) cells of `launch.dryrun` on the single-pod mesh; the MoE
-# train cell is one the port cannot form ("not in the port:")
+# (arch, shape) cells of `launch.dryrun` on the single-pod mesh, each
+# of which must come out ok (the MoE train cell trains its experts over
+# the model axis)
 DRYRUN_CELLS = [("qwen3_14b", "train_4k"), ("qwen3_14b", "prefill_32k"),
                 ("qwen3_14b", "decode_32k"), ("qwen3_moe_235b", "decode_32k"),
                 ("jamba_1_5_large_398b", "long_500k"),
                 ("qwen3_moe_235b", "train_4k")]
-DRYRUN_SKIPPED = {("qwen3_moe_235b", "train_4k")}
 DRYRUN_DIR = ROOT / "build" / "chip_smoke_dryrun"
 DRYRUN_TIMEOUT = 600                 # seconds a cell
 PREFILL_COUNT_SEED = 3               # the counted prefill's tokens
@@ -3247,8 +3774,7 @@ def dryrun_cells(cells=DRYRUN_CELLS, out=DRYRUN_DIR,
     """`python -m repro_torch.launch.dryrun` for each of ``cells`` on the
     single-pod mesh, all at once, one process each (they need no card);
     then `roofline_report`'s table and CSV lines of their records.  Every
-    cell must come out ``ok``, but those of ``DRYRUN_SKIPPED``, which
-    must be ``skipped`` as not in the port."""
+    cell must come out ``ok``."""
     import os
     import shutil
 
@@ -3274,10 +3800,7 @@ def dryrun_cells(cells=DRYRUN_CELLS, out=DRYRUN_DIR,
             stdout, stderr = p.communicate()
         f = out / f"{arch}__{shape}__single.json"
         rec = json.loads(f.read_text()) if f.exists() else {}
-        want = "skipped" if (arch, shape) in DRYRUN_SKIPPED else "ok"
-        good = (p.returncode == 0 and rec.get("status") == want
-                and (want == "ok" or rec.get("reason", "").startswith(
-                    "not in the port:")))
+        good = p.returncode == 0 and rec.get("status") == "ok"
         ok = ok and good
         row = {"arch": arch, "shape": shape, "rc": p.returncode,
                "status": rec.get("status"), "line": stdout.strip()[-400:],
@@ -3841,6 +4364,18 @@ def main() -> int:
          kernels=list(KERNELS), flags=" ".join(_build.NVCC_FLAGS))
     check(sources <= set(built), f"not built: {sources - set(built)}")
 
+    # Tensor and expert parallelism over the model axis: two ranks, while
+    # this process holds nothing on the card.
+    tp = tensor_parallel(torch, smi)
+    emit("tensor_parallel", **tp)
+    check(tp["ok"], "tensor_parallel failed: " + json.dumps(tp)[-4000:])
+    tp_launches = {
+        "flash_attention": sum(r["danube_prefill"]["flash_launches"]
+                               for r in tp["ranks"]),
+        "decode_attention": sum(r["qwen3_decode"]["decode_launches"]
+                                for r in tp["ranks"])}
+    del tp
+
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
     bf16, f32 = torch.bfloat16, torch.float32
     cases = [kernel_case(torch, decode, flush, name="serve_shape",
@@ -3862,6 +4397,17 @@ def main() -> int:
             torch.cuda.empty_cache()
     for c in cases:
         c["kernel"] = "decode_attention"
+    # B1 with its statistics on one rank's segment of a cache split over
+    # 2 ranks: the serve shape (bf16 q, f32 cache) and an f32 and a bf16
+    # cache of 2 x 16,384 rows
+    cases.append(stats_case(torch, decode, flush, name=TP_STATS_CASE,
+                            lengths=SERVE_LENGTHS, q_dtype=f32,
+                            kv_dtype=f32, cache_len=SERVE_LEN // 2))
+    for kv_dtype in (f32, bf16):
+        cases.append(stats_case(
+            torch, decode, flush, name="segment_of_2_l16384",
+            lengths=[0, 16000, 20000, 32768], q_dtype=f32,
+            kv_dtype=kv_dtype, cache_len=16384))
     cases += new_kernel_cases(torch, mods, flush)
     # the decode shapes of the other families' serve phases
     cases += family_kernel_cases(torch, configs, mods, flush)
@@ -4044,6 +4590,15 @@ def main() -> int:
                                           else None)
         if name in flow_launches:
             entry["launches_by_phase"] = flow_launches[name]
+        if name in tp_launches:
+            entry.setdefault("launches_by_phase", {})["tensor_parallel"] = \
+                tp_launches[name]
+            rank_case = next(c for c in mine if c["name"] in (
+                TP_FLASH_CASE, TP_STATS_CASE))
+            entry["per_rank"] = {k: rank_case.get(k) for k in (
+                "name", "ms", "no_stats_ms", "plain_ms", "library_ms",
+                "bound_ms", "bound_by", "max_abs_err", "design")
+                if k in rank_case}
         if name == "blocked_matmul":
             entry["launches_by_design"] = launches["blocked_matmul_by_design"]
         entries.append(entry)
@@ -4059,6 +4614,9 @@ if __name__ == "__main__":
     try:
         if sys.argv[1:2] == ["--meta-count"]:      # `meta_count_main`
             sys.exit(meta_count_main(sys.argv[2]))
+        if sys.argv[1:2] == ["--tp-rank"]:         # `tp_rank_main`
+            sys.exit(tp_rank_main(int(sys.argv[2]), int(sys.argv[3]),
+                                  sys.argv[4]))
         sys.exit(main())
     except Fail as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

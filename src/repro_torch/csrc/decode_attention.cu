@@ -17,13 +17,14 @@ namespace {
 
 template <typename KT>
 int run(const void* q, const void* k, const void* v, const void* lengths,
-        void* out, void* part, void* tickets, int q_bf16, int batch, int hkv,
-        int g, int dh, int cache_len, int span, long long q_sb,
-        long long q_sh, Layout kl, Layout vl, float scale,
+        void* stats, void* out, void* part, void* tickets, int q_bf16,
+        int batch, int hkv, int g, int dh, int cache_len, int span,
+        long long q_sb, long long q_sh, Layout kl, Layout vl, float scale,
         cudaStream_t stream) {
-  const Args<KT> a = make_args<KT>(q, out, q_bf16, k, v, lengths, part,
-                                   tickets, hkv, g, dh, cache_len, span, q_sb,
-                                   q_sh, kl, vl, scale);
+  Args<KT> a = make_args<KT>(q, out, q_bf16, k, v, lengths, part, tickets,
+                             hkv, g, dh, cache_len, span, q_sb, q_sh, kl, vl,
+                             scale);
+  a.stats = static_cast<float*>(stats);
   return launch<KT, false>(a, batch, stream);
 }
 
@@ -31,7 +32,9 @@ int run(const void* q, const void* k, const void* v, const void* lengths,
 
 // C entry, bound with ctypes.  q: (B, Hq, dh) with strides (q_sb, q_sh, 1);
 // k, v: (B, L, Hkv, dh) with strides (sb, sl, sh, 1), 16-byte aligned rows;
-// lengths: (B,) int32; out: contiguous (B, Hq, dh) of q's type; span: the
+// lengths: (B,) int32; stats: null, or a contiguous (2, B, Hq) f32 array
+// that receives each row's softmax max m and sum l (decode_body.cuh);
+// out: contiguous (B, Hq, dh) of q's type; span: the
 // keys of a split (>= 1); part: an f32 workspace of part_floats >= B * Hkv
 // * split_count(L, span) * g * (dh + 2) floats, sized for this call's
 // span; tickets: (B * Hkv,) int32, zero (the kernel leaves it zero).
@@ -39,7 +42,8 @@ int run(const void* q, const void* k, const void* v, const void* lengths,
 // error of the launch (0 on success).
 extern "C" int decode_attention(
     const void* q, const void* k, const void* v, const void* lengths,
-    void* out, void* part, void* tickets, int q_bf16, int kv_bf16, int batch,
+    void* stats, void* out, void* part, void* tickets, int q_bf16,
+    int kv_bf16, int batch,
     int hkv, int g, int dh, int cache_len, int span, long long q_sb,
     long long q_sh, long long k_sb, long long k_sl, long long k_sh, long long v_sb,
     long long v_sl, long long v_sh, long long part_floats, float scale,
@@ -50,6 +54,6 @@ extern "C" int decode_attention(
   const Layout kl{k_sb, k_sl, k_sh}, vl{v_sb, v_sl, v_sh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto go = kv_bf16 ? run<__nv_bfloat16> : run<float>;
-  return go(q, k, v, lengths, out, part, tickets, q_bf16, batch, hkv, g, dh,
-            cache_len, span, q_sb, q_sh, kl, vl, scale, s);
+  return go(q, k, v, lengths, stats, out, part, tickets, q_bf16, batch, hkv,
+            g, dh, cache_len, span, q_sb, q_sh, kl, vl, scale, s);
 }

@@ -44,13 +44,17 @@
 //
 // Combine inside the kernel.  The eight warps' (max, sum, accumulator) are
 // merged through shared memory.  A row with one split writes its output
-// there.  Otherwise each block writes its partial (m, l, acc per query
-// row) to a workspace, fences, and takes a ticket from an atomic counter
-// of its (b, h); the block that draws the last ticket reads the row's
-// partials in ascending split order and writes m = max m_i,
-// l = sum l_i e^(m_i - m), o = sum acc_i e^(m_i - m) / l, then resets the
-// counter to 0 for the next call.  No float atomics: the result does not
-// depend on the order in which blocks finish.
+// there, and, where the caller passes Args::stats, the row's final max m
+// and sum l (m = -1e30, l = 0 for a row of no key), so that a row whose
+// keys lie in several caches (a cache split by sequence over ranks) can be
+// combined by the caller as the splits are here.  Otherwise each block
+// writes its partial (m, l, acc per query row) to a workspace, fences,
+// and takes a ticket from an atomic counter of its (b, h); the block that
+// draws the last ticket reads the row's partials in ascending split order
+// and writes m = max m_i, l = sum l_i e^(m_i - m),
+// o = sum acc_i e^(m_i - m) / l (and m, l to Args::stats), then resets
+// the counter to 0 for the next call.  No float atomics: the result does
+// not depend on the order in which blocks finish.
 //
 // Two template parameters say where key row t of (b, h) lives and what it
 // holds; only the tile copy and the shared-memory reads depend on them:
@@ -224,6 +228,7 @@ struct Args {
   int q_bf16;                // q and out: bfloat16 (1) or float32 (0)
   float* part;               // workspace: split partials (part_floats)
   int* tickets;              // (B * Hkv,) int32, 0 between calls
+  float* stats;              // optional (2, B, Hq) f32: each row's m, l
   int hkv, g, dh;
   int rows;                  // rows a sequence holds: L or pages * page_size
   int span;                  // keys per split, >= 1
@@ -328,9 +333,15 @@ __global__ void __launch_bounds__(kThreads)
   const int nact = static_cast<int>(
       (static_cast<long long>(len) + span - 1) / span);  // splits with keys
   const long long ob = static_cast<long long>(bh) * g * dh;  // output row 0
+  const long long rows_bh = static_cast<long long>(gridDim.y) * g;
   if (s >= nact) {
-    if (s == 0)
+    if (s == 0) {
       for (int i = tid; i < g * dh; i += kThreads) store_out(a, ob + i, 0.f);
+      if (a.stats != nullptr && tid < g) {   // the empty partial
+        a.stats[static_cast<long long>(bh) * g + tid] = kNegInf;
+        a.stats[rows_bh + static_cast<long long>(bh) * g + tid] = 0.f;
+      }
+    }
     return;
   }
   const int begin = s * span;               // < len: s < nact
@@ -529,6 +540,10 @@ __global__ void __launch_bounds__(kThreads)
     }
     if (nact == 1) {
       store_out(a, ob + e, o / fmaxf(lsum, 1e-30f));
+      if (a.stats != nullptr && e == r * dh) {
+        a.stats[static_cast<long long>(bh) * g + r] = mx;
+        a.stats[rows_bh + static_cast<long long>(bh) * g + r] = lsum;
+      }
     } else {
       p_acc[bs * g * dh + e] = o;
       if (e == r * dh) {
@@ -587,7 +602,14 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int k = 0; k < kPer; ++k) {
     const int e = tid + k * kThreads;
-    if (e < g * dh) store_out(a, ob + e, o[k] / fmaxf(lsum[k], 1e-30f));
+    if (e < g * dh) {
+      store_out(a, ob + e, o[k] / fmaxf(lsum[k], 1e-30f));
+      const int r = e / dh;
+      if (a.stats != nullptr && e == r * dh) {
+        a.stats[static_cast<long long>(bh) * g + r] = c_m[r];
+        a.stats[rows_bh + static_cast<long long>(bh) * g + r] = lsum[k];
+      }
+    }
   }
   if (tid == 0) atomicExch(a.tickets + bh, 0);
 }

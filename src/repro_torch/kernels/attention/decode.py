@@ -193,25 +193,28 @@ def _launch(name: str, q: torch.Tensor, ptrs, ints, strides, *, batch: int,
     return out
 
 
-def cost(q: torch.Tensor, rows: int, *caches: torch.Tensor
-         ) -> tuple[float, float]:
+def cost(q: torch.Tensor, rows: int, *caches: torch.Tensor,
+         stats: bool = False) -> tuple[float, float]:
     """(operations, bytes) of one decode call over ``rows`` key rows a
     slot: ``4 dh Hq B rows`` operations; q and the output, and every
     slot's ``rows`` rows of each cache array (K and V codes or values,
     int8 scales; a row of a (.., rows, Hkv[, dh]) array or pool is its
-    trailing dims), each once."""
+    trailing dims), each once; with ``stats`` the (2, B, Hq) f32
+    statistics written too."""
     b, hq, dh = q.shape
     row_bytes = sum(math.prod(c.shape[2:]) * c.element_size()
                     for c in caches)
     return (4.0 * dh * hq * b * rows,
-            2.0 * q.numel() * q.element_size() + float(b * rows * row_bytes))
+            2.0 * q.numel() * q.element_size() + float(b * rows * row_bytes)
+            + (8.0 * b * hq if stats else 0.0))
 
 
-def charge(name: str, q: torch.Tensor, rows: int, *caches) -> None:
+def charge(name: str, q: torch.Tensor, rows: int, *caches,
+           stats: bool = False) -> None:
     """A call's `cost` added to the running `count_step`, if one
     runs."""
     if hlo_stats.counting():
-        hlo_stats.charge(name, *cost(q, rows, *caches))
+        hlo_stats.charge(name, *cost(q, rows, *caches, stats=stats))
 
 
 def meta_output(name: str, q: torch.Tensor, rows: int, *caches
@@ -280,14 +283,18 @@ def _stream(q: torch.Tensor) -> int:
 
 
 def decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-               length, scale: float | None = None) -> torch.Tensor:
+               length, scale: float | None = None,
+               return_stats: bool = False):
     """Plain version (materialized logits), a port of the JAX
     ``decode_ref``.  q: (B, Hq, dh); k, v: (B, L, Hkv, dh); ``length`` a
     scalar or (B,).  Computes in f32 and returns q's dtype; a slot with
     length 0 returns zeros.  As in the kernels, no key or value row at or
     past a slot's length enters its output: a NaN there (another slot's
     poisoned page, through a table entry clamped to page 0) stays out,
-    where a probability of 0 times NaN would not."""
+    where a probability of 0 times NaN would not.  ``return_stats`` also
+    returns each row's softmax statistics, (B, Hq) f32 m (the largest
+    scaled score) and l (the sum of e^(s - m)): m = -1e30 and l = 0 for
+    a slot of length 0."""
     b, hq, dh = q.shape
     _, kl, hkv, _ = k.shape
     g = hq // hkv
@@ -306,7 +313,16 @@ def decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgk,bhkd->bhgd", p, vr)
     out = torch.where((lv > 0)[:, None, None, None], out, 0.0)
-    return out.reshape(b, hq, dh).to(q.dtype)
+    out = out.reshape(b, hq, dh).to(q.dtype)
+    if not return_stats:
+        return out
+    m = s.amax(-1)
+    live = (lv > 0)[:, None, None]
+    l = torch.where(live, torch.where(valid[:, None, None, :],
+                                      torch.exp(s - m[..., None]),
+                                      0.0).sum(-1), 0.0)
+    m = torch.where(live, m, NEG_INF)
+    return out, m.reshape(b, hq), l.reshape(b, hq)
 
 
 def gather_pages(pool: torch.Tensor, pages: torch.Tensor) -> torch.Tensor:
@@ -335,7 +351,8 @@ def paged_decode_ref(q: torch.Tensor, k_pool: torch.Tensor,
 
 def gqa_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, length, scale: float | None = None,
-                         block_k: int | None = None) -> torch.Tensor:
+                         block_k: int | None = None,
+                         return_stats: bool = False):
     """q: (B, Hq, dh); k, v: (B, L, Hkv, dh) -> (B, Hq, dh) in q's dtype.
 
     ``length`` is a scalar or a (B,) vector of valid cache prefixes,
@@ -346,8 +363,17 @@ def gqa_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     plain version on the CPU computes the same function at any span.  On
     meta tensors: the output's shape, nothing computed, and the call's
     `cost` at L rows charged to a running count.
+
+    ``return_stats`` also returns each (b, query head) row's softmax
+    statistics, (B, Hq) f32 ``m`` (its largest scaled score) and ``l``
+    (the sum of e^(s - m) over its keys), written by the block that
+    writes the row's output (the only split, or the last to finish, at
+    its combine); a slot of length 0 gives m = -1e30, l = 0, the empty
+    partial `combine_partials` weighs 0.  So a row whose keys lie in
+    several caches (a cache split by sequence over ranks) is the
+    `combine_partials` of the parts' ``out * l``.
     """
-    b, _, dh = q.shape
+    b, hq, dh = q.shape
     _, kl, hkv, _ = k.shape
     if k.shape != v.shape or k.shape[0] != b or k.shape[3] != dh:
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, "
@@ -355,27 +381,36 @@ def gqa_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     g = check_gqa(q, hkv, dh)
     span = split_span(block_k)
     if q.device.type == "meta":
-        return meta_output("decode_attention", q, kl, k, v)
+        if not return_stats:
+            return meta_output("decode_attention", q, kl, k, v)
+        charge("decode_attention", q, kl, k, v, stats=True)
+        st = torch.empty((2, b, hq), dtype=torch.float32, device="meta")
+        return torch.empty(q.shape, dtype=q.dtype, device="meta"), st[0], \
+            st[1]
     if scale is None:
         scale = 1.0 / (dh ** 0.5)
     lengths = _lengths(length, b, kl, q.device)
     if q.device.type == "cpu" and k.device.type == "cpu":
-        return decode_ref(q, k, v, length=lengths, scale=scale)
+        return decode_ref(q, k, v, length=lengths, scale=scale,
+                          return_stats=return_stats)
     check_cuda(q, (k, v), g)
     if k.dtype not in _DTYPES or v.dtype != k.dtype:
         raise ValueError(f"cache dtypes k={k.dtype}, v={v.dtype}: the cache "
                          f"must be float32 or bfloat16")
+    stats = (torch.empty((2, b, hq), dtype=torch.float32, device=q.device)
+             if return_stats else None)
     out = _launch(
         "decode_attention", q,
-        (q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr()),
+        (q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
+         None if stats is None else stats.data_ptr()),
         (int(q.dtype == torch.bfloat16), int(k.dtype == torch.bfloat16), b,
          hkv, g, dh, kl),
         (q.stride(0), q.stride(1), *k.stride()[:3], *v.stride()[:3]),
         batch=b, hkv=hkv, g=g, dh=dh, rows=kl, span=span, scale=scale)
     global launches
     launches += 1
-    charge("decode_attention", q, kl, k, v)
-    return out
+    charge("decode_attention", q, kl, k, v, stats=return_stats)
+    return out if stats is None else (out, stats[0], stats[1])
 
 
 def paged_gqa_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,

@@ -18,22 +18,24 @@ per-rank program is its own:
 - ``train``: `steps.data_parallel_step` over a state placed by
   `specs.state_pspecs` (ZeRO moments; FSDP weights from 10 B
   parameters), the global batch on every rank, each rank taking its
-  rows.  Ranks of the model axis repeat their data rank's work.
-- ``prefill``: `steps.make_prefill_step` on the rank's batch rows, the
-  weights gathered whole (`parallel.sharding.full_tensor`) as the train
-  step gathers them.
-- ``decode``: `steps.make_serve_step` on the rank's batch rows of a bf16
-  cache of the shape's length, the weights placed by
-  `specs.decode_pspecs` and gathered whole.  The port has no
-  sequence-parallel decode, so a rank holds its slots' whole cache.
+  rows and computing with its model-axis blocks of the weights
+  (`steps.rank_params`): heads, ff, vocab and experts split over the
+  model axis where the rules keep them, the Mamba and RWKV mixers
+  whole.
+- ``prefill``: `steps.make_prefill_step` on the rank's batch rows and
+  the same blocks, gathered from the placed weights inside the step.
+- ``decode``: `steps.make_serve_step` under `decode_rules` on rank 0's
+  block of a bf16 cache of the shape's length (`transformer.cache_block`:
+  its slots, and its segment of the rows over the ``kv_seq`` axes, the
+  model axis, or the data and model axes for a batch-1 decode) and the
+  blocks of the weights placed by `specs.decode_pspecs`.
 
 Each runs under the mesh and the cell's rules, so MoE layers take
 `moe.apply_sharded`'s expert exchange.  A cell the port cannot form is
 ``skipped`` with a reason that begins ``not in the port:`` (the step
-raised `steps.NotInPort`, naming its ROADMAP item: MoE training over a
-model axis larger than 1); any other exception makes an ``error``
-record.  The reference's own rule (`configs.shapes.applicable`) skips
-the rest as it does.
+raised `sharding.NotInPort`, naming its ROADMAP item); any other exception
+makes an ``error`` record.  The reference's own rule
+(`configs.shapes.applicable`) skips the rest as it does.
 
 Whole-cluster totals are rank 0's counts times the chips, as the
 reference scales one device's program.  ``raw`` is the full-depth count.
@@ -172,27 +174,26 @@ def _rank_step(cfg, shape: ShapeSpec, mesh, rules, step_kwargs=None,
     """Rank 0's step of one cell on meta tensors: ``(fn, args)``,
     ``fn(*args)`` the step.  ``state_rules`` (default ``rules``) place
     the weights and optimizer state; ``rules`` govern the activations
-    and the batch.  Raises `steps.NotInPort` for a cell the port's steps
+    and the batch.  Raises `sharding.NotInPort` for a cell the port's steps
     do not form."""
     step_kwargs = step_kwargs or {}
     state_rules = state_rules or rules
 
-    def under_mesh(step):
+    def on_blocks(step):
         def run(params, *rest):
             with set_mesh(mesh), shd.use_rules(rules):
-                whole = tree_lib.map_structure(shd.full_tensor, params)
-                return step(whole, *rest)
+                return step(steps.rank_params(cfg, params, mesh, rules),
+                            *rest)
         return run
 
     if shape.kind == "decode":
         abs_, pspecs = specs.decode_pspecs(cfg, shape, mesh, rules,
                                            state_rules=state_rules)
         b = shape.global_batch // rules.axis_size(pspecs["tokens"][0])
-        cache = transformer.cache_init(cfg, b, shape.seq_len,
-                                       dtype=torch.bfloat16, device="meta")
+        cache = transformer.cache_block(cfg, abs_["cache"], rules, mesh)
         tokens = torch.empty((b, 1), dtype=torch.int32, device="meta")
         params = _placed(abs_["params"], pspecs["params"], mesh)
-        fn = under_mesh(steps.make_serve_step(cfg))
+        fn = on_blocks(steps.make_serve_step(cfg, mesh=mesh, rules=rules))
         return fn, (params, cache, tokens)
     if shape.kind == "train":
         opt_cfg = opt_config(cfg)
@@ -208,7 +209,7 @@ def _rank_step(cfg, shape: ShapeSpec, mesh, rules, step_kwargs=None,
                                                        global_batch=b))
     params = _placed(specs.abstract_params(cfg),
                      specs.param_pspecs(cfg, state_rules, mesh), mesh)
-    fn = under_mesh(steps.make_prefill_step(cfg))
+    fn = on_blocks(steps.make_prefill_step(cfg, mesh=mesh, rules=rules))
     return fn, (params, batch)
 
 
@@ -300,7 +301,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str,
     try:
         fn, args = _rank_step(cfg, shape, mesh, rules, step_kwargs,
                               state_rules)
-    except steps.NotInPort as e:
+    except shd.NotInPort as e:
         return {**record, "status": "skipped", "reason": f"{NOT_IN_PORT} {e}"}
     counts = hlo_stats.count_step(fn, *args)
     record["trace_s"] = round(time.time() - t0, 2)

@@ -96,15 +96,17 @@ def _start_fake_group(ranks: int) -> None:
                             world_size=ranks)
 
 
-def ensure_process_group(device_type: str = "cuda", ranks: int = 1) -> int:
+def ensure_process_group(device_type: str = "cuda", ranks: int = 1,
+                         backend: str | None = None) -> int:
     """The world size of the running process group, started first if
     none runs: from `torchrun`'s environment (``WORLD_SIZE``, ``RANK``,
     ``MASTER_ADDR``, ``MASTER_PORT``), or, with none, as one rank in an
     in-process store; on ``meta``, as ``ranks`` fake ranks
     (`_start_fake_group`).  ``ranks`` is what the caller's mesh needs: a
     group of another size, or one on another backend than
-    ``device_type``'s, raises."""
-    want = _backend(device_type)
+    ``device_type``'s (or ``backend``, where the caller names one: gloo
+    for ranks that share one card, which NCCL refuses), raises."""
+    want = backend or _backend(device_type)
     if device_type == "meta":
         _start_fake_group(ranks)
     else:
@@ -135,14 +137,16 @@ def ensure_process_group(device_type: str = "cuda", ranks: int = 1) -> int:
 _MESHES: dict = {}
 
 
-def make_mesh(axis_shapes, axis_names, device_type: str = "cuda"):
+def make_mesh(axis_shapes, axis_names, device_type: str = "cuda",
+              backend: str | None = None):
     """A `DeviceMesh` of ``axis_shapes`` named ``axis_names`` over every
     rank of the process group (started first as `ensure_process_group`
-    says); its size must be the world size.  One mesh of a shape is
-    built per process group and handed out again after."""
+    says, on ``backend`` if given); its size must be the world size.  One
+    mesh of a shape is built per process group and handed out again
+    after."""
     from torch.distributed.device_mesh import init_device_mesh
     shape, names = tuple(axis_shapes), tuple(axis_names)
-    ensure_process_group(device_type, math.prod(shape))
+    ensure_process_group(device_type, math.prod(shape), backend)
     world = dist.group.WORLD
     key = (shape, names, device_type, id(world))
     if key not in _MESHES:
@@ -162,9 +166,9 @@ def make_production_mesh(*, multi_pod: bool = False,
 
 
 def make_host_mesh(data: int = 1, model: int = 1,
-                   device_type: str = "cuda"):
+                   device_type: str = "cuda", backend: str | None = None):
     """A small ``(data, model)`` mesh over the process group's ranks."""
-    return make_mesh((data, model), ("data", "model"), device_type)
+    return make_mesh((data, model), ("data", "model"), device_type, backend)
 
 
 _GROUPS: dict = {}

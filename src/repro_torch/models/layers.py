@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.attention import decode, decode_int8, ops
+from repro_torch.parallel import sharding as shd
 from repro_torch.runtime import quantize
 
 Params = dict
@@ -131,7 +132,7 @@ def _mask_block(q_pos, k_pos, causal: bool, window: int | None = None,
 def attention_core(q, k, v, q_pos, k_pos, *, causal: bool, scale: float,
                    window: int | None = None, k_valid=None,
                    chunk_q: int | None = None,
-                   remat_chunks: bool = False) -> torch.Tensor:
+                   remat_chunks: bool = False, seg=None) -> torch.Tensor:
     """Masked multi-head attention with GQA grouping (no cache repeat):
     query head h reads KV head h // g.
 
@@ -144,8 +145,13 @@ def attention_core(q, k, v, q_pos, k_pos, *, causal: bool, scale: float,
     blocks run one after another, so the (Sq, Sk) logits never exist at
     once; with ``remat_chunks`` (training under ``remat="full"``) each
     block runs under `torch.utils.checkpoint`, so the backward recomputes
-    its logits and probabilities instead of keeping them.  Returns f32
-    (B, Sq, Hq, dh).
+    its logits and probabilities instead of keeping them.  With ``seg``
+    (a `parallel.sharding.Split`, forward only) the keys are this rank's
+    part of the sequence over the ``seg`` group: the softmax's max and
+    sum are reduced over the group before the probabilities are rounded
+    (`_split_softmax`) and the ranks' products are summed, so each rank
+    holds the whole row's attention as the unsplit core computes it, up
+    to summation order.  Returns f32 (B, Sq, Hq, dh).
     """
     b, sq, hq, dh = q.shape
     hkv = k.shape[2]
@@ -159,7 +165,8 @@ def attention_core(q, k, v, q_pos, k_pos, *, causal: bool, scale: float,
         mask = (mask[None, None, None] if mask.ndim == 2
                 else mask[:, None, None])
         logits = torch.where(mask, logits, NEG_INF)
-        probs = torch.softmax(logits, dim=-1)
+        probs = (torch.softmax(logits, dim=-1) if seg is None
+                 else _split_softmax(logits, seg))
         return torch.einsum("bhgqk,bkhd->bqhgd",
                             probs.to(v.dtype).float(), v.float())
 
@@ -174,7 +181,17 @@ def attention_core(q, k, v, q_pos, k_pos, *, causal: bool, scale: float,
         out = torch.cat(outs, dim=1)
     else:
         out = blk(qr, q_pos)
-    return out.reshape(b, sq, hq, dh)
+    return shd.reduce_out(out, seg).reshape(b, sq, hq, dh)
+
+
+def _split_softmax(logits, seg) -> torch.Tensor:
+    """`torch.softmax` over the last dim of ``logits`` split over
+    ``seg``: the max and the sum of exponentials reduced over the group.
+    A row masked everywhere comes out uniform over the whole row, as
+    `torch.softmax` gives it."""
+    m = shd.reduce_max(logits.amax(dim=-1, keepdim=True), seg)
+    e = torch.exp(logits - m)
+    return e / shd.reduce_out(e.sum(dim=-1, keepdim=True), seg)
 
 
 def _write_cache(c: torch.Tensor, new: torch.Tensor, t_abs: torch.Tensor,
@@ -225,13 +242,37 @@ def _write_pages(pool: torch.Tensor, new: torch.Tensor, page_w: torch.Tensor,
     with_trash_page(pool)[page_w, row] = new.to(pool.dtype)
 
 
+def _kv_heads_read(cfg, hs) -> tuple[int, int]:
+    """``(first, count)``: the KV heads this rank's query heads read
+    (query head h reads KV head h // g) where ``hs`` splits the query
+    heads and the KV heads stay whole; local query head i reads local KV
+    head i // (Hq_loc / count).  Raises where the rank's query heads do
+    not fall into equal groups (no config splits so)."""
+    g = cfg.num_heads // cfg.num_kv_heads
+    hq = cfg.num_heads // hs.n
+    if hq % g and g % hq:
+        raise ValueError(f"{hq} query heads a rank do not fall into equal "
+                         f"groups of {g} per KV head")
+    return hs.index * hq // g, max(hq // g, 1)
+
+
+def _combine_segments(out, m, l, seg) -> torch.Tensor:
+    """The whole row's attention from each rank's part of the keys over
+    the ``seg`` group: `decode.combine_partials` in ascending rank
+    order."""
+    parts = shd.gather_dim(torch.stack([m, l])[None], 0, seg, False)
+    accs = shd.gather_dim((out * l[..., None])[None], 0, seg, False)
+    return decode.combine_partials(parts[:, 0], parts[:, 1], accs)
+
+
 def attention_apply(params: Params, x: torch.Tensor, cfg,
                     positions: torch.Tensor, cache: Params | None = None,
                     lengths: torch.Tensor | None = None,
                     active: torch.Tensor | None = None,
                     chunk_q: int | None = None,
                     pages: torch.Tensor | None = None, paged=None,
-                    prefill: bool = False, block_k: int | None = None):
+                    prefill: bool = False, block_k: int | None = None,
+                    kv_split: bool = False):
     """GQA self-attention of x (B, S, D) at ``positions`` ((S,) or (B, S)).
 
     Without a cache: attention over the sequence itself, causal and
@@ -258,30 +299,77 @@ def attention_apply(params: Params, x: torch.Tensor, cfg,
     default); longer chunks gather and dequantize the cache and run
     `attention_core`.  Returns ``(y, cache)`` where ``cache`` holds the same
     (updated) tensors.
+
+    Over the model axis (`parallel.sharding.split` of ``heads``): each
+    rank projects its block of query heads (its columns of ``wq``, of
+    ``wk``/``wv`` where ``kv_heads`` splits too, else the KV heads its
+    query heads read), runs the core on them and multiplies by its rows
+    of ``wo``; `sharding.leave` sums the ranks' parts.  With
+    ``kv_split`` the contiguous cache is this rank's segment of the
+    rows over the ``kv_seq`` axes (`decode_rules`): the step's query is
+    gathered over the heads, each rank writes the new rows that fall in
+    its segment and attends over it: the decode kernel with its softmax
+    statistics, the segments combined in rank order
+    (`_combine_segments`), or for the ring and for chunks `attention_core`
+    with the softmax reduced over the segments.
     """
-    b, s, _ = x.shape
-    q = x @ params["wq"].to(x.dtype)
-    k = x @ params["wk"].to(x.dtype)
-    v = x @ params["wv"].to(x.dtype)
+    dh = cfg.head_dim
+    hs = shd.split("heads", cfg.num_heads)
+    kvs = shd.split("kv_heads", cfg.num_kv_heads) if hs else None
+    seg = shd.split("kv_seq", None) if cache is not None and kv_split \
+        else None
+    if seg is not None and (paged is not None or "k_scale" in cache):
+        raise shd.NotInPort("a paged or int8 cache split by sequence "
+                            "(ROADMAP A14 item 13: B2-B4 return no softmax "
+                            "statistics)")
+    x_in = shd.enter(x, hs)           # the whole sequence
+    b, s, _ = x_in.shape
+    names = ("k", "v")
+    w = {"q": shd.block(params["wq"], 1, cfg.q_dim, hs)}
+    bias = {"q": shd.block(params["bq"], 0, cfg.q_dim, hs)} \
+        if cfg.qkv_bias else {}
+    pick = None                  # the KV heads the query heads read
+    if hs is not None and kvs is None and seg is None:
+        pick = _kv_heads_read(cfg, hs)
+    for n in names:
+        if pick is not None and cache is None:   # train, prefill: project
+            first, count = pick                  # only the heads read
+            w[n] = shd.copy_in(params["w" + n], hs).narrow(
+                1, first * dh, count * dh)
+            if cfg.qkv_bias:
+                bias[n] = shd.copy_in(params["b" + n], hs).narrow(
+                    0, first * dh, count * dh)
+        else:
+            w[n] = shd.block(params["w" + n], 1, cfg.kv_dim, kvs)
+            if cfg.qkv_bias:
+                bias[n] = shd.block(params["b" + n], 0, cfg.kv_dim, kvs)
+    if cache is None:
+        pick = None
+    q = x_in @ w["q"].to(x.dtype)
+    k = x_in @ w["k"].to(x.dtype)
+    v = x_in @ w["v"].to(x.dtype)
     if cfg.qkv_bias:
-        q = q + params["bq"].to(x.dtype)
-        k = k + params["bk"].to(x.dtype)
-        v = v + params["bv"].to(x.dtype)
-    q = q.reshape(b, s, cfg.num_heads, cfg.head_dim)
-    k = k.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
-    v = v.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+        q = q + bias["q"].to(x.dtype)
+        k = k + bias["k"].to(x.dtype)
+        v = v + bias["v"].to(x.dtype)
+    q = q.reshape(b, s, -1, dh)
+    k = k.reshape(b, s, -1, dh)
+    v = v.reshape(b, s, -1, dh)
     if cfg.qk_norm:
-        q = rmsnorm(params["q_norm"], q, cfg.norm_eps)
-        k = rmsnorm(params["k_norm"], k, cfg.norm_eps)
+        q = rmsnorm({"scale": shd.copy_in(params["q_norm"]["scale"], hs)},
+                    q, cfg.norm_eps)
+        k = rmsnorm({"scale": shd.copy_in(params["k_norm"]["scale"], hs)},
+                    k, cfg.norm_eps)
     pos_b = positions if positions.ndim == 2 else positions[None]
     q = apply_rope(q, pos_b, cfg.rope_theta)
     k = apply_rope(k, pos_b, cfg.rope_theta)
-    scale = 1.0 / math.sqrt(cfg.head_dim)
+    scale = 1.0 / math.sqrt(dh)
     if chunk_q is None:
         if cfg.attn_chunk > 0:
             chunk_q = cfg.attn_chunk
         elif cfg.attn_chunk < 0 and s > 2048:
             chunk_q = 512
+    wo = shd.block(params["wo"], 0, cfg.q_dim, hs).to(x.dtype)
 
     if cache is None:
         if prefill:
@@ -292,8 +380,8 @@ def attention_apply(params: Params, x: torch.Tensor, cfg,
                                  causal=cfg.causal, scale=scale,
                                  window=cfg.sliding_window, chunk_q=chunk_q,
                                  remat_chunks=cfg.remat == "full")
-        out = out.reshape(b, s, cfg.q_dim).to(x.dtype)
-        return out @ params["wo"].to(x.dtype), cache
+        out = out.reshape(b, s, -1).to(x.dtype)
+        return shd.leave(out @ wo, hs), cache
 
     quantized = "k_scale" in cache
     paged_cache = paged is not None and pages is not None
@@ -311,6 +399,11 @@ def attention_apply(params: Params, x: torch.Tensor, cfg,
     t_abs = lengths[:, None] + torch.arange(s, dtype=torch.int32,
                                             device=x.device)
     new_len = lengths + act2d.sum(dim=1, dtype=torch.int32)
+
+    if seg is not None:
+        out = _segment_attention(cfg, q, cache, new, t_abs, act2d, new_len,
+                                 pos_b, seg, hs, scale, block_k)
+        return shd.leave(out.to(x.dtype) @ wo, hs), cache
 
     if paged_cache:
         psz, mp, npg = paged.page_size, paged.max_pages, paged.num_pages
@@ -330,6 +423,8 @@ def attention_apply(params: Params, x: torch.Tensor, cfg,
             ok = ok & (t_abs < cache["k"].shape[1])
         for name, c in cache.items():
             _write_cache(c, new[name], t_abs, ok)
+    view = cache if pick is None else {
+        n: c.narrow(2, *pick) for n, c in cache.items()}
 
     if s == 1 and cfg.causal and not cfg.sliding_window:
         kernel = {(False, False): decode.gqa_decode_attention,
@@ -340,31 +435,70 @@ def attention_apply(params: Params, x: torch.Tensor, cfg,
                   }[paged_cache, quantized]
         names = ("k", "k_scale", "v", "v_scale") if quantized else ("k", "v")
         tables = (pages,) if paged_cache else ()
-        out = kernel(q[:, 0], *(cache[n] for n in names), *tables,
+        out = kernel(q[:, 0], *(view[n] for n in names), *tables,
                      length=new_len, scale=scale,
                      block_k=block_k)[:, None]
     else:
-        rows = ({n: decode.gather_pages(c, pages) for n, c in cache.items()}
-                if paged_cache else cache)
+        rows = ({n: decode.gather_pages(c, pages) for n, c in view.items()}
+                if paged_cache else view)
         kr, vr = rows["k"], rows["v"]
         if quantized:
             kr = quantize.dequantize_rows(kr, rows["k_scale"])
             vr = quantize.dequantize_rows(vr, rows["v_scale"])
         slots = torch.arange(kr.shape[1], dtype=torch.int32, device=x.device)
         if cfg.sliding_window:        # contiguous only: the cache's init
-            # Ring slot j of a slot holds absolute position
-            # end - ((end % L - j) % L), end its newest written position.
-            ring = kr.shape[1]
-            end = (new_len - 1)[:, None]
-            k_pos = end - ((end % ring - slots[None, :]) % ring)
-            k_valid = (k_pos >= 0) & (k_pos < new_len[:, None])
+            k_pos, k_valid = _ring_positions(slots, kr.shape[1], new_len)
         else:
             k_pos, k_valid = slots, slots[None, :] < new_len[:, None]
         out = attention_core(q, kr, vr, pos_b, k_pos, causal=cfg.causal,
                              scale=scale, window=cfg.sliding_window,
                              k_valid=k_valid, chunk_q=chunk_q)
-    out = out.reshape(b, s, cfg.q_dim).to(x.dtype)
-    return out @ params["wo"].to(x.dtype), cache
+    out = out.reshape(b, s, -1).to(x.dtype)
+    return shd.leave(out @ wo, hs), cache
+
+
+def _ring_positions(slots, ring: int, new_len):
+    """Absolute positions and validity of ring rows ``slots`` of a ring of
+    ``ring`` rows: row j of a slot holds position end - ((end % ring - j)
+    % ring), end its newest written position."""
+    end = (new_len - 1)[:, None]
+    k_pos = end - ((end % ring - slots[None, :]) % ring)
+    return k_pos, (k_pos >= 0) & (k_pos < new_len[:, None])
+
+
+def _segment_attention(cfg, q, cache, new, t_abs, act2d, new_len, pos_b,
+                       seg, hs, scale, block_k) -> torch.Tensor:
+    """`attention_apply` over a contiguous cache split by sequence: this
+    rank holds rows [off, off + L) of ``seg.n * L`` (of the ring, for a
+    sliding-window model).  Writes the new rows that fall there, attends
+    every query head over them and combines the segments; returns this
+    rank's heads of the output, (B, S, Hq_loc * dh) f32."""
+    b, s = t_abs.shape
+    rows = cache["k"].shape[1]
+    total, off = rows * seg.n, seg.index * rows
+    target = (t_abs % total if cfg.sliding_window else t_abs) - off
+    ok = act2d & (target >= 0) & (target < rows)
+    for name, c in cache.items():
+        _write_cache(c, new[name], target, ok)
+    qa = shd.gather_dim(q, 2, hs, False)              # every query head
+    if s == 1 and cfg.causal and not cfg.sliding_window:
+        mine = torch.clamp(new_len - off, 0, rows).to(torch.int32)
+        out, m, l = decode.gqa_decode_attention(
+            qa[:, 0].float(), cache["k"], cache["v"], length=mine,
+            scale=scale, block_k=block_k, return_stats=True)
+        out = _combine_segments(out[:, None], m[:, None], l[:, None], seg)
+    else:
+        slots = off + torch.arange(rows, dtype=torch.int32,
+                                   device=q.device)
+        if cfg.sliding_window:
+            k_pos, k_valid = _ring_positions(slots, total, new_len)
+        else:
+            k_pos, k_valid = slots, slots[None, :] < new_len[:, None]
+        out = attention_core(qa, cache["k"], cache["v"], pos_b, k_pos,
+                             causal=cfg.causal, scale=scale,
+                             window=cfg.sliding_window, k_valid=k_valid,
+                             seg=seg)
+    return shd.block(out, 2, cfg.num_heads, hs).reshape(b, s, -1)
 
 
 def attention_cache_init(cfg, batch: int, cache_len: int,
@@ -439,10 +573,26 @@ def swiglu_param_specs() -> Params:
     }
 
 
-def swiglu_apply(params: Params, x: torch.Tensor) -> torch.Tensor:
-    h = F.silu(x @ params["w_gate"].to(x.dtype)) * (
-        x @ params["w_up"].to(x.dtype))
-    return h @ params["w_down"].to(x.dtype)
+def _ff_blocks(params: Params, d_ff: int | None, names):
+    """The ``ff`` split and each named weight's block along it: columns
+    of the up projections, rows of ``w_down``."""
+    fs = shd.split("ff", d_ff) if d_ff else None
+    full = d_ff or params["w_down"].shape[0]
+    return fs, [shd.block(params[n], 0 if n == "w_down" else 1, full, fs)
+                for n in names]
+
+
+def swiglu_apply(params: Params, x: torch.Tensor, d_ff: int | None = None
+                 ) -> torch.Tensor:
+    """SwiGLU of x (B, S, D).  With ``d_ff`` (the model's) the hidden
+    dim splits over the model axis where the rules map ``ff``: each rank
+    its columns of the gate and up projections and rows of the down
+    projection, the ranks' parts summed (`sharding.leave`)."""
+    fs, (wg, wu, wd) = _ff_blocks(params, d_ff,
+                                  ("w_gate", "w_up", "w_down"))
+    x = shd.enter(x, fs)
+    h = F.silu(x @ wg.to(x.dtype)) * (x @ wu.to(x.dtype))
+    return shd.leave(h @ wd.to(x.dtype), fs)
 
 
 def gelu_mlp_init(generator: torch.Generator, d_model: int, d_ff: int,
@@ -457,10 +607,14 @@ def gelu_mlp_param_specs() -> Params:
     return {"w_up": ("embed", "ff"), "w_down": ("ff", "embed")}
 
 
-def gelu_mlp_apply(params: Params, x: torch.Tensor) -> torch.Tensor:
-    """The encoder's MLP; tanh GELU, `jax.nn.gelu`'s default."""
-    h = F.gelu(x @ params["w_up"].to(x.dtype), approximate="tanh")
-    return h @ params["w_down"].to(x.dtype)
+def gelu_mlp_apply(params: Params, x: torch.Tensor,
+                   d_ff: int | None = None) -> torch.Tensor:
+    """The encoder's MLP; tanh GELU, `jax.nn.gelu`'s default.  Split over
+    ``ff`` as `swiglu_apply`."""
+    fs, (wu, wd) = _ff_blocks(params, d_ff, ("w_up", "w_down"))
+    x = shd.enter(x, fs)
+    h = F.gelu(x @ wu.to(x.dtype), approximate="tanh")
+    return shd.leave(h @ wd.to(x.dtype), fs)
 
 
 # ---------------------------------------------------------------------------
@@ -472,10 +626,28 @@ def embedding_init(generator: torch.Generator, vocab: int, d_model: int,
     return {"table": _dense_init(generator, (vocab, d_model), dtype)}
 
 
-def embedding_lookup(params: Params, tokens: torch.Tensor) -> torch.Tensor:
-    return params["table"][tokens.long()]
+def embedding_lookup(params: Params, tokens: torch.Tensor,
+                     vocab: int | None = None) -> torch.Tensor:
+    """The tokens' rows of the table.  With ``vocab`` (the model's) the
+    table splits over the model axis where the rules map ``vocab``: each
+    rank looks up the tokens its block holds, zeros for the rest, and the
+    ranks' rows are summed (one of them nonzero: exact)."""
+    vs = shd.split("vocab", vocab) if vocab else None
+    if vs is None:
+        return params["table"][tokens.long()]
+    table = shd.block(params["table"], 0, vocab, vs)
+    c = table.shape[0]
+    loc = tokens.long() - vs.index * c
+    inside = (loc >= 0) & (loc < c)
+    rows = table[loc.clamp(0, c - 1)]
+    return shd.reduce_out(torch.where(inside[..., None], rows, 0.0), vs)
 
 
-def unembed(params: Params, x: torch.Tensor) -> torch.Tensor:
-    """Logits in x's dtype."""
-    return x @ params["table"].T.to(x.dtype)
+def unembed(params: Params, x: torch.Tensor, vocab: int | None = None
+            ) -> torch.Tensor:
+    """Logits in x's dtype; over a ``vocab`` split (as `embedding_lookup`)
+    this rank's block of them, which `sharding.vocab_argmax` reads."""
+    vs = shd.split("vocab", vocab) if vocab else None
+    table = params["table"] if vs is None else shd.block(
+        params["table"], 0, vocab, vs)
+    return shd.copy_in(x, vs) @ table.T.to(x.dtype)

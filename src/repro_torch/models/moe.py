@@ -181,29 +181,26 @@ def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
 
 
 class _MeanOver(torch.autograd.Function):
-    """The mean of a tensor over ``group`` (an all-reduce); its gradient
-    is the mean of the gradients over the group."""
+    """The mean of a tensor over ``group`` (an all-reduce).  Each data
+    rank's objective holds the mean once, replicated over the model axis,
+    so the gradient of a rank's term is the gradients summed over
+    ``grad_group`` (the data ranks; None: this rank alone) over
+    ``grad_n``, the ranks whose terms the mean averages (with one model
+    rank, the mean of the gradients over the group)."""
 
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return _mean(x, group)
+    def forward(ctx, x, group, grad_group, grad_n):
+        ctx.grad_group, ctx.grad_n = grad_group, grad_n
+        y = x.clone()
+        dist.all_reduce(y, group=group)
+        return y / dist.get_world_size(group)
 
     @staticmethod
     def backward(ctx, g):
-        return _mean(g, ctx.group), None
-
-
-def _mean(x: torch.Tensor, group) -> torch.Tensor:
-    y = x.clone()
-    dist.all_reduce(y, group=group)
-    return y / dist.get_world_size(group)
-
-
-def _gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
-    pieces = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(pieces, x.contiguous(), group=group)
-    return torch.cat(pieces, dim=dim)
+        g = g.clone()
+        if ctx.grad_group is not None:
+            dist.all_reduce(g, group=ctx.grad_group)
+        return g / ctx.grad_n, None, None, None
 
 
 def apply_sharded(params: Params, x: torch.Tensor, cfg, mesh=None):
@@ -226,11 +223,21 @@ def apply_sharded(params: Params, x: torch.Tensor, cfg, mesh=None):
     two capacities compound the capacity factor, as the reference's do.
     ``aux`` is averaged over the batch and model axes.  The split
     outputs are gathered over the model axis.  With one model shard every
-    exchange still goes through the group."""
+    exchange still goes through the group.
+
+    Trained: the expert weights are this rank's block of the experts
+    (cut here where whole), gradients flow back through the exchanges,
+    the token split cuts with `sharding.split_dim` and gathers with
+    `sharding.gather_dim`, and where the tokens split over the model axis
+    the router enters through `sharding.copy_in` (its gradient, from
+    this rank's tokens, summed over the split) and ``aux``'s gradient
+    weighs each rank's term once (`_MeanOver`).  Over a stream already
+    split by sequence (`sharding.seq_split`) the rank's tokens are its
+    part of the stream, and the output stays split."""
     from repro_torch.launch.mesh import axis_group, axis_index, axis_sizes
     from repro_torch.launch.mesh import get_abstract_mesh
-    from repro_torch.parallel.sharding import active_rules
-    rules = active_rules()
+    from repro_torch.parallel import sharding as shd
+    rules = shd.active_rules()
     b, s, d = x.shape
     if rules is None or rules.table.get("experts") is None:
         out, aux = apply_grouped(params, x.reshape(b * s, d), cfg)
@@ -250,23 +257,29 @@ def apply_sharded(params: Params, x: torch.Tensor, cfg, mesh=None):
                          f"{n_shards}")
     e_loc = e // n_shards
     m = axis_index(mesh, model_axis)
+    group = axis_group(mesh, model_axis)
+    ms = shd.Split((model_axis,), n_shards, m, group)
+    data_axes = batch_axes
     # the token split over the model axis
-    if s % n_shards == 0:
-        split, x_loc = 1, x[:, m * (s // n_shards):(m + 1) * (s // n_shards)]
+    if shd.seq_split() is not None:
+        split, x_loc = "stream", x
+    elif s % n_shards == 0:
+        split, x_loc = 1, shd.split_dim(x, 1, ms)
     elif b % n_shards == 0:
-        split, x_loc = 0, x[m * (b // n_shards):(m + 1) * (b // n_shards)]
-        batch_axes = batch_axes + (model_axis,)
+        split, x_loc = 0, shd.split_dim(x, 0, ms)
     else:
         split, x_loc = None, x
+    if split is not None:
+        batch_axes = batch_axes + (model_axis,)
     t_loc = x_loc.shape[0] * x_loc.shape[1]
     k = cfg.top_k
     c_send = expert_capacity(t_loc * k, n_shards, 1, cfg.capacity_factor)
     c_local = expert_capacity(n_shards * c_send, e_loc, 1,
                               cfg.capacity_factor)
-    group = axis_group(mesh, model_axis)
 
     xf = x_loc.reshape(t_loc, d)
-    idx, weights, aux = route({"router": params["router"]}, xf, cfg)
+    router = shd.copy_in(params["router"], ms if split is not None else None)
+    idx, weights, aux = route({"router": router}, xf, cfg)
     flat_e = idx.reshape(-1)                                   # global ids
     flat_t = torch.arange(t_loc, device=x.device).repeat_interleave(k)
     flat_w = weights.reshape(-1)
@@ -292,8 +305,7 @@ def apply_sharded(params: Params, x: torch.Tensor, cfg, mesh=None):
                                 lkeep, e_loc * c_local, r)
     rx_pad = torch.cat([recv_x, recv_x.new_zeros((1, d))], dim=0)
     buf = rx_pad[slot_token].reshape(e_loc, c_local, d)
-    mine = slice(m * e_loc, (m + 1) * e_loc)
-    outb = _expert_ffn({w: params[w][mine] for w in
+    outb = _expert_ffn({w: shd.block(params[w], 0, e, ms) for w in
                         ("w_gate", "w_up", "w_down")},
                        buf).reshape(e_loc * c_local, d)
     back = outb[torch.where(lkeep, lslot, 0)] * lkeep[:, None].to(outb.dtype)
@@ -303,7 +315,13 @@ def apply_sharded(params: Params, x: torch.Tensor, cfg, mesh=None):
         (flat_w * keep.to(flat_w.dtype))[:, None]
     out = _combine(contrib.to(xf.dtype), t_loc, k).reshape(x_loc.shape)
     axes = tuple(dict.fromkeys(batch_axes + (model_axis,)))
-    aux = _MeanOver.apply(aux, axis_group(mesh, axes))
-    if split is not None and n_shards > 1:
-        out = _gather(out, split, group)
+    dp = 1
+    for a in data_axes:
+        dp *= sizes[a]
+    aux = _MeanOver.apply(
+        aux, axis_group(mesh, axes),
+        axis_group(mesh, data_axes) if data_axes else None,
+        dp * (n_shards if split is not None else 1))
+    if split in (0, 1):
+        out = shd.gather_dim(out, split, ms, reduce_grad=False)
     return out, aux

@@ -28,6 +28,8 @@ tuner picked when the server was built), handed to every attention layer.
 
 from __future__ import annotations
 
+import contextvars
+
 import torch
 from torch.utils.checkpoint import checkpoint
 
@@ -35,6 +37,7 @@ from repro_torch import resolve_device
 from repro_torch import tree as tree_lib
 from repro_torch.models import layers, moe, rwkv, ssm
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel import sharding as shd
 
 Params = dict
 # Every leaf name the forward reads in f32 or in its own dtype, never
@@ -86,40 +89,60 @@ def _keep_inactive(new: Params, old: Params, active) -> None:
             o.copy_(torch.where(m, n, o))
 
 
+def _norm(p: Params, x, cfg: ModelConfig):
+    """rmsnorm of the residual stream; over a sequence-split stream its
+    scale's gradient is summed over the split (`sharding.seq_weight`)."""
+    return layers.rmsnorm({"scale": shd.seq_weight(p["scale"])}, x,
+                          cfg.norm_eps)
+
+
 def _layer_apply(p: Params, x, cfg: ModelConfig, l: int, positions, cache,
-                 lengths, active, pages, paged, prefill, span):
+                 lengths, active, pages, paged, prefill, span, kv_split):
     """Pre-norm block ``l`` (its index within a hybrid group, 0 for the
     uniform families).  Returns ``(x, aux)``; ``cache`` (the layer's
-    leaves, or None) is updated in place."""
+    leaves, or None) is updated in place.  The RWKV and Mamba mixers run
+    replicated over the model axis, on the whole sequence
+    (`sharding.enter` and `leave` with no split)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    h = layers.rmsnorm(p["ln1"], x, cfg.norm_eps)
+    h = _norm(p["ln1"], x, cfg)
     if cfg.family == "ssm":
-        h, new_t = rwkv.rwkv_time_mix(p["mixer"], h, cfg, cache)
-        x = x + h
-        h2 = layers.rmsnorm(p["ln2"], x, cfg.norm_eps)
-        h2, new_c = rwkv.rwkv_channel_mix(p["mlp"], h2, cfg, cache)
+        h, new_t = rwkv.rwkv_time_mix(p["mixer"], shd.enter(h, None), cfg,
+                                      cache)
+        x = x + shd.leave(h, None)
+        h2 = _norm(p["ln2"], x, cfg)
+        h2, new_c = rwkv.rwkv_channel_mix(p["mlp"], shd.enter(h2, None),
+                                          cfg, cache)
         if cache is not None:
             _keep_inactive({**new_t, **new_c}, cache, active)
-        return x + h2, aux
+        return x + shd.leave(h2, None), aux
 
     if cfg.is_attn_layer(l):
         h, _ = layers.attention_apply(
             p["mixer"], h, cfg, positions, cache=cache, lengths=lengths,
             active=active, pages=pages, paged=paged, prefill=prefill,
-            block_k=span)
+            block_k=span, kv_split=kv_split)
     else:
-        h, new_mix = ssm.mamba_apply(p["mixer"], h, cfg, cache=cache)
+        h, new_mix = ssm.mamba_apply(p["mixer"], shd.enter(h, None), cfg,
+                                     cache=cache)
+        h = shd.leave(h, None)
         if cache is not None:
             _keep_inactive(new_mix, cache, active)
     x = x + h
-    h2 = layers.rmsnorm(p["ln2"], x, cfg.norm_eps)
+    h2 = _norm(p["ln2"], x, cfg)
     if cfg.is_moe_layer(l):
         h2, aux = moe.apply_sharded(p["mlp"], h2, cfg)
     elif cfg.family == "encoder":
-        h2 = layers.gelu_mlp_apply(p["mlp"], h2)
+        h2 = layers.gelu_mlp_apply(p["mlp"], h2, cfg.d_ff)
     else:
-        h2 = layers.swiglu_apply(p["mlp"], h2)
+        h2 = layers.swiglu_apply(p["mlp"], h2, cfg.d_ff)
     return x + h2, aux
+
+
+def _in_context(ctx: contextvars.Context, fn, *args):
+    """``fn(*args)`` inside ``ctx``: a checkpointed layer recomputes under
+    the rules, mesh and sequence split of its forward, whichever thread
+    runs the backward."""
+    return ctx.run(fn, *args)
 
 
 def _layer_cache_init(cfg: ModelConfig, l: int, batch: int, cache_len: int,
@@ -192,6 +215,43 @@ def param_specs(cfg: ModelConfig):
     return specs
 
 
+def compute_specs(cfg: ModelConfig, rules) -> Params:
+    """A tree of `init`'s structure: the mesh axes each leaf's layer
+    computes it split over (`sharding.compute_block`), the model-axis
+    half of `param_specs` as the forward splits it.  A dim splits where
+    the rules keep its logical axis for the activation it makes
+    (`sharding.kept` of ``heads`` at the query heads, ``ff`` at d_ff,
+    ``vocab``, ``experts``); ``kv_heads`` only with ``heads``; the RWKV
+    and Mamba mixers whole."""
+    sizes = {"heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
+             "ff": cfg.d_ff, "vocab": cfg.vocab_size,
+             "experts": cfg.num_experts}
+    heads = shd.kept(rules, "heads", cfg.num_heads)
+
+    def entry(ax):
+        if ax not in sizes or (ax == "kv_heads" and not heads):
+            return None
+        axes = shd.kept(rules, ax, sizes[ax])
+        return None if not axes else axes[0] if len(axes) == 1 else axes
+
+    def whole(tree):
+        return tree_lib.map_structure(lambda axes: (None,) * len(axes),
+                                      tree)
+
+    def layer(l):
+        p = _layer_specs(cfg, l)
+        if cfg.family == "ssm":
+            return whole(p)
+        if not cfg.is_attn_layer(l):
+            p["mixer"] = whole(p["mixer"])
+        return p
+
+    specs = param_specs(cfg)
+    specs["blocks"] = _uniform_or_grouped(cfg, layer)
+    return tree_lib.map_structure(
+        lambda axes: tuple(entry(a) for a in axes), specs)
+
+
 def _layer_cache_specs(cfg: ModelConfig, l: int, paged=None,
                        quantized: bool = False):
     if cfg.family == "ssm":
@@ -227,6 +287,37 @@ def cache_specs(cfg: ModelConfig, paged=None, kv_dtype=None):
     if paged is not None:
         specs["pages"] = ("batch", None)
     return specs
+
+
+def cache_block(cfg: ModelConfig, cache: Params, rules, mesh) -> Params:
+    """This rank's block of a contiguous cache laid out whole (the same on
+    every rank, or on ``meta``): each leaf cut by its `cache_specs`
+    fitted to its shape under ``rules`` (a copy), and ``"kv_split"`` set
+    where the attention rows split over ``kv_seq`` (`decode_rules`),
+    which the attention layers read.  The RWKV and Mamba states split
+    only by slot: their mixers run whole on every model rank."""
+    specs = cache_specs(cfg)
+
+    def cut(t, axes):
+        if "kv_seq" not in axes:
+            axes = tuple(a if a == "batch" else None for a in axes)
+        return shd.local_shard(t, shd.fitted(rules.spec(*axes),
+                                             tuple(t.shape), rules),
+                               mesh).clone()
+
+    out = {"blocks": tree_lib.map_structure(cut, cache["blocks"],
+                                            specs["blocks"]),
+           "index": cache["index"],
+           "lengths": cut(cache["lengths"], specs["lengths"])}
+    if "decode_span" in cache:
+        out["decode_span"] = cache["decode_span"]
+    for key, l, _ in _groups(cfg):
+        if cfg.family != "ssm" and cfg.is_attn_layer(l):
+            leaf = (cache["blocks"] if key is None
+                    else cache["blocks"][key])["k"]
+            out["kv_split"] = bool(shd.kept(rules, "kv_seq",
+                                            leaf.shape[2]))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -414,7 +505,8 @@ def _embed_inputs(cfg: ModelConfig, params: Params, inputs: dict
         parts.append(feats @ params["frontend"]["proj"].to(feats.dtype))
     if "tokens" in inputs:
         parts.append(layers.embedding_lookup(params["embed"],
-                                             inputs["tokens"]))
+                                             inputs["tokens"],
+                                             cfg.vocab_size))
     return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
 
 
@@ -448,10 +540,55 @@ def forward(cfg: ModelConfig, params: Params, inputs: dict,
     the flash kernel (`layers.attention_apply`'s ``prefill``).  ``paged``
     (a `runtime.paging.PageSpec`) marks the cache as paged; its
     ``cache["pages"]`` table is threaded to every attention layer, as is
-    a contiguous cache's ``"decode_span"``.
+    a contiguous cache's ``"decode_span"`` and ``"kv_split"``
+    (`cache_block`).
+
+    Over the model axis of the active rules and mesh the weights may be
+    this rank's blocks (`compute_specs`) or whole (cut here).  The
+    residual stream is whole on every rank, or split by sequence where
+    the rules map ``res_seq`` (`sharding.sequence_split`), gathered
+    again after the final norm; the frontends and the final norm see
+    the stream as it is.  Under a ``vocab`` split the logits are this
+    rank's block (`sharding.vocab_argmax`).
     """
     x = _embed_inputs(cfg, params, inputs).to(compute_dtype)
     b, s, _ = x.shape
+    seq = shd.split("res_seq", s)
+    x = shd.split_dim(x, 1, seq)
+    with shd.sequence_split(seq):
+        x, aux = _blocks(cfg, params, x, s, cache, active, paged,
+                         prefill=last_only and cache is None)
+        x = _norm(params["final_norm"], x, cfg)
+    x = shd.gather_dim(x, 1, seq, reduce_grad=False)
+    new_cache = None
+    if cache is not None:
+        act = None if active is None else active.to(torch.bool)
+        if act is None:
+            adv = s
+        elif act.ndim == 2:
+            adv = act.sum(dim=1, dtype=torch.int32)
+        else:
+            adv = s * act.to(torch.int32)
+        new_cache = {"blocks": cache["blocks"], "index": cache["index"] + s,
+                     "lengths": cache["lengths"] + adv}
+        for key in ("pages", "decode_span", "kv_split"):
+            if key in cache:
+                new_cache[key] = cache[key]
+    if return_hidden:
+        out = x
+    else:
+        head = params["embed"] if cfg.tie_embeddings else params["head"]
+        out = layers.unembed(head, x[:, -1:] if last_only else x,
+                             cfg.vocab_size)
+    if return_aux:
+        return out, new_cache, aux
+    return out, new_cache
+
+
+def _blocks(cfg: ModelConfig, params: Params, x, s: int, cache, active,
+            paged, prefill: bool):
+    """The layer stack over the residual stream ``x`` (``s`` positions):
+    ``(x, summed MoE aux)``."""
     ar = torch.arange(s, dtype=torch.int32, device=x.device)
     lengths = act = None
     pages = cache.get("pages") if (cache is not None and paged is not None) \
@@ -465,7 +602,7 @@ def forward(cfg: ModelConfig, params: Params, inputs: dict,
     else:
         positions = ar
 
-    prefill = last_only and cache is None
+    kv_split = bool(cache is not None and cache.get("kv_split"))
     remat = (cfg.remat == "full" and cache is None
              and torch.is_grad_enabled())
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -483,32 +620,11 @@ def forward(cfg: ModelConfig, params: Params, inputs: dict,
                         else cache["blocks"][key])
                 gc = tree_lib.map_structure(lambda a: a[g], cblk)
             args = (gp, x, cfg, l, positions, gc, lengths, act, pages,
-                    paged, prefill, span)
+                    paged, prefill, span, kv_split)
             if remat:
-                x, a = checkpoint(_layer_apply, *args, use_reentrant=False)
+                x, a = checkpoint(_in_context, contextvars.copy_context(),
+                                  _layer_apply, *args, use_reentrant=False)
             else:
                 x, a = _layer_apply(*args)
             aux = aux + a
-
-    x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    new_cache = None
-    if cache is not None:
-        if act is None:
-            adv = s
-        elif act.ndim == 2:
-            adv = act.sum(dim=1, dtype=torch.int32)
-        else:
-            adv = s * act.to(torch.int32)
-        new_cache = {"blocks": cache["blocks"], "index": cache["index"] + s,
-                     "lengths": lengths + adv}
-        for key in ("pages", "decode_span"):
-            if key in cache:
-                new_cache[key] = cache[key]
-    if return_hidden:
-        out = x
-    else:
-        head = params["embed"] if cfg.tie_embeddings else params["head"]
-        out = layers.unembed(head, x[:, -1:] if last_only else x)
-    if return_aux:
-        return out, new_cache, aux
-    return out, new_cache
+    return x, aux

@@ -9,9 +9,28 @@ of the same entries.  `placements` turns a spec into DTensor placements
 over a `DeviceMesh`, which are what a `NamedSharding` is.
 
 The port runs each rank's part of a step on local tensors with explicit
-collectives (`local_shard`, `gather_full`, the train step, MoE's
-`apply_sharded`), so `constrain` and `gather_weight` only act on
-DTensors and are the identity on a plain tensor.
+collectives, so `constrain` and `gather_weight` only act on DTensors and
+are the identity on a plain tensor.  Where the JAX model constrains an
+activation, the port's layers call the model axis's region operators
+instead, on the split that `split` reads from the active rules and mesh
+(a logical dim goes to its mesh axes only where `constrain` would keep
+the mapping, `fitted`'s rule):
+
+- `copy_in` (identity forward, all-reduce of the gradient backward) at
+  the entry of a region whose tensors are split, and on a replicated
+  weight such a region uses on its part of the work;
+- `reduce_out` (all-reduce forward, identity backward) at its exit;
+- `split_dim` (this rank's block forward, all-gather backward) and
+  `gather_dim` (all-gather forward; backward a reduce-scatter, or this
+  rank's block where the gathered tensor's gradient is already whole)
+  move the residual stream between whole and split by sequence
+  (``res_seq`` under `sequence_parallel`); `reduce_scatter_dim` leaves a
+  split region into a sequence-split stream.
+
+`enter` and `leave` pick among them at a region's edges.  So every tensor
+replicated over the model axis carries its whole gradient on every rank,
+and every split one its block's.  `compute_block` gives a rank the block
+of a stored weight that its layer computes with.
 """
 
 from __future__ import annotations
@@ -25,7 +44,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.launch.mesh import (axis_group, axis_index, axis_names,
-                                     axis_sizes)
+                                     axis_sizes, get_abstract_mesh)
 
 # Logical axes used by the model zoo:
 #   batch   - global batch            (data parallel)
@@ -37,6 +56,11 @@ from repro_torch.launch.mesh import (axis_group, axis_index, axis_names,
 #   experts - MoE experts             (expert parallel)
 #   vocab   - embedding/logits vocab  (tensor parallel)
 #   kv_seq  - cached sequence         (sequence parallel at decode)
+
+
+class NotInPort(NotImplementedError):
+    """A step the port does not form; its message names the ROADMAP
+    item that records it."""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -259,9 +283,11 @@ def full_tensor(x) -> torch.Tensor:
 
 def distribute(full: torch.Tensor, spec, mesh):
     """``full`` (the same on every rank) as a DTensor of ``spec``'s
-    placements, holding this rank's block; no collective."""
+    placements, holding a copy of this rank's block (so it does not keep
+    ``full``'s storage alive); no collective."""
     from torch.distributed.tensor import DTensor
-    return DTensor.from_local(local_shard(full, spec, mesh).contiguous(),
+    return DTensor.from_local(local_shard(full, spec, mesh).clone(
+        memory_format=torch.contiguous_format),
                               mesh, placements(spec, mesh), run_check=False,
                               shape=full.shape, stride=full.stride())
 
@@ -292,3 +318,281 @@ def constrain(x, *logical):
     if x.ndim != len(logical):
         raise ValueError(f"rank {x.ndim} vs logical axes {logical}")
     return _redistribute(x, fitted(rules.spec(*logical), x.shape, rules))
+
+
+
+# ---------------------------------------------------------------------------
+# The model axis: splits and the region operators
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Split:
+    """A dim split over mesh ``axes`` into ``n`` blocks, of which this
+    rank holds block ``index``; ``group`` holds the ranks of the split,
+    row-major over the axes (`launch.mesh.axis_group`)."""
+
+    axes: tuple
+    n: int
+    index: int
+    group: object
+
+
+def kept(rules: Rules | None, logical: str, size: int) -> tuple:
+    """The mesh axes ``logical`` takes for a dim of ``size`` under
+    ``rules``: its mapping where the axes' product is above 1 and divides
+    ``size`` (as `constrain` keeps it), else ()."""
+    if rules is None:
+        return ()
+    entry = rules.table.get(logical)
+    n = rules.axis_size(entry)
+    return _axes(entry) if n > 1 and size % n == 0 else ()
+
+
+def split(logical: str, size: int | None) -> Split | None:
+    """The split of a dim of ``size`` named ``logical`` under the active
+    rules and mesh (`launch.mesh.set_mesh`), or None where it stays
+    whole on every rank.  ``size`` None: a dim already laid out by its
+    fitted spec (a cache segment), taken as divisible.  Without rules, or
+    where they give ``logical`` one block, it returns before it looks at
+    the mesh."""
+    rules = _ACTIVE.get()
+    if rules is None:
+        return None
+    if size is None:
+        size = rules.axis_size(rules.table.get(logical))
+    axes = kept(rules, logical, size)
+    if not axes:
+        return None
+    mesh = get_abstract_mesh()
+    if mesh is None:
+        return None
+    return Split(axes, math.prod(axis_sizes(mesh)[a] for a in axes),
+                 axis_index(mesh, axes), axis_group(mesh, axes))
+
+
+def block(w: torch.Tensor, dim: int, full: int, s: Split | None
+          ) -> torch.Tensor:
+    """``w``'s block along ``dim`` under ``s``: cut from a whole ``w``
+    (``full`` long there), or ``w`` itself if it is the block already."""
+    if s is None or w.shape[dim] != full:
+        want = full if s is None else full // s.n
+        if w.shape[dim] != want:
+            raise ValueError(f"dim {dim} of {tuple(w.shape)} is neither "
+                             f"{full} nor its block of {want}")
+        return w
+    c = full // s.n
+    return w.narrow(dim, s.index * c, c)
+
+
+def _all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM):
+    y = x.clone()
+    dist.all_reduce(y, op=op, group=group)
+    return y
+
+
+def _all_gather(x: torch.Tensor, dim: int, s: Split) -> torch.Tensor:
+    pieces = [torch.empty_like(x) for _ in range(s.n)]
+    dist.all_gather(pieces, x.contiguous(), group=s.group)
+    return torch.cat(pieces, dim=dim)
+
+
+def _mine(x: torch.Tensor, dim: int, s: Split) -> torch.Tensor:
+    c = x.shape[dim] // s.n
+    return x.narrow(dim, s.index * c, c).contiguous()
+
+
+class _CopyIn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, s):
+        ctx.s = s
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.s.group), None
+
+
+class _ReduceOut(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, s):
+        return _all_reduce(x, s.group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _SplitDim(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, s):
+        ctx.dim, ctx.s = dim, s
+        return _mine(x, dim, s)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.dim, ctx.s), None, None
+
+
+class _GatherDim(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, s, reduce_grad):
+        ctx.dim, ctx.s, ctx.reduce = dim, s, reduce_grad
+        return _all_gather(x, dim, s)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.reduce:
+            g = _all_reduce(g, ctx.s.group)
+        return _mine(g, ctx.dim, ctx.s), None, None, None
+
+
+class _ReduceScatterDim(torch.autograd.Function):
+    """A reduce-scatter as an all-reduce and a cut (gloo has no
+    reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, s):
+        ctx.dim, ctx.s = dim, s
+        return _mine(_all_reduce(x, s.group), dim, s)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.dim, ctx.s), None, None
+
+
+def copy_in(x: torch.Tensor, s: Split | None) -> torch.Tensor:
+    """Identity forward; the gradient all-reduced over ``s`` backward."""
+    return x if s is None else _CopyIn.apply(x, s)
+
+
+def reduce_out(x: torch.Tensor, s: Split | None) -> torch.Tensor:
+    """All-reduce over ``s`` forward; the gradient as it is backward."""
+    return x if s is None else _ReduceOut.apply(x, s)
+
+
+def reduce_max(x: torch.Tensor, s: Split | None) -> torch.Tensor:
+    """The elementwise max over ``s`` (forward only)."""
+    return x if s is None else _all_reduce(x, s.group, dist.ReduceOp.MAX)
+
+
+def split_dim(x: torch.Tensor, dim: int, s: Split | None) -> torch.Tensor:
+    """This rank's block along ``dim`` forward; all-gather backward."""
+    return x if s is None else _SplitDim.apply(x, dim, s)
+
+
+def gather_dim(x: torch.Tensor, dim: int, s: Split | None,
+               reduce_grad: bool) -> torch.Tensor:
+    """All-gather along ``dim`` forward.  Backward: this rank's block of
+    the gradient, all-reduced first where ``reduce_grad`` (the gathered
+    tensor feeds a split region, so each rank holds part of its
+    gradient): a reduce-scatter."""
+    return x if s is None else _GatherDim.apply(x, dim, s, reduce_grad)
+
+
+def reduce_scatter_dim(x: torch.Tensor, dim: int, s: Split | None
+                       ) -> torch.Tensor:
+    """Sum over ``s`` and keep this rank's block along ``dim`` forward;
+    all-gather backward."""
+    return x if s is None else _ReduceScatterDim.apply(x, dim, s)
+
+
+_SEQ: contextvars.ContextVar[Split | None] = contextvars.ContextVar(
+    "sequence_split", default=None)
+
+
+@contextlib.contextmanager
+def sequence_split(s: Split | None):
+    """Mark the residual stream as split by sequence (dim 1) under ``s``
+    for the block."""
+    tok = _SEQ.set(s)
+    try:
+        yield
+    finally:
+        _SEQ.reset(tok)
+
+
+def seq_split() -> Split | None:
+    """The residual stream's sequence split, or None."""
+    return _SEQ.get()
+
+
+def enter(x: torch.Tensor, s: Split | None) -> torch.Tensor:
+    """The input of a region that computes split under ``s`` (or
+    replicated, for None) from the residual stream ``x``: the whole
+    sequence gathered where the stream is split, with a reduce-scatter
+    of the gradient if the region is split; else `copy_in`."""
+    seq = _SEQ.get()
+    if seq is not None:
+        return gather_dim(x, 1, seq, reduce_grad=s is not None)
+    return copy_in(x, s)
+
+
+def leave(y: torch.Tensor, s: Split | None) -> torch.Tensor:
+    """A region's output back into the residual stream: summed over
+    ``s`` (`reduce_out`), and cut to this rank's part of the sequence
+    where the stream is split."""
+    seq = _SEQ.get()
+    if seq is not None:
+        return (reduce_scatter_dim(y, 1, seq) if s is not None
+                else split_dim(y, 1, seq))
+    return reduce_out(y, s)
+
+
+def seq_weight(w: torch.Tensor) -> torch.Tensor:
+    """A replicated weight used on the sequence-split stream: its gradient
+    summed over the split (`copy_in`)."""
+    return copy_in(w, _SEQ.get())
+
+
+def vocab_argmax(logits: torch.Tensor, vocab: int) -> torch.Tensor:
+    """``argmax(-1)`` of logits whose last dim may be this rank's block
+    of ``vocab`` (`split`): each rank's first maximum, then the largest
+    over the ranks, ties to the lower rank, so to the lower id as
+    `torch.argmax` gives them."""
+    s = split("vocab", vocab)
+    if s is None or logits.shape[-1] == vocab:
+        return logits.argmax(dim=-1)
+    i = logits.argmax(dim=-1, keepdim=True)
+    v = torch.gather(logits, -1, i)
+    vals = _all_gather(v, -1, s)
+    ids = _all_gather(i + s.index * logits.shape[-1], -1, s)
+    return torch.gather(ids, -1, vals.argmax(dim=-1, keepdim=True))[..., 0]
+
+
+def compute_block(t, cspec, mesh) -> torch.Tensor:
+    """The block of a weight its layer computes with: split along the
+    mesh axes ``cspec`` names, whole along every other dim.  From a
+    DTensor, its stored block gathered over each axis ``cspec`` does not
+    name (FSDP's data axes, a model split its layer does not compute in),
+    then cut where the storage did not split; a plain tensor (the same on
+    every rank) is cut.  A plain tensor or a view of the stored block
+    where nothing moves."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(t, DTensor):
+        local, stored = t.to_local(), spec_of(t)
+    else:
+        local, stored = t, (None,) * t.ndim
+    want = list(cspec) + [None] * (t.ndim - len(cspec))
+    differ = [_axes(a) != _axes(b) for a, b in zip(stored, want)]
+    out = local
+    if any(differ[d] and stored[d] is not None for d in range(t.ndim)):
+        out = gather_full(local, tuple(stored[d] if differ[d] else None
+                                       for d in range(t.ndim)), mesh)
+    cut = tuple(want[d] if differ[d] else None for d in range(t.ndim))
+    return local_shard(out, cut, mesh) if any(cut) else out
+
+
+def block_of(x: torch.Tensor, cspec, target, mesh) -> torch.Tensor:
+    """``x``, laid out as `compute_block` lays out under ``cspec``, cut
+    to its block under the spec ``target`` (a view)."""
+    have = list(cspec) + [None] * (x.ndim - len(cspec))
+    cut = []
+    for d, (a, b) in enumerate(zip(have, list(target) + [None] * (
+            x.ndim - len(target)))):
+        if _axes(a) == _axes(b):
+            cut.append(None)
+        elif a is None:
+            cut.append(b)
+        else:
+            raise ValueError(f"dim {d}: computed over {a}, stored over {b}")
+    return local_shard(x, tuple(cut), mesh) if any(cut) else x

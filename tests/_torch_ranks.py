@@ -239,6 +239,169 @@ def job_train_cli(rank, world, args):
     return out
 
 
+def job_tp_train(rank, world, args):
+    """Per case of ``args["cases"]`` (``cfg``, whole ``params``, global
+    ``batch``, ``mesh`` (data, model), ``sp``, ``moments``, the AdamW
+    moment dtype): one train step over the
+    mesh under `specs.rules_for` (with `sharding.sequence_parallel` for
+    ``sp``) from a state placed by `specs.state_pspecs`, then the
+    prefill step's greedy tokens of this rank's rows, from the placed
+    weights' blocks (`steps.rank_params`).  Returns per case the loss,
+    total loss, gradient norm, the gradients (whole), the whole state
+    after, and the tokens with this rank's data index."""
+    from repro_torch.convert import disable_tf32
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import specs, steps
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import sharding as shd
+    disable_tf32()
+    out = {}
+    for case in args["cases"]:
+        cfg, batch = case["cfg"], case["batch"]
+        opt = adamw.AdamWConfig(peak_lr=1e-3, warmup_steps=1, total_steps=10,
+                                moment_dtype=case["moments"])
+        mesh = mesh_lib.make_host_mesh(*case["mesh"], device_type="cpu")
+        rules = specs.rules_for(mesh)
+        if case.get("sp"):
+            rules = shd.sequence_parallel(rules)
+        state, _ = _dp_state(cfg, opt, case["params"], mesh, rules)
+        prefill = steps.make_prefill_step(cfg, torch.float32, mesh=mesh,
+                                          rules=rules)
+        with mesh_lib.set_mesh(mesh), shd.use_rules(rules):
+            blocks = steps.rank_params(cfg, state["params"], mesh, rules)
+        d = mesh_lib.axis_index(mesh, "data")
+        rows = batch["tokens"].shape[0] // case["mesh"][0]
+        toks = prefill(blocks, {k: v[d * rows:(d + 1) * rows]
+                                for k, v in batch.items()})
+        step = steps.make_train_step(cfg, opt, compute_dtype=torch.float32,
+                                     mesh=mesh, rules=rules)
+        state, m, grads = step(state, batch, return_grads=True)
+        out[case["name"]] = {
+            "loss": float(m["loss"]), "total_loss": float(m["total_loss"]),
+            "grad_norm": m["grad_norm"].clone(), "grads": grads,
+            "state": _full(state), "tokens": toks, "data": d}
+    return out
+
+
+def job_tp_layers(rank, world, args):
+    """Each layer of ``args["cfg"]`` (attention, SwiGLU, embedding,
+    unembedding, fused loss) on a (1, world) mesh under the single-pod
+    rules: forward and the gradients of ``sum(y * cot)`` for a fixed
+    cotangent, on this rank's blocks (`transformer.compute_specs`), the
+    gradients gathered whole."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.convert import disable_tf32
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import specs
+    from repro_torch.models import layers, transformer
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel.loss import fused_cross_entropy
+    disable_tf32()
+    cfg, a = args["cfg"], args
+    mesh = mesh_lib.make_host_mesh(1, world, device_type="cpu")
+    rules = specs.rules_for(mesh)
+    cs = transformer.compute_specs(cfg, rules)
+    layer_cs = tree_lib.map_structure(lambda c: c[1:], cs["blocks"])
+    out = {}
+
+    def run(name, params, spec, fn, *inputs):
+        with mesh_lib.set_mesh(mesh), shd.use_rules(rules):
+            blk = tree_lib.map_structure(
+                lambda t, c: shd.compute_block(t, c, mesh).clone()
+                .requires_grad_(), params, spec)
+            xs = [x.clone().requires_grad_() if x.is_floating_point() else x
+                  for x in inputs]
+            y = fn(blk, *xs)
+            y.backward(a["cot"][name] if y.ndim else None)
+            grads = tree_lib.map_structure(
+                lambda t, c: shd.gather_full(t.grad, c, mesh), blk, spec)
+            out[name] = {"y": y.detach(), "grads": grads,
+                         "dx": [x.grad for x in xs if x.is_floating_point()]}
+
+    x, pos = a["x"], torch.arange(a["x"].shape[1])
+    run("attention", a["layer"]["mixer"], layer_cs["mixer"],
+        lambda p, x: layers.attention_apply(p, x, cfg, pos)[0], x)
+    run("mlp", a["layer"]["mlp"], layer_cs["mlp"],
+        lambda p, x: layers.swiglu_apply(p, x, cfg.d_ff), x)
+    run("embed", a["embed"], cs["embed"],
+        lambda p, t: layers.embedding_lookup(p, t, cfg.vocab_size),
+        a["tokens"])
+    cot = a["cot"]["unembed"]
+
+    def logits_dot(p, x):
+        y = layers.unembed(p, x, cfg.vocab_size)
+        s = shd.split("vocab", cfg.vocab_size)
+        return shd.reduce_out((y * shd.block(cot, 2, cfg.vocab_size, s))
+                              .sum(), s)
+
+    run("unembed", a["embed"], cs["embed"], logits_dot, x)
+    run("loss", a["embed"], cs["embed"], lambda p, x: fused_cross_entropy(
+        x, p["table"], a["labels"], chunk=a["chunk"],
+        vocab=cfg.vocab_size)[0], x)
+    return out
+
+
+def job_tp_decode(rank, world, args):
+    """Per case (``cfg``, whole ``params``, whole f32 ``cache`` with
+    its ``lengths``, first ``tokens``): ``args["steps"]`` greedy decode
+    steps on a (1, world) mesh under `decode_rules`, the cache split by
+    sequence (`transformer.cache_block`).  Returns the tokens."""
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.convert import disable_tf32
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import specs, steps
+    from repro_torch.models import transformer
+    disable_tf32()
+    mesh = mesh_lib.make_host_mesh(1, world, device_type="cpu")
+    out = {}
+    for case in args["cases"]:
+        cfg, cache = case["cfg"], case["cache"]
+        b = cache["lengths"].shape[0]
+        rules = specs.rules_for(mesh, ShapeSpec("d", "decode", 1, b))
+        mine = transformer.cache_block(cfg, cache, rules, mesh)
+        step = steps.make_serve_step(cfg, torch.float32, mesh=mesh,
+                                     rules=rules)
+        tok, seen = case["tokens"], []
+        for _ in range(args["steps"]):
+            tok, mine = step(case["params"], mine, tok)
+            seen.append(tok)
+        out[case["name"]] = {"tokens": torch.cat(seen, 1),
+                             "kv_split": mine["kv_split"]}
+    return out
+
+
+def job_tp_ring_bf16(rank, world, args):
+    """A sliding-window model's ring of bf16 K/V rows split by sequence
+    over a (1, world) mesh under `decode_rules`: for each entry of
+    ``args["x"]`` (new tokens a slot -> input), `layers.attention_apply`
+    with ``kv_split`` on this rank's segment of the whole ``args["cache"]``
+    at the slots' ``args["lengths"]``.  Returns each output and the
+    segment after the writes."""
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.convert import disable_tf32
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import specs
+    from repro_torch.models import layers
+    from repro_torch.parallel import sharding as shd
+    disable_tf32()
+    cfg, cache, lengths = args["cfg"], args["cache"], args["lengths"]
+    mesh = mesh_lib.make_host_mesh(1, world, device_type="cpu")
+    rules = specs.rules_for(mesh, ShapeSpec("d", "decode", 1,
+                                            lengths.shape[0]))
+    rows = cache["k"].shape[1] // world
+    out = {}
+    for s, x in args["x"].items():
+        seg = {n: c[:, rank * rows:(rank + 1) * rows].clone()
+               for n, c in cache.items()}
+        pos = lengths[:, None] + torch.arange(s, dtype=torch.int32)
+        with mesh_lib.set_mesh(mesh), shd.use_rules(rules):
+            y, seg = layers.attention_apply(args["params"], x, cfg, pos,
+                                            cache=seg, lengths=lengths,
+                                            kv_split=True)
+        out[s] = {"y": y, "cache": seg}
+    return out
+
+
 def _main(job, rank, world, d):
     import torch.distributed as dist
     torch.set_num_threads(1)

@@ -829,14 +829,14 @@ def test_prefill_counts_name_the_kernel_the_cpu_does_not_run(two_threads):
 
 
 def test_dryrun_cells_on_the_cpu(tmp_path):
-    """Two cells through the dry run's CLI: an ok one with its roofline
-    row, and the MoE train cell the port cannot form, skipped."""
+    """Two cells through the dry run's CLI, each ok with its roofline
+    row: a decode over a cache split by sequence, and the MoE train cell,
+    its experts trained over the model axis."""
     res = chip_smoke.dryrun_cells(
         cells=[("qwen3_14b", "decode_32k"), ("qwen3_moe_235b", "train_4k")],
         out=tmp_path / "dryrun", timeout=300)
     assert res["ok"], res
-    ok, skipped = res["cells"]
-    assert ok["status"] == "ok" and "roofline" in ok
-    assert skipped["reason"].startswith("not in the port:")
+    for cell in res["cells"]:
+        assert cell["status"] == "ok" and "roofline" in cell
     assert res["csv"][0].startswith("roofline.qwen3_14b.decode_32k.single,")
     assert "| qwen3_moe_235b | train_4k |" in res["table"]

@@ -403,15 +403,36 @@ def test_dryrun_cli_one_cell(tmp_path):
 
 @pytest.mark.parametrize("arch", ["phi3_5_moe_42b", "qwen3_moe_235b"])
 def test_moe_training_over_a_model_axis_is_skipped(no_group, arch):
-    rec = dryrun.run_cell(arch, "train_4k", "single")
-    assert rec["status"] == "skipped"
-    assert rec["reason"].startswith("not in the port:")
-    assert "ROADMAP A14" in rec["reason"]
+    """No longer skipped: the MoE train cell trains its experts over the
+    16-way model axis (the tokens' exchange an all-to-all) and comes out
+    ``ok`` with a roofline row."""
+    rec = dryrun.run_cell(arch, "train_4k", "single", probes=False)
+    assert rec["status"] == "ok", rec.get("reason")
+    assert "roofline" in rec and "reason" not in rec
+    assert rec["raw"]["collectives"]["all-to-all"] > 0
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill"])
+def test_rank_flops_on_a_data_2_model_4_mesh_are_an_eighth(no_group, kind):
+    """Phi-3-mini SMOKE splits every mapping over a model axis of 4 (4
+    query and KV heads, d_ff 128, vocab 128): rank 0's counted FLOPs on a
+    fake (2, 4) mesh are the one-rank count of the global batch over 8,
+    within 1 %."""
+    cfg = configs.get_smoke("phi3_mini_3_8b")
+    shape = ShapeSpec("t", kind, 64, 8)
+    flops = []
+    for mesh_shape in ((1, 1), (2, 4)):
+        mesh = make_mesh(mesh_shape, ("data", "model"), device_type="meta")
+        fn, args = dryrun._rank_step(cfg, shape, mesh,
+                                     specs.rules_for(mesh, shape))
+        flops.append(hlo_stats.cost_analysis_stats(
+            hlo_stats.count_step(fn, *args))[0])
+    assert flops[1] == pytest.approx(flops[0] / 8, rel=1e-2)
 
 
 def test_a_foreign_not_implemented_error_is_an_error(no_group, tmp_path,
                                                      monkeypatch):
-    """Only `steps.NotInPort` makes a cell ``skipped``: an operator
+    """Only `sharding.NotInPort` makes a cell ``skipped``: an operator
     without a meta kernel raises another `NotImplementedError`, and the
     cell comes out ``error``, the run's exit code 1."""
     def no_meta_kernel(*a, **kw):
