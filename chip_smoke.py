@@ -22,12 +22,18 @@ Phases, each printed as one JSON line:
    collectives' ms, recorded, not gated), its prefill through B5 at the
    rank's 16 query heads with the one-rank greedy token, 16 decode steps
    under `decode_rules` over a cache split by sequence (Danube's ring,
-   and Qwen3-14B at 2 layers through B1 with its softmax statistics)
-   with the one-rank decode's tokens, and Phi-3.5-MoE at 2 layers, one
-   train step with its experts over the model axis at a capacity where
-   neither side drops an item.  ``kernel_cases`` holds B1 with its
-   statistics on a rank's segment of the rows, and ``flash_cases`` B5 at
-   a rank's heads of Qwen3-14B's prefill.
+   and Qwen3-14B at 2 layers through B1 and, int8, B3 with their softmax
+   statistics) or a paged pool whole on each rank (B2, B4 at the rank's
+   query heads) with the one-rank decode's tokens, RWKV6-7B at 2 layers
+   (its time mix over its heads, its channel mix over d_ff: a train
+   step, a prefill and 16 decode steps), Mamba alone at
+   Jamba-1.5-Large's width (d_in over the ranks), and Phi-3.5-MoE at 2
+   layers, one train step with its experts over the model axis at a
+   capacity where neither side drops an item.  ``kernel_cases`` holds B1
+   and B3 with their statistics on a rank's segment of the rows, B2 and
+   B4 at a rank's 20 query heads on the strided view of its 4 KV heads
+   of a whole pool, and ``flash_cases`` B5 at a rank's heads of
+   Qwen3-14B's prefill.
 3. ``kernel_cases``: each CUDA decode-attention kernel against its plain
    PyTorch version on the card at Qwen3-14B decode shapes (Hq 40, Hkv 8,
    dh 128), up to its 32,768-key context at batch 1 and 4: contiguous
@@ -250,9 +256,9 @@ Phases, each printed as one JSON line:
    their serve runs; B5: the ``prefill`` phase; B6: ``table1``; B7, B8:
    ``table2``) and each kernel's launches by phase (the chaos,
    crash-resume, ``serving_load`` and other families' phases among them;
-   B6-B8's in the two design-flow phases), error and times; B1's and
-   B5's entries also carry ``per_rank``, their case at one rank's shape
-   on a model axis of 2, and their ``tensor_parallel`` launches.
+   B6-B8's in the two design-flow phases), error and times; B1-B5's
+   entries also carry ``per_rank``, their case at one rank's shape on a
+   model axis of 2, and their ``tensor_parallel`` launches.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed phase
 exits non-zero without it; so does a host without a CUDA card.
@@ -393,6 +399,9 @@ TOP_KERNELS = 12
 # flash_cases: (name, batch, Sq, Sk, Hq, Hkv, dh, causal, window, dtype)
 TP_FLASH_CASE = "qwen3_prefill_8k_heads_of_2"
 TP_STATS_CASE = "serve_shape_segment_of_2"
+TP_INT8_STATS_CASE = "int8_segment_of_2"
+TP_PAGED_CASE = "paged_heads_of_2"
+TP_PAGED_INT8_CASE = "paged_int8_heads_of_2"
 FLASH_CASES = [
     ("qwen3_prefill_32k", 1, 32768, 32768, 40, 8, 128, True, None, "bf16"),
     ("qwen3_prefill_4k", 1, 4096, 4096, 40, 8, 128, True, None, "bf16"),
@@ -558,38 +567,51 @@ def kernel_case(torch, decode, flush, *, name, lengths, q_dtype, kv_dtype,
             **split_plan(decode, lengths, cache_len, hkv)}
 
 
-def stats_case(torch, decode, flush, *, name, lengths, q_dtype, kv_dtype,
+def stats_case(torch, mods, flush, *, name, lengths, q_dtype, kv_dtype,
                cache_len):
-    """B1 with its softmax statistics (``return_stats``) at Qwen3-14B's
-    decode heads on one rank's segment of a cache split by sequence over
-    2 ranks: rows [cache_len, 2 * cache_len) of the slots' ``lengths``,
-    each clamped to the segment, as `models.layers` calls it.  The output
-    against `decode_ref`'s (`row_errors`), m and l against its statistics
-    (m within 1e-4 of max(1, |m|), l within 1e-4 of l; m = -1e30 and l = 0
-    exactly for a slot with no key there), and the call's time beside the
-    call without statistics."""
+    """B1 (B3 for an int8 ``kv_dtype``) with its softmax statistics
+    (``return_stats``) at Qwen3-14B's decode heads on one rank's segment
+    of a cache split by sequence over 2 ranks: rows [cache_len, 2 * cache_len) of the slots'
+    ``lengths``, each clamped to the segment, as `models.layers` calls it.
+    The output against the plain version's (`row_errors`: 1e-4 in f32)
+    and bitwise the call's without statistics, m and l against the plain
+    version's statistics (m within 1e-4 of max(1, |m|), l within 1e-4 of
+    l; m = -1e30 and l = 0 exactly for a slot with no key there), and the
+    call's time beside the call without statistics."""
+    decode, decode_int8, quantize, _ = mods
     dev = torch.device("cuda")
     hq, hkv, dh = 40, 8, 128
+    int8 = kv_dtype == torch.int8
     gen = torch.Generator(device=dev).manual_seed(0)
     seg = [min(max(n - cache_len, 0), cache_len) for n in lengths]
     b = len(seg)
     # q holds values of the cache's type, as the layers' f32 copy of a
     # query in that type does (the kernel meets the keys in it)
-    q = torch.randn((b, hq, dh), generator=gen, device=dev).to(
-        kv_dtype).to(q_dtype)
-    k = torch.randn((b, cache_len, hkv, dh), generator=gen,
-                    device=dev).to(kv_dtype)
-    v = torch.randn((b, cache_len, hkv, dh), generator=gen,
-                    device=dev).to(kv_dtype)
+    q = torch.randn((b, hq, dh), generator=gen, device=dev)
+    q = (q if int8 else q.to(kv_dtype)).to(q_dtype)
+    k = torch.randn((b, cache_len, hkv, dh), generator=gen, device=dev)
+    v = torch.randn((b, cache_len, hkv, dh), generator=gen, device=dev)
+    if int8:
+        cache = (*quantize.quantize_rows(k), *quantize.quantize_rows(v))
+        fn = decode_int8.quantized_gqa_decode_attention
+        ref_fn = decode_int8.quantized_decode_ref
+    else:
+        cache = (k.to(kv_dtype), v.to(kv_dtype))
+        fn, ref_fn = decode.gqa_decode_attention, decode.decode_ref
+    del k, v
     lv = torch.tensor(seg, dtype=torch.int32, device=dev)
     scale = dh ** -0.5
 
     def kernel():
-        return decode.gqa_decode_attention(q, k, v, length=lv, scale=scale,
-                                           return_stats=True)
+        return fn(q, *cache, length=lv, scale=scale, return_stats=True)
+
+    def no_stats():
+        return fn(q, *cache, length=lv, scale=scale)
+
     out, m, l = kernel()
-    ref, rm, rl = decode.decode_ref(q, k, v, length=lv, scale=scale,
-                                    return_stats=True)
+    ref, rm, rl = ref_fn(q, *cache, length=lv, scale=scale,
+                         return_stats=True)
+    same = bool(torch.equal(out, no_stats()))
     torch.cuda.synchronize()
     err, err_over_tol = row_errors(torch, out, ref, q_dtype == torch.float32)
     m_err = float(((m - rm).abs() / rm.abs().clamp_min(1.0)).max())
@@ -598,30 +620,34 @@ def stats_case(torch, decode, flush, *, name, lengths, q_dtype, kv_dtype,
     empty_ok = all(bool((m[i] == decode.NEG_INF).all())
                    and not bool(l[i].any()) for i in empty)
     ms = median_ms(torch, kernel, 21, flush)
-    plain_ms = median_ms(torch, lambda: decode.decode_ref(
-        q, k, v, length=lv, scale=scale, return_stats=True), 5, flush)
-    no_stats_ms = median_ms(torch, lambda: decode.gqa_decode_attention(
-        q, k, v, length=lv, scale=scale), 21, flush)
+    plain_ms = median_ms(torch, lambda: ref_fn(
+        q, *cache, length=lv, scale=scale, return_stats=True), 5, flush)
+    no_stats_ms = median_ms(torch, no_stats, 21, flush)
     valid = sum(seg)
-    nbytes = (2 * valid * hkv * dh * k.element_size()
-              + q.numel() * q.element_size()
+    row_bytes = sum(c[0, 0].numel() * c.element_size() for c in cache)
+    nbytes = (valid * row_bytes + q.numel() * q.element_size()
               + out.numel() * out.element_size() + lv.numel() * 4
               + 2 * b * hq * 4)
     ops = 4 * valid * hq * dh
     kv_name = str(kv_dtype).removeprefix("torch.")
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S[kv_name] * 1e3
-    return {"name": name, "kernel": "decode_attention", "stats": True,
+    # int8 codes are dequantized and multiplied in f32
+    t_ops = ops / PEAK_OPS_PER_S["float32" if int8 else kv_name] * 1e3
+    return {"name": name, "kernel": ("quantized_decode_attention" if int8
+                                     else "decode_attention"),
+            "stats": True,
             "batch": b, "cache_len": cache_len, "lengths": seg,
             "q_dtype": str(q_dtype).removeprefix("torch."),
             "kv_dtype": kv_name, "max_abs_err": err,
             "max_err_over_tol": err_over_tol, "m_rel_err": m_err,
             "l_rel_err": l_err, "empty_rows_ok": empty_ok,
+            "equal_without_stats": same,
             "tolerance": ("out as row_errors; m 1e-4 of max(1, |m|); "
-                          "l 1e-4 relative"),
+                          "l 1e-4 relative; out bitwise without stats"),
             "ok": (err_over_tol <= 1 and m_err <= 1e-4 and l_err <= 1e-4
-                   and empty_ok),
-            "ms": ms, "no_stats_ms": no_stats_ms, "plain_ms": plain_ms,
+                   and empty_ok and same),
+            "ms": ms, "no_stats_ms": no_stats_ms,
+            "stats_over_no_stats": ms / no_stats_ms, "plain_ms": plain_ms,
             "library_ms": None, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": nbytes, "operations": ops}
@@ -651,15 +677,23 @@ def shuffled_pool(torch, lengths, rows, page_size, hkv, dh, seed):
 
 def new_kernel_case(torch, mods, flush, *, kernel, name, lengths, q_dtype,
                     kv_dtype, rows, page_size=None, hq=40, hkv=8, dh=128,
-                    seed=0):
+                    seed=0, kv_heads=None):
     """One shape of the paged, int8 or paged int8 kernel: its error against
     its plain version, times and bound.  The paged kernel's output must
-    also be bitwise that of the contiguous kernel over the same rows."""
+    also be bitwise that of the contiguous kernel over the same rows.
+    ``kv_heads`` (first, count): the kernel reads the strided view of
+    those of the cache's ``hkv`` heads (``narrow`` on the head axis, as
+    a rank's query heads read a pool that `decode_rules` keeps whole),
+    ``hq`` the query heads that read them; the plain version reads the
+    same view."""
     decode, decode_int8, quantize, _ = mods
     dev = torch.device("cuda")
     b = len(lengths)
+    # q holds values of a float cache's type: the kernels meet the keys
+    # in it (the int8 kernels keep q in f32)
     q = torch.randn((b, hq, dh), generator=torch.Generator(
-        device=dev).manual_seed(seed + 1), device=dev).to(q_dtype)
+        device=dev).manual_seed(seed + 1), device=dev)
+    q = (q if kv_dtype == torch.int8 else q.to(kv_dtype)).to(q_dtype)
     lv = torch.tensor(lengths, dtype=torch.int32, device=dev)
     scale = dh ** -0.5
     paged = page_size is not None
@@ -677,6 +711,9 @@ def new_kernel_case(torch, mods, flush, *, kernel, name, lengths, q_dtype,
     else:
         cache = (k.to(kv_dtype), v.to(kv_dtype))
     del k, v
+    if kv_heads is not None:
+        cache = tuple(c.narrow(2, *kv_heads) for c in cache)
+        hkv = kv_heads[1]
     args = cache + ((pages,) if paged else ())
     fn, ref_fn = {
         "paged_decode_attention": (decode.paged_gqa_decode_attention,
@@ -720,9 +757,12 @@ def new_kernel_case(torch, mods, flush, *, kernel, name, lengths, q_dtype,
     peak = PEAK_OPS_PER_S["float32" if kv_dtype == torch.int8 else kv_name]
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / peak * 1e3
-    ok = err_over_tol <= 1 and zeros_ok and bitwise is not False
+    ok = (err_over_tol <= 1 and zeros_ok and bitwise is not False
+          and (kv_heads is None or not cache[0].is_contiguous()))
     return {"kernel": kernel, "name": name, "batch": b, "rows": rows,
             "page_size": page_size, "lengths": list(lengths),
+            "query_heads": hq, "kv_heads": kv_heads,
+            "strided_view": not cache[0].is_contiguous(),
             "q_dtype": str(q_dtype).removeprefix("torch."),
             "kv_dtype": kv_name, "max_abs_err": err,
             "tolerance": ("1e-4" if q_dtype == torch.float32
@@ -742,7 +782,8 @@ def new_kernel_cases(torch, mods, flush):
     lengths and 4096 rows: B2 with bf16 q and an f32 or bf16 pool, B3 and
     B4 with bf16 and f32 q, the paged ones at page sizes 16 and 48.  At
     32,768 keys, batch 1 and 4: B2 at page 16 with an f32 or bf16 pool, B3
-    and B4 (page 16) with bf16 q."""
+    and B4 (page 16) with bf16 q.  B2 (bf16 pool) and B4 at one rank's
+    heads of the serve shape (``TP_PAGED_CASE``, ``TP_PAGED_INT8_CASE``)."""
     bf16, f32, i8 = torch.bfloat16, torch.float32, torch.int8
     shapes = [("serve_shape", SERVE_LENGTHS, SERVE_LEN),
               ("b1_l4096", [4096], 4096), ("b8_l4096", MIXED, 4096)]
@@ -779,6 +820,16 @@ def new_kernel_cases(torch, mods, flush):
                 page_size=page_size))
         gc.collect()
         torch.cuda.empty_cache()
+    # B2 and B4 at one rank's heads of a pool `decode_rules` keeps whole
+    # on a model axis of 2: rank 1's 20 query heads on the strided view of
+    # KV heads 4-7 of 8, f32 q as the split f32 decode passes it
+    for name, kernel, kv_dtype in (
+            (TP_PAGED_CASE, "paged_decode_attention", bf16),
+            (TP_PAGED_INT8_CASE, "paged_quantized_decode_attention", i8)):
+        cases.append(new_kernel_case(
+            torch, mods, flush, kernel=kernel, name=name,
+            lengths=SERVE_LENGTHS, q_dtype=f32, kv_dtype=kv_dtype,
+            rows=SERVE_LEN, page_size=TP_PAGE, hq=20, kv_heads=(4, 4)))
     return cases
 
 
@@ -3128,6 +3179,26 @@ TP_DECODE_STEPS = 16
 TP_MOE_CAPACITY = 4.0
 TP_TIMEOUT = 600                     # seconds for both ranks
 TP_REL = 1e-5                        # f32: of the largest |value|
+TP_PAGE = 16                         # tokens a page of the paged pools
+# Mamba alone at Jamba-1.5-Large's width: batch x sequence of its forward
+TP_MAMBA = (2, 256)
+# Mamba's gradients through the scan pass through the bf16 rounding of B
+# and C (the reference's scan streams, ROADMAP queue C): the split sums
+# B's and C's gradients over d_in in another f32 order, and a sum near a
+# rounding boundary rounds one bf16 ulp apart.  At Jamba-1.5-Large's
+# width on an H100 (700 W) the split reads 3.7e-5 and 5.8e-5 of the
+# largest gradient on its two ranks (x's 1.2e-5; x_proj's 1.6e-4 and
+# 1.8e-4 of its own largest), and a split that rounds each rank's part of
+# those gradients before the ranks' sum 7.6e-4 and 6.1e-4 (x's 1.5e-4;
+# x_proj's 3.3e-3 and 2.8e-3): the limits lie between.  At SMOKE width
+# that fault shows only on x_proj (4.9e-3 and 1.2e-3 of its own largest
+# against 2.7e-5 and 9.4e-6 on the CPU), hence the limit on each leaf
+# (`test_mamba_parallel_fails_gradients_rounded_on_each_rank`).  out_proj's and D's
+# gradients do not pass through the scan: TP_REL of their own largest.
+TP_MAMBA_GRAD = 2.5e-4               # every gradient, of the largest of all
+TP_MAMBA_DX = 4e-5                   # x's gradient, of its largest
+TP_MAMBA_LEAF = 5e-4                 # each gradient, of its own largest
+MAMBA_OUTSIDE_SCAN = ("out_proj", "D")
 
 
 def _rel_err(torch, got, want) -> float:
@@ -3238,6 +3309,304 @@ def _tp_state(torch, cfg, opt, mesh, rules, params) -> dict:
                                                 pspecs["opt"]["v"])}}
 
 
+def tp_decode_run(torch, mods, cfg, params, mesh, dev, kv_dtype=None,
+                  paged=False) -> dict:
+    """``TP_DECODE_STEPS`` greedy decode steps of ``cfg`` under
+    `decode_rules` on ``mesh`` from this rank's block of a random cache
+    (`transformer.cache_block`) against the one-rank decode of the whole
+    cache, tokens equal.  ``kv_dtype`` (f32 by default) is the attention
+    cache's type; ``paged`` makes it a pool of ``TP_PAGE``-token pages
+    through a shuffled page table.  Records whether the rows split, the
+    decode kernels' launches in the split run (``mods``: the `decode` and
+    `decode_int8` modules) and, for the paged kernels, whether every call
+    read a view of the cache's own pool and a strided one (no copy)."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch import specs, steps
+    from repro_torch.models import transformer
+    from repro_torch.runtime.paging import PageSpec
+    decode, decode_int8 = mods
+    f32 = torch.float32
+    kv_dtype = kv_dtype or f32
+    counters = {"decode_attention": (decode, "launches"),
+                "paged_decode_attention": (decode, "paged_launches"),
+                "quantized_decode_attention": (decode_int8, "launches"),
+                "paged_quantized_decode_attention": (decode_int8,
+                                                     "paged_launches")}
+
+    def launched():
+        return {k: getattr(m, a) for k, (m, a) in counters.items()}
+
+    lengths = TP_DECODE_LENGTHS
+    nb = len(lengths)
+    spec = (PageSpec(TP_PAGE, nb * TP_DECODE_ROWS // TP_PAGE,
+                     TP_DECODE_ROWS // TP_PAGE) if paged else None)
+    cache = transformer.cache_init(cfg, nb, TP_DECODE_ROWS, dtype=kv_dtype,
+                                   device=dev, paged=spec)
+    g = torch.Generator(device=dev).manual_seed(3)
+    for leaf in tree_lib.leaves(cache["blocks"]):
+        leaf.copy_(torch.randint(-127, 128, leaf.shape, generator=g,
+                                 device=dev)
+                   if leaf.dtype == torch.int8 else
+                   torch.randn(leaf.shape, generator=g, device=dev))
+    if paged:
+        cache["pages"].copy_(torch.randperm(
+            spec.num_pages, generator=torch.Generator().manual_seed(3))
+            .reshape(nb, -1))
+    cache["lengths"] = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    tok0 = torch.randint(0, cfg.vocab_size, (nb, 1), generator=g,
+                         device=dev, dtype=torch.int32)
+    drules = specs.rules_for(mesh, ShapeSpec("d", "decode", TP_DECODE_ROWS,
+                                             nb))
+    mine = transformer.cache_block(cfg, cache, drules, mesh)
+    one = steps.make_serve_step(cfg, f32, paged=spec)
+    split = steps.make_serve_step(cfg, f32, paged=spec, mesh=mesh,
+                                  rules=drules)
+    pools = {leaf.untyped_storage().data_ptr()
+             for leaf in tree_lib.leaves(mine["blocks"])}
+    views = []                         # (a view of the pool, strided)
+    wrapped = ((decode, "paged_gqa_decode_attention"),
+               (decode_int8, "paged_quantized_gqa_decode_attention"))
+    real = [getattr(m, n) for m, n in wrapped]
+
+    def seen_pool(fn):
+        def run(q, k_pool, *rest, **kw):
+            views.append((k_pool.untyped_storage().data_ptr() in pools,
+                          not k_pool.is_contiguous()))
+            return fn(q, k_pool, *rest, **kw)
+        return run
+
+    seen = {"one": [], "split": []}
+    n0 = launched()
+    for (m, n), fn in zip(wrapped, real):
+        setattr(m, n, seen_pool(fn))
+    try:
+        tok = tok0
+        for _ in range(TP_DECODE_STEPS):
+            tok, mine = split(params, mine, tok)
+            seen["split"].append(tok)
+    finally:
+        for (m, n), fn in zip(wrapped, real):
+            setattr(m, n, fn)
+    n1 = launched()
+    tok = tok0
+    for _ in range(TP_DECODE_STEPS):
+        tok, cache = one(params, cache, tok)
+        seen["one"].append(tok)
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    split(params, mine, tok0)
+    _sync(torch, dev)
+    a, c_ = (torch.cat(seen[k], 1) for k in ("split", "one"))
+    return {"arch": cfg.name, "slots": nb, "rows": TP_DECODE_ROWS,
+            "kv_dtype": str(kv_dtype).removeprefix("torch."),
+            "paged": paged, "kv_split": bool(mine.get("kv_split")),
+            "segment_rows": (int(mine["blocks"]["k"].shape[2])
+                             if mine.get("kv_split") else None),
+            "steps": TP_DECODE_STEPS, "equal": bool(torch.equal(a, c_)),
+            "launches": {k: n1[k] - n0[k] for k in n0 if n1[k] - n0[k]},
+            "pool_views": {"calls": len(views),
+                           "of_the_pool": all(v[0] for v in views),
+                           "strided": all(v[1] for v in views)},
+            "step_ms": round((time.perf_counter() - t0) * 1e3, 3)}
+
+
+def tp_decode_layouts(torch, mods, cfg, params, mesh, dev, peak, free
+                      ) -> dict:
+    """`tp_decode_run` of ``cfg`` (Qwen3-14B) in each cache layout under
+    `decode_rules`: its contiguous f32 cache split by sequence (B1 with
+    its statistics), its int8 cache so split (B3 with them), its paged
+    bf16 and int8 pools whole (B2 and B4 at the rank's query heads, on
+    the strided view of the KV heads they read).  Each part records its
+    kernel's launches and launches no other; ``peak`` records each part's
+    peak."""
+    out = {}
+    for part, kernel, kv_dtype, paged in (
+            ("qwen3_decode", "decode_attention", torch.float32, False),
+            ("qwen3_decode_int8", "quantized_decode_attention",
+             torch.int8, False),
+            ("qwen3_decode_paged_bf16", "paged_decode_attention",
+             torch.bfloat16, True),
+            ("qwen3_decode_paged_int8", "paged_quantized_decode_attention",
+             torch.int8, True)):
+        res = tp_decode_run(torch, mods, cfg, params, mesh, dev, kv_dtype,
+                            paged)
+        res["kernel"] = kernel
+        res["decode_launches"] = res["launches"].get(kernel, 0)
+        res["ok"] = (res["equal"] and res["kv_split"] != paged
+                     and set(res["launches"]) <= {kernel})
+        if paged:
+            res["ok"] = res["ok"] and res["pool_views"] == {
+                "calls": cfg.num_layers * TP_DECODE_STEPS,
+                "of_the_pool": True, "strided": True}
+        out[part] = peak(res)
+        free()
+    return out
+
+
+def tp_rwkv(torch, mods, cfg, opt, mesh, rules, dev, peak, free,
+            shape=TP_TRAIN, prefill=TP_PREFILL) -> dict:
+    """RWKV6 (at full width: its time mix over its 64 heads, 32 a rank,
+    its channel mix over d_ff): one f32 train step of ``shape`` on
+    ``mesh`` against the one-rank step from the same state and batch
+    (loss, every gradient whole on each rank and their norm within
+    ``TP_REL`` of the largest |value|), a ``prefill``-token prefill's
+    greedy token and `tp_decode_run` (its ``wkv`` state over the heads)
+    against one rank's; ``peak`` records each part's peak."""
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import build_state
+    f32 = torch.float32
+    b, s = shape
+    out = {}
+    batch = _train_batch(torch, cfg, b, s, 0, dev)
+    plain = build_state(cfg, opt, 0, dev)
+    plain, m0, g0 = steps.make_train_step(cfg, opt, compute_dtype=f32)(
+        plain, batch, return_grads=True)
+    del plain
+    free()
+    state = build_state(cfg, opt, 0, dev, mesh, rules)
+    step = steps.make_train_step(cfg, opt, compute_dtype=f32, mesh=mesh,
+                                 rules=rules)
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    state, m1, g1 = step(state, batch, return_grads=True)
+    _sync(torch, dev)
+    res = {"arch": cfg.name, "layers": cfg.num_layers, "batch": b,
+           "seq": s, "loss": float(m1["loss"]),
+           "loss_rel_err": abs(float(m1["loss"]) - float(m0["loss"]))
+           / abs(float(m0["loss"])),
+           "grad_rel_err": _rel_err(torch, g1, g0),
+           "grad_norm_rel_err": abs(float(m1["grad_norm"])
+                                    - float(m0["grad_norm"]))
+           / float(m0["grad_norm"]),
+           "grads_compared": "every leaf whole on each rank",
+           "first_step_ms": round((time.perf_counter() - t0) * 1e3, 3)}
+    res["ok"] = (res["loss_rel_err"] <= TP_REL
+                 and res["grad_rel_err"] <= TP_REL
+                 and res["grad_norm_rel_err"] <= TP_REL)
+    out["rwkv_train"] = peak(res)
+    del state, g0, g1
+    free()
+    params = build_state(cfg, opt, 0, dev)["params"]
+    tokens = torch.randint(0, cfg.vocab_size, (1, prefill),
+                           generator=torch.Generator(device=dev)
+                           .manual_seed(7), device=dev)
+    want = steps.make_prefill_step(cfg, f32)(params, {"tokens": tokens})
+    got = steps.make_prefill_step(cfg, f32, mesh=mesh, rules=rules)(
+        params, {"tokens": tokens})
+    out["rwkv_prefill"] = peak({"tokens": prefill,
+                                "equal": bool(torch.equal(got, want)),
+                                "ok": bool(torch.equal(got, want))})
+    res = tp_decode_run(torch, mods, cfg, params, mesh, dev)
+    res["ok"] = res["equal"] and not res["kv_split"] and not res["launches"]
+    out["rwkv_decode"] = peak(res)
+    del params
+    free()
+    return out
+
+
+def mamba_parallel(torch, configs, mesh, rules, dev, cfg=None) -> dict:
+    """`ssm.mamba_apply` alone at Jamba-1.5-Large's width (d_model 8,192,
+    d_in 16,384, state 16, conv 4, dt_rank 512; the whole model does not
+    fit one card; ``cfg`` another config), f32, on ``TP_MAMBA`` tokens:
+    forward and the gradients
+    of ``sum(y * cot)`` on this rank's blocks (`transformer.compute_specs`:
+    ``d_in`` over the model axis, ``in_proj`` its columns of each half)
+    against one rank's, each rank's block of every gradient, then 16
+    decode steps from this rank's block of a random state against one
+    rank's steps: outputs and this rank's block of the final state.  The
+    outputs and states within ``TP_REL`` of their largest |value|; the
+    gradients within ``TP_MAMBA_GRAD`` of the largest of all, each within
+    ``TP_MAMBA_LEAF`` of its own largest (``MAMBA_OUTSIDE_SCAN``'s within
+    ``TP_REL``), and the input's within ``TP_MAMBA_DX`` of its largest
+    (B's and C's bf16 rounding)."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.launch.mesh import set_mesh
+    from repro_torch.models import ssm, transformer
+    from repro_torch.parallel import sharding as shd
+    cfg = cfg or configs.get("jamba_1_5_large_398b")
+    key = next(str(l) for l in range(cfg.attn_period)
+               if not cfg.is_attn_layer(l))
+    cspec = tree_lib.map_structure(
+        lambda c: c[1:],
+        transformer.compute_specs(cfg, rules)["blocks"][key]["mixer"])
+    gen = torch.Generator(device=dev).manual_seed(5)
+    params = ssm.mamba_init(gen, cfg, torch.float32)
+    b, s = TP_MAMBA
+    x = torch.randn((b, s, cfg.d_model), generator=gen, device=dev)
+    cot = torch.randn((b, s, cfg.d_model), generator=gen, device=dev)
+    state = ssm.mamba_cache_init(cfg, b, torch.float32, dev)
+    for leaf in state.values():
+        leaf.copy_(torch.randn(leaf.shape, generator=gen, device=dev))
+    xs = torch.randn((TP_DECODE_STEPS, b, 1, cfg.d_model), generator=gen,
+                     device=dev)
+    st_spec = {k: shd.fitted(rules.spec(*v[1:]), tuple(state[k].shape),
+                             rules)
+               for k, v in transformer.cache_specs(cfg)["blocks"][
+                   key].items()}
+
+    def run(p, x, split):
+        p = tree_lib.map_structure(lambda t: t.requires_grad_(), p)
+        x = x.clone().requires_grad_()
+        y = shd.leave(ssm.mamba_apply(p, shd.enter(x, split), cfg)[0],
+                      split)
+        y.backward(cot)
+        return y.detach(), tree_lib.map_structure(lambda t: t.grad, p), \
+            x.grad
+
+    def decode(p, st, split):
+        ys = []
+        with torch.no_grad():
+            for t in range(TP_DECODE_STEPS):
+                y, st = ssm.mamba_apply(p, shd.enter(xs[t], split), cfg, st)
+                ys.append(shd.leave(y, split))
+        return torch.cat(ys, 1), st
+
+    t0 = time.time()
+    with set_mesh(mesh), shd.use_rules(rules):
+        split = ssm.mamba_split(cfg)
+        blocks = tree_lib.map_structure(
+            lambda t, c: shd.compute_block(t, c, mesh).clone(), params,
+            cspec)
+        y1, g1, dx1 = run(blocks, x, split)
+        d1, s1 = decode(blocks, {k: shd.local_shard(v, st_spec[k], mesh)
+                                 .clone() for k, v in state.items()}, split)
+    del blocks
+    y0, g0, dx0 = run(params, x, None)
+    mine0 = tree_lib.map_structure(
+        lambda t, c: shd.compute_block(t, c, mesh), g0, cspec)
+    d0, s0 = decode(params, state, None)
+    s0 = {k: shd.local_shard(v, st_spec[k], mesh) for k, v in s0.items()}
+    res = {"d_model": cfg.d_model, "d_in": ssm.d_inner(cfg),
+           "rank_d_in": int(s1["h"].shape[1]), "batch": b, "seq": s,
+           "split": None if split is None else split.n,
+           "y_rel_err": _rel_err(torch, y1, y0),
+           "dx_rel_err": _rel_err(torch, dx1, dx0),
+           "grad_rel_err": _rel_err(torch, g1, mine0),
+           "grad_rel_err_by_leaf": {k: _rel_err(torch, g1[k], mine0[k])
+                                    for k in g1},
+           "grads_compared": "this rank's block of every leaf",
+           "tolerance": (f"y, decode outputs and states {TP_REL} of the "
+                         f"largest |value|; gradients {TP_MAMBA_GRAD} of "
+                         f"the largest of all and {TP_MAMBA_LEAF} of each "
+                         f"leaf's own ({', '.join(MAMBA_OUTSIDE_SCAN)}: "
+                         f"{TP_REL}); dx {TP_MAMBA_DX}"),
+           "decode_steps": TP_DECODE_STEPS,
+           "decode_y_rel_err": _rel_err(torch, d1, d0),
+           "decode_state_rel_err": _rel_err(torch, s1, s0),
+           "seconds": round(time.time() - t0, 3)}
+    res["ok"] = (split is not None
+                 and all(res[k] <= TP_REL for k in (
+                     "y_rel_err", "decode_y_rel_err",
+                     "decode_state_rel_err"))
+                 and res["grad_rel_err"] <= TP_MAMBA_GRAD
+                 and res["dx_rel_err"] <= TP_MAMBA_DX
+                 and all(e <= (TP_REL if k in MAMBA_OUTSIDE_SCAN
+                               else TP_MAMBA_LEAF)
+                         for k, e in res["grad_rel_err_by_leaf"].items()))
+    return res
+
+
 def tp_rank_main(rank: int, world: int, workdir: str) -> int:
     """One rank of `tensor_parallel`, all on ``cuda:0`` over a gloo group
     (NCCL refuses two ranks of one card); writes its results as
@@ -3247,9 +3616,8 @@ def tp_rank_main(rank: int, world: int, workdir: str) -> int:
 
     import repro_torch.configs as configs
     from repro_torch import tree as tree_lib
-    from repro_torch.configs.shapes import ShapeSpec
     from repro_torch.convert import disable_tf32
-    from repro_torch.kernels.attention import decode
+    from repro_torch.kernels.attention import decode, decode_int8
     from repro_torch.kernels.attention import kernel as flash
     from repro_torch.launch import policy, specs, steps
     from repro_torch.launch.mesh import make_host_mesh
@@ -3274,6 +3642,13 @@ def tp_rank_main(rank: int, world: int, workdir: str) -> int:
     def free():
         gc.collect()
         torch.cuda.empty_cache()
+
+    def peak(res):
+        """``res`` with the part's peak bytes on the card, the peak reset
+        for the next part."""
+        res["peak_bytes"] = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        return res
 
     # 1. H2O-Danube-1.8B, full width, 2 layers: one f32 train step on the
     # mesh against the one-rank step from the same state and batch.
@@ -3307,7 +3682,7 @@ def tp_rank_main(rank: int, world: int, workdir: str) -> int:
     train["ok"] = (train["loss_rel_err"] <= TP_REL
                    and train["grad_rel_err"] <= TP_REL
                    and train["grad_norm_rel_err"] <= TP_REL)
-    out["danube_train"] = train
+    out["danube_train"] = peak(train)
     del state
     free()
 
@@ -3320,70 +3695,44 @@ def tp_rank_main(rank: int, world: int, workdir: str) -> int:
     n0 = flash.launches
     got = steps.make_prefill_step(cfg, f32, mesh=mesh, rules=rules)(
         params0, {"tokens": tokens})
-    out["danube_prefill"] = {
+    out["danube_prefill"] = peak({
         "tokens": TP_PREFILL, "equal": bool(torch.equal(got, want)),
         "flash_launches": flash.launches - n0,
         "ok": bool(torch.equal(got, want))
-        and flash.launches - n0 == TP_LAYERS}
+        and flash.launches - n0 == TP_LAYERS})
 
-    # 3. Decode under decode_rules, the cache split by sequence: Danube's
-    # ring (the plain path) and Qwen3-14B's contiguous cache (B1 with its
-    # statistics), each 16 steps against the one-rank decode.
-    def decode_run(cfg, params, name):
-        lengths = TP_DECODE_LENGTHS
-        nb = len(lengths)
-        cache = transformer.cache_init(cfg, nb, TP_DECODE_ROWS, dtype=f32,
-                                       device=dev)
-        g = torch.Generator(device=dev).manual_seed(3)
-        for leaf in tree_lib.leaves(cache["blocks"]):
-            leaf.copy_(torch.randn(leaf.shape, generator=g, device=dev))
-        cache["lengths"] = torch.tensor(lengths, dtype=torch.int32,
-                                        device=dev)
-        tok0 = torch.randint(0, cfg.vocab_size, (nb, 1), generator=g,
-                             device=dev, dtype=torch.int32)
-        drules = specs.rules_for(mesh, ShapeSpec("d", "decode",
-                                                 TP_DECODE_ROWS, nb))
-        mine = transformer.cache_block(cfg, cache, drules, mesh)
-        one = steps.make_serve_step(cfg, f32)
-        split = steps.make_serve_step(cfg, f32, mesh=mesh, rules=drules)
-        seen = {"one": [], "split": []}
-        n0 = decode.launches
-        for key, fn, c in (("split", split, mine), ("one", one, cache)):
-            tok = tok0
-            for _ in range(TP_DECODE_STEPS):
-                tok, c = fn(params, c, tok)
-                seen[key].append(tok)
-            if key == "split":
-                launched = decode.launches - n0
-        _sync(torch, dev)
-        t0 = time.perf_counter()
-        split(params, mine, tok0)
-        _sync(torch, dev)
-        a, c_ = (torch.cat(seen[k], 1) for k in ("split", "one"))
-        return {"arch": name, "slots": nb, "rows": TP_DECODE_ROWS,
-                "kv_split": bool(mine.get("kv_split")),
-                "segment_rows": int(mine["blocks"]["k"].shape[2]),
-                "steps": TP_DECODE_STEPS, "equal": bool(torch.equal(a, c_)),
-                "decode_launches": launched,
-                "step_ms": round((time.perf_counter() - t0) * 1e3, 3)}
-
-    res = decode_run(cfg, params0, cfg.name)
+    # 3. Decode under decode_rules, 16 steps each against the one-rank
+    # decode: Danube's ring split by sequence (the plain path), then
+    # Qwen3-14B's cache in each layout (`tp_decode_layouts`).
+    mods = (decode, decode_int8)
+    res = tp_decode_run(torch, mods, cfg, params0, mesh, dev)
     res["ok"] = res["equal"] and res["kv_split"]
-    out["danube_decode"] = res
+    out["danube_decode"] = peak(res)
     del params0
     free()
     qcfg = dataclasses.replace(configs.get("qwen3_14b"),
                                num_layers=TP_LAYERS)
     qparams = transformer.init(qcfg, torch.Generator(device=dev)
                                .manual_seed(0), dtype=f32)
-    res = decode_run(qcfg, qparams, qcfg.name)
-    res["ok"] = (res["equal"] and res["kv_split"] and
-                 res["decode_launches"] == TP_LAYERS * TP_DECODE_STEPS)
-    out["qwen3_decode"] = res
+    layouts = tp_decode_layouts(torch, mods, qcfg, qparams, mesh, dev, peak,
+                                free)
+    for res in layouts.values():      # the kernel once a layer a step
+        res["ok"] = res["ok"] and res["launches"] == {
+            res["kernel"]: qcfg.num_layers * TP_DECODE_STEPS}
+    out.update(layouts)
     del qparams
     free()
 
-    # 4. Phi-3.5-MoE, full width, 2 layers: one train step with the
+    # 4. RWKV6-7B, full width, 2 layers, f32 (`tp_rwkv`).
+    rcfg = dataclasses.replace(configs.get("rwkv6_7b"), num_layers=TP_LAYERS)
+    out.update(tp_rwkv(torch, mods, rcfg, opt, mesh, rules, dev, peak,
+                       free))
+
+    # 5. Mamba alone at Jamba-1.5-Large's width (`mamba_parallel`).
+    out["mamba"] = peak(mamba_parallel(torch, configs, mesh, rules, dev))
+    free()
+
+    # 6. Phi-3.5-MoE, full width, 2 layers: one train step with the
     # experts over the model axis, at a capacity that drops nothing,
     # against the one-rank step from the same state and batch (its aux
     # the mean over the sequence blocks, `_split_aux`).  Each rank keeps
@@ -3466,7 +3815,7 @@ def tp_rank_main(rank: int, world: int, workdir: str) -> int:
                  and res["grad_rel_err"] <= TP_REL
                  and res["grad_norm_rel_err"] <= TP_REL
                  and not any(res["items_dropped"].values()))
-    out["moe_train"] = res
+    out["moe_train"] = peak(res)
     out["seconds"] = round(time.time() - t_start, 3)
     out["peak_bytes"] = torch.cuda.max_memory_allocated()
     out["ok"] = all(v["ok"] for v in out.values() if isinstance(v, dict)
@@ -3491,8 +3840,17 @@ def tensor_parallel(torch, smi) -> dict:
     - 16 greedy decode steps under `decode_rules` (slots straddling the
       two segments of the cache's rows, one of length 0) against the
       one-rank decode, tokens equal: Danube's ring on the plain path and
-      Qwen3-14B (2 layers) through B1 with its statistics, once a layer
-      a step;
+      Qwen3-14B (2 layers) in every cache layout (`tp_decode_layouts`):
+      its f32 and int8 caches split by sequence through B1 and B3 with
+      their statistics, its paged bf16 and int8 pools whole through B2
+      and B4 at the rank's 20 query heads, each once a layer a step;
+    - RWKV6-7B at full width, 2 layers, f32 (`tp_rwkv`): one train step,
+      a 1,024-token prefill and 16 decode steps against one rank's;
+    - Mamba alone at Jamba-1.5-Large's width (`mamba_parallel`): forward,
+      gradients and 16 decode steps of its state against one rank's
+      (the gradients through the scan held between the sound split's
+      readings and those of one that rounds each rank's part of B's and
+      C's gradients to bf16 before the ranks' sum: ``TP_MAMBA_GRAD``);
     - Phi-3.5-MoE at full width, 2 layers: one train step with its
       experts over the model axis at capacity factor ``TP_MOE_CAPACITY``,
       where neither side drops an item (counted), against the one-rank
@@ -3500,8 +3858,9 @@ def tensor_parallel(torch, smi) -> dict:
       sequence blocks as the split step takes it (`_split_aux`): loss,
       gradients (each rank's block of every leaf) and their norm within
       1e-5 of the largest |value|.
-    A collective gloo cannot carry for CUDA tensors fails the phase with
-    gloo's error."""
+    Each part records the rank's peak bytes on the card.  A collective
+    gloo cannot carry for CUDA tensors fails the phase with gloo's
+    error."""
     import os
     import shutil
     wd = STATE_ROOT / "tensor_parallel"
@@ -4372,8 +4731,9 @@ def main() -> int:
     tp_launches = {
         "flash_attention": sum(r["danube_prefill"]["flash_launches"]
                                for r in tp["ranks"]),
-        "decode_attention": sum(r["qwen3_decode"]["decode_launches"]
-                                for r in tp["ranks"])}
+        **{r0["kernel"]: sum(r[part]["decode_launches"] for r in tp["ranks"])
+           for part, r0 in tp["ranks"][0].items()
+           if part.startswith("qwen3_decode")}}
     del tp
 
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
@@ -4400,14 +4760,19 @@ def main() -> int:
     # B1 with its statistics on one rank's segment of a cache split over
     # 2 ranks: the serve shape (bf16 q, f32 cache) and an f32 and a bf16
     # cache of 2 x 16,384 rows
-    cases.append(stats_case(torch, decode, flush, name=TP_STATS_CASE,
+    cases.append(stats_case(torch, mods, flush, name=TP_STATS_CASE,
                             lengths=SERVE_LENGTHS, q_dtype=f32,
                             kv_dtype=f32, cache_len=SERVE_LEN // 2))
     for kv_dtype in (f32, bf16):
         cases.append(stats_case(
-            torch, decode, flush, name="segment_of_2_l16384",
+            torch, mods, flush, name="segment_of_2_l16384",
             lengths=[0, 16000, 20000, 32768], q_dtype=f32,
             kv_dtype=kv_dtype, cache_len=16384))
+    # B3 with its statistics on one rank's segment of an int8 cache at the
+    # serve shape (f32 q, as the layers pass it)
+    cases.append(stats_case(torch, mods, flush, name=TP_INT8_STATS_CASE,
+                            lengths=SERVE_LENGTHS, q_dtype=f32,
+                            kv_dtype=torch.int8, cache_len=SERVE_LEN // 2))
     cases += new_kernel_cases(torch, mods, flush)
     # the decode shapes of the other families' serve phases
     cases += family_kernel_cases(torch, configs, mods, flush)
@@ -4593,12 +4958,14 @@ def main() -> int:
         if name in tp_launches:
             entry.setdefault("launches_by_phase", {})["tensor_parallel"] = \
                 tp_launches[name]
-            rank_case = next(c for c in mine if c["name"] in (
-                TP_FLASH_CASE, TP_STATS_CASE))
-            entry["per_rank"] = {k: rank_case.get(k) for k in (
-                "name", "ms", "no_stats_ms", "plain_ms", "library_ms",
-                "bound_ms", "bound_by", "max_abs_err", "design")
-                if k in rank_case}
+            rank_case = next((c for c in mine if c["name"] in (
+                TP_FLASH_CASE, TP_STATS_CASE, TP_INT8_STATS_CASE,
+                TP_PAGED_CASE, TP_PAGED_INT8_CASE)), None)
+            if rank_case is not None:
+                entry["per_rank"] = {k: rank_case.get(k) for k in (
+                    "name", "ms", "no_stats_ms", "plain_ms", "library_ms",
+                    "bound_ms", "bound_by", "max_abs_err", "design")
+                    if k in rank_case}
         if name == "blocked_matmul":
             entry["launches_by_design"] = launches["blocked_matmul_by_design"]
         entries.append(entry)

@@ -16,14 +16,18 @@
 // Numerics follow the TPU kernel: q stays in f32 (it is not rounded to the
 // cache type), the products and the probabilities are f32, and the output
 // is cast to q's type at the end.  The split keys and the in-kernel
-// combine of the contiguous kernel are shared.
+// combine of the contiguous kernel are shared, and so are its softmax
+// statistics on request: the block that writes a row's output writes its
+// max m and sum l (decode_body.cuh), which a cache split by sequence over
+// ranks combines across its segments.
 
 #include "decode_body.cuh"
 
 namespace {
 
 int run(const void* q, const void* kq, const void* ks, const void* vq,
-        const void* vs, const void* lengths, void* out, void* part,
+        const void* vs, const void* lengths, void* stats, void* out,
+        void* part,
         void* tickets, int q_bf16, int batch, int hkv, int g, int dh,
         int cache_len, int span, long long q_sb, long long q_sh, Layout kl,
         Layout ksl, Layout vl, Layout vsl, float scale, cudaStream_t stream) {
@@ -34,6 +38,7 @@ int run(const void* q, const void* kq, const void* ks, const void* vq,
   a.vs = static_cast<const float*>(vs);
   a.ksl = ksl;
   a.vsl = vsl;
+  a.stats = static_cast<float*>(stats);
   return launch<int8_t, false>(a, batch, stream);
 }
 
@@ -42,12 +47,14 @@ int run(const void* q, const void* kq, const void* ks, const void* vq,
 // C entry, bound with ctypes.  q: (B, Hq, dh) with strides (q_sb, q_sh, 1);
 // kq, vq: int8 (B, L, Hkv, dh) with strides (sb, sl, sh, 1), 16-byte aligned
 // rows; ks, vs: f32 (B, L, Hkv) with strides (sb, sl, sh); lengths: (B,)
-// int32; out: contiguous (B, Hq, dh) of q's type, q_bf16 selecting
-// bfloat16 (1) or float32 (0); span, part, part_floats and tickets as for
-// decode_attention.  Returns the CUDA error of the launch.
+// int32; stats: null, or a contiguous (2, B, Hq) f32 array that receives
+// each row's softmax max m and sum l; out: contiguous (B, Hq, dh) of q's
+// type, q_bf16 selecting bfloat16 (1) or float32 (0); span, part,
+// part_floats and tickets as for decode_attention.  Returns the CUDA error
+// of the launch.
 extern "C" int quantized_decode_attention(
     const void* q, const void* kq, const void* ks, const void* vq,
-    const void* vs, const void* lengths, void* out, void* part,
+    const void* vs, const void* lengths, void* stats, void* out, void* part,
     void* tickets, int q_bf16, int batch, int hkv, int g, int dh,
     int cache_len, int span, long long q_sb, long long q_sh, long long k_sb,
     long long k_sl, long long k_sh, long long ks_sb, long long ks_sl,
@@ -59,7 +66,7 @@ extern "C" int quantized_decode_attention(
     return err;
   const Layout kl{k_sb, k_sl, k_sh}, ksl{ks_sb, ks_sl, ks_sh};
   const Layout vl{v_sb, v_sl, v_sh}, vsl{vs_sb, vs_sl, vs_sh};
-  return run(q, kq, ks, vq, vs, lengths, out, part, tickets, q_bf16, batch,
-             hkv, g, dh, cache_len, span, q_sb, q_sh, kl, ksl, vl, vsl, scale,
-             static_cast<cudaStream_t>(stream));
+  return run(q, kq, ks, vq, vs, lengths, stats, out, part, tickets, q_bf16,
+             batch, hkv, g, dh, cache_len, span, q_sb, q_sh, kl, ksl, vl, vsl,
+             scale, static_cast<cudaStream_t>(stream));
 }

@@ -33,13 +33,19 @@ paged_launches = 0    # paged_quantized_decode_attention.cu
 
 def quantized_decode_ref(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
                          vq: torch.Tensor, vs: torch.Tensor, *, length,
-                         scale: float | None = None) -> torch.Tensor:
+                         scale: float | None = None,
+                         return_stats: bool = False):
     """Plain version, a port of the JAX ``quantized_decode_ref``:
-    dequantize the whole cache, then `decode_ref` with q in f32."""
+    dequantize the whole cache, then `decode_ref` with q in f32;
+    ``return_stats`` also returns its (B, Hq) f32 ``m`` and ``l`` from
+    those logits."""
     k = quantize.dequantize_rows(kq, ks)
     v = quantize.dequantize_rows(vq, vs)
-    return _d.decode_ref(q.float(), k, v, length=length,
-                         scale=scale).to(q.dtype)
+    res = _d.decode_ref(q.float(), k, v, length=length, scale=scale,
+                        return_stats=return_stats)
+    if return_stats:
+        return res[0].to(q.dtype), res[1], res[2]
+    return res.to(q.dtype)
 
 
 def paged_quantized_decode_ref(q: torch.Tensor, kq_pool: torch.Tensor,
@@ -84,11 +90,13 @@ def quantized_gqa_decode_attention(q: torch.Tensor, kq: torch.Tensor,
                                    ks: torch.Tensor, vq: torch.Tensor,
                                    vs: torch.Tensor, *, length,
                                    scale: float | None = None,
-                                   block_k: int | None = None
-                                   ) -> torch.Tensor:
+                                   block_k: int | None = None,
+                                   return_stats: bool = False):
     """q: (B, Hq, dh) float; kq, vq: (B, L, Hkv, dh) int8; ks, vs: (B, L,
-    Hkv) f32 -> (B, Hq, dh) in q's dtype.  ``length`` and ``block_k`` as
-    in `gqa_decode_attention`."""
+    Hkv) f32 -> (B, Hq, dh) in q's dtype.  ``length``, ``block_k`` and
+    ``return_stats`` (each row's softmax statistics ``m`` and ``l``,
+    (B, Hq) f32, written by the block that writes its output; m = -1e30,
+    l = 0 at length 0) as in `gqa_decode_attention`."""
     b, _, dh = q.shape
     _, kl, hkv, _ = kq.shape
     _check_int8((kq, vq), (ks, vs), tuple(kq.shape[:3]))
@@ -97,28 +105,39 @@ def quantized_gqa_decode_attention(q: torch.Tensor, kq: torch.Tensor,
         raise ValueError(f"cache batch {kq.shape[0]} != q batch {b}")
     span = _d.split_span(block_k)
     if q.device.type == "meta":
-        return _d.meta_output("quantized_decode_attention", q, kl, kq, ks,
-                              vq, vs)
+        if not return_stats:
+            return _d.meta_output("quantized_decode_attention", q, kl, kq,
+                                  ks, vq, vs)
+        _d.charge("quantized_decode_attention", q, kl, kq, ks, vq, vs,
+                  stats=True)
+        st = torch.empty((2, b, q.shape[1]), dtype=torch.float32,
+                         device="meta")
+        return torch.empty(q.shape, dtype=q.dtype, device="meta"), st[0], \
+            st[1]
     if scale is None:
         scale = 1.0 / (dh ** 0.5)
     lengths = _d._lengths(length, b, kl, q.device)
     if _on_cpu(q, (kq, ks, vq, vs)):
         return quantized_decode_ref(q, kq, ks, vq, vs, length=lengths,
-                                    scale=scale)
+                                    scale=scale, return_stats=return_stats)
     _d.check_cuda(q, (kq, vq), g)
     _check_cuda_scales((ks, vs))
+    stats = (torch.empty((2, b, q.shape[1]), dtype=torch.float32,
+                         device=q.device) if return_stats else None)
     out = _d._launch(
         "quantized_decode_attention", q,
         (q.data_ptr(), kq.data_ptr(), ks.data_ptr(), vq.data_ptr(),
-         vs.data_ptr(), lengths.data_ptr()),
+         vs.data_ptr(), lengths.data_ptr(),
+         None if stats is None else stats.data_ptr()),
         (int(q.dtype == torch.bfloat16), b, hkv, g, dh, kl),
         (q.stride(0), q.stride(1), *kq.stride()[:3], *ks.stride(),
          *vq.stride()[:3], *vs.stride()),
         batch=b, hkv=hkv, g=g, dh=dh, rows=kl, span=span, scale=scale)
     global launches
     launches += 1
-    _d.charge("quantized_decode_attention", q, kl, kq, ks, vq, vs)
-    return out
+    _d.charge("quantized_decode_attention", q, kl, kq, ks, vq, vs,
+              stats=return_stats)
+    return out if stats is None else (out, stats[0], stats[1])
 
 
 def paged_quantized_gqa_decode_attention(

@@ -20,15 +20,16 @@ per-rank program is its own:
   parameters), the global batch on every rank, each rank taking its
   rows and computing with its model-axis blocks of the weights
   (`steps.rank_params`): heads, ff, vocab and experts split over the
-  model axis where the rules keep them, the Mamba and RWKV mixers
-  whole.
+  model axis where the rules keep them, RWKV6's time mix over its heads,
+  its channel mix over d_ff and Mamba over its inner width.
 - ``prefill``: `steps.make_prefill_step` on the rank's batch rows and
   the same blocks, gathered from the placed weights inside the step.
 - ``decode``: `steps.make_serve_step` under `decode_rules` on rank 0's
   block of a bf16 cache of the shape's length (`transformer.cache_block`:
   its slots, and its segment of the rows over the ``kv_seq`` axes, the
-  model axis, or the data and model axes for a batch-1 decode) and the
-  blocks of the weights placed by `specs.decode_pspecs`.
+  model axis, or the data and model axes for a batch-1 decode; the RWKV
+  and Mamba states over their heads and inner width) and the blocks of
+  the weights placed by `specs.decode_pspecs`.
 
 Each runs under the mesh and the cell's rules, so MoE layers take
 `moe.apply_sharded`'s expert exchange.  A cell the port cannot form is

@@ -91,7 +91,9 @@ def rank_params(cfg: ModelConfig, params, mesh, rules):
     """The blocks of ``params`` (DTensors, or whole tensors the same on
     every rank) this rank's forward computes with under ``rules``:
     `sharding.compute_block` of each leaf by `transformer.compute_specs`
-    (the Mamba and RWKV mixers whole)."""
+    (the RWKV mixes over their heads and d_ff, Mamba over its inner
+    width, its ``in_proj`` moved to the rank's columns of each half
+    without a gather)."""
     from repro_torch.parallel import sharding as shd
     return tree_lib.map_structure(
         lambda t, c: shd.compute_block(t, c, mesh), params,
@@ -109,9 +111,9 @@ def data_parallel_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig, mesh,
     - takes its rows of the global ``batch`` (the batch axes' split);
     - takes each parameter's block its layer computes with
       (`rank_params`: heads, ff, vocab and experts split over the model
-      axis where the rules keep them, whole elsewhere; an FSDP-stored
-      leaf gathered over the data axes), so the forward is tensor and
-      expert parallel (`models.layers`, `models.moe.apply_sharded`, the
+      axis where the rules keep them, RWKV6's and Mamba's at their own
+      widths, whole elsewhere; an FSDP-stored leaf gathered over the data
+      axes), so the forward is tensor and expert parallel (`models.layers`, `models.moe.apply_sharded`, the
       vocab-parallel loss), and with `sharding.sequence_parallel` rules
       its residual stream is split by sequence;
     - divides its shard's summed loss by the global batch's count of

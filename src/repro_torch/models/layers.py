@@ -305,23 +305,23 @@ def attention_apply(params: Params, x: torch.Tensor, cfg,
     ``wk``/``wv`` where ``kv_heads`` splits too, else the KV heads its
     query heads read), runs the core on them and multiplies by its rows
     of ``wo``; `sharding.leave` sums the ranks' parts.  With
-    ``kv_split`` the contiguous cache is this rank's segment of the
-    rows over the ``kv_seq`` axes (`decode_rules`): the step's query is
-    gathered over the heads, each rank writes the new rows that fall in
-    its segment and attends over it: the decode kernel with its softmax
-    statistics, the segments combined in rank order
-    (`_combine_segments`), or for the ring and for chunks `attention_core`
-    with the softmax reduced over the segments.
+    ``kv_split`` the contiguous cache, f32, bf16 or int8, is this rank's
+    segment of the rows over the ``kv_seq`` axes (`decode_rules`): the
+    step's query is gathered over the heads, each rank writes the new
+    rows that fall in its segment (an int8 cache its codes and scales)
+    and attends over it: the decode kernel of its type (B1 or B3) with
+    its softmax statistics, the segments combined in rank order
+    (`_combine_segments`), or for the ring and for chunks
+    `attention_core` over the dequantized segment with the softmax
+    reduced over the segments.  A paged pool never splits by sequence:
+    it stays whole under `decode_rules`, and each rank's query heads
+    attend it through the strided view of the KV heads they read.
     """
     dh = cfg.head_dim
     hs = shd.split("heads", cfg.num_heads)
     kvs = shd.split("kv_heads", cfg.num_kv_heads) if hs else None
     seg = shd.split("kv_seq", None) if cache is not None and kv_split \
         else None
-    if seg is not None and (paged is not None or "k_scale" in cache):
-        raise shd.NotInPort("a paged or int8 cache split by sequence "
-                            "(ROADMAP A14 item 13: B2-B4 return no softmax "
-                            "statistics)")
     x_in = shd.enter(x, hs)           # the whole sequence
     b, s, _ = x_in.shape
     names = ("k", "v")
@@ -470,9 +470,10 @@ def _segment_attention(cfg, q, cache, new, t_abs, act2d, new_len, pos_b,
                        seg, hs, scale, block_k) -> torch.Tensor:
     """`attention_apply` over a contiguous cache split by sequence: this
     rank holds rows [off, off + L) of ``seg.n * L`` (of the ring, for a
-    sliding-window model).  Writes the new rows that fall there, attends
-    every query head over them and combines the segments; returns this
-    rank's heads of the output, (B, S, Hq_loc * dh) f32."""
+    sliding-window model).  Writes the new rows that fall there (every
+    leaf of ``new``: an int8 cache's codes and scales), attends every
+    query head over them and combines the segments; returns this rank's
+    heads of the output, (B, S, Hq_loc * dh) f32."""
     b, s = t_abs.shape
     rows = cache["k"].shape[1]
     total, off = rows * seg.n, seg.index * rows
@@ -481,20 +482,31 @@ def _segment_attention(cfg, q, cache, new, t_abs, act2d, new_len, pos_b,
     for name, c in cache.items():
         _write_cache(c, new[name], target, ok)
     qa = shd.gather_dim(q, 2, hs, False)              # every query head
+    quantized = "k_scale" in cache
     if s == 1 and cfg.causal and not cfg.sliding_window:
         mine = torch.clamp(new_len - off, 0, rows).to(torch.int32)
-        out, m, l = decode.gqa_decode_attention(
-            qa[:, 0].float(), cache["k"], cache["v"], length=mine,
-            scale=scale, block_k=block_k, return_stats=True)
+        if quantized:
+            out, m, l = decode_int8.quantized_gqa_decode_attention(
+                qa[:, 0].float(), cache["k"], cache["k_scale"], cache["v"],
+                cache["v_scale"], length=mine, scale=scale, block_k=block_k,
+                return_stats=True)
+        else:
+            out, m, l = decode.gqa_decode_attention(
+                qa[:, 0].float(), cache["k"], cache["v"], length=mine,
+                scale=scale, block_k=block_k, return_stats=True)
         out = _combine_segments(out[:, None], m[:, None], l[:, None], seg)
     else:
+        kr, vr = cache["k"], cache["v"]
+        if quantized:
+            kr = quantize.dequantize_rows(kr, cache["k_scale"])
+            vr = quantize.dequantize_rows(vr, cache["v_scale"])
         slots = off + torch.arange(rows, dtype=torch.int32,
                                    device=q.device)
         if cfg.sliding_window:
             k_pos, k_valid = _ring_positions(slots, total, new_len)
         else:
             k_pos, k_valid = slots, slots[None, :] < new_len[:, None]
-        out = attention_core(qa, cache["k"], cache["v"], pos_b, k_pos,
+        out = attention_core(qa, kr, vr, pos_b, k_pos,
                              causal=cfg.causal, scale=scale,
                              window=cfg.sliding_window, k_valid=k_valid,
                              seg=seg)

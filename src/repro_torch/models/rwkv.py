@@ -7,6 +7,17 @@ O(1) in the sequence length.  `lax.scan` over time becomes a Python loop
 over time.  The decode state of a layer is ``{"shift_t", "shift_c": (B,
 1, D)}`` in the cache's dtype (the previous token of the time and channel
 mixes) and ``{"wkv": (B, H, dh, dh)}`` in f32.
+
+Over the model axis (`parallel.sharding.split`, as the JAX specs shard
+the leaves) the time mix splits its ``D / dh`` heads (`time_split`):
+each rank projects its heads' columns of ``wr``, ``wk``, ``wv`` and
+``wg``, takes the decay of its columns, scans its heads' ``wkv`` state
+and multiplies by its rows of ``wo``; the channel mix splits d_ff
+(`channel_split`): columns of ``ck``, rows of ``cv``, the gate ``cr``
+whole on every rank.  The ranks' outputs are parts of a sum, which the
+caller's `sharding.leave` takes.  Every whole leaf a split mix uses
+passes through `sharding.copy_in`, so its gradient, a part on each
+rank, is summed.
 """
 
 from __future__ import annotations
@@ -15,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers
+from repro_torch.parallel import sharding as shd
 
 Params = dict
 # Leaves the forward reads in f32 whatever the compute dtype: the decay
@@ -102,33 +114,73 @@ def _wkv_scan(r, k, v, w, u, s0):
     return torch.stack(ys, dim=1), s
 
 
+def time_split(cfg) -> shd.Split | None:
+    """The time mix's split over the model axis: its heads, ``D / dh`` of
+    them (not ``cfg.num_heads``, which RWKV6 leaves 0), where the rules
+    split ``heads`` into whole heads."""
+    return shd.split("heads", cfg.d_model // cfg.rwkv_head_dim)
+
+
+def channel_split(cfg) -> shd.Split | None:
+    """The channel mix's split over the model axis: d_ff."""
+    return shd.split("ff", cfg.d_ff)
+
+
+def _norm_over_split(params: Params, y: torch.Tensor, d: int, eps: float,
+                     hs) -> torch.Tensor:
+    """`layers.rmsnorm` over all ``d`` columns of ``y``, of which this rank
+    holds its block under ``hs``: the sum of squares all-reduced over the
+    split, forward and backward (each rank's columns take part of its
+    gradient), then this rank's columns of the scale."""
+    if hs is None:
+        return layers.rmsnorm(params, y, eps)
+    y32 = y.float()
+    ss = shd.copy_in(shd.reduce_out(
+        torch.sum(torch.square(y32), dim=-1, keepdim=True), hs), hs)
+    scale = shd.block(shd.copy_in(params["scale"], hs), 0, d, hs)
+    return (y32 * torch.rsqrt(ss / d + eps) * scale.float()).to(y.dtype)
+
+
 def rwkv_time_mix(params: Params, x: torch.Tensor, cfg,
                   state: Params | None = None):
-    """x: (B, S, D) -> (out (B, S, D), new state or None)."""
+    """x: (B, S, D) -> (out (B, S, D), new state or None).  Under
+    `time_split` the output is this rank's part of the sum and the
+    ``wkv`` state its heads'."""
     b, s, d = x.shape
-    h, dh = d // cfg.rwkv_head_dim, cfg.rwkv_head_dim
+    dh = cfg.rwkv_head_dim
+    hs = time_split(cfg)
+    cols = d if hs is None else d // hs.n
+    h = cols // dh
     prev = state["shift_t"] if state is not None else None
     shifted, last = _token_shift(x, prev)
-    mix = params["mix"].to(x.dtype)
+    mix = shd.copy_in(params["mix"], hs).to(x.dtype)
     xr, xk, xv, xg, xw = (x + (shifted - x) * mix[i] for i in range(5))
 
-    r = (xr @ params["wr"].to(x.dtype)).reshape(b, s, h, dh)
-    k = (xk @ params["wk"].to(x.dtype)).reshape(b, s, h, dh)
-    v = (xv @ params["wv"].to(x.dtype)).reshape(b, s, h, dh)
-    g = F.silu(xg @ params["wg"].to(x.dtype))
+    def w(name):                        # this rank's columns
+        return shd.block(params[name], 1, d, hs).to(x.dtype)
 
-    # The data-dependent decay (RWKV6's novelty), in f32.
-    dd = torch.tanh(xw.float() @ params["decay_a"]) @ params["decay_b"]
-    w = torch.exp(-torch.exp(params["decay_w0"][None, None] + dd))
-    w = w.reshape(b, s, h, dh)
+    r = (xr @ w("wr")).reshape(b, s, h, dh)
+    k = (xk @ w("wk")).reshape(b, s, h, dh)
+    v = (xv @ w("wv")).reshape(b, s, h, dh)
+    g = F.silu(xg @ w("wg"))
+
+    # The data-dependent decay (RWKV6's novelty), in f32: the LoRA's first
+    # half whole, its second half and the bias at this rank's columns.
+    decay_b = shd.block(shd.copy_in(params["decay_b"], hs), 1, d, hs)
+    w0 = shd.block(shd.copy_in(params["decay_w0"], hs), 0, d, hs)
+    dd = torch.tanh(xw.float() @ shd.copy_in(params["decay_a"], hs)) \
+        @ decay_b
+    decay = torch.exp(-torch.exp(w0[None, None] + dd)).reshape(b, s, h, dh)
 
     s0 = (state["wkv"] if state is not None
           else torch.zeros((b, h, dh, dh), dtype=torch.float32,
                            device=x.device))
-    y, s_last = _wkv_scan(r.float(), k.float(), v.float(), w,
-                          params["bonus_u"], s0)
-    y = layers.rmsnorm(params["ln_x"], y.reshape(b, s, d), cfg.norm_eps)
-    out = (y.to(x.dtype) * g) @ params["wo"].to(x.dtype)
+    u = shd.block(params["bonus_u"], 0, d // dh, hs)
+    y, s_last = _wkv_scan(r.float(), k.float(), v.float(), decay, u, s0)
+    y = _norm_over_split(params["ln_x"], y.reshape(b, s, cols), d,
+                         cfg.norm_eps, hs)
+    out = (y.to(x.dtype) * g) @ shd.block(params["wo"], 0, d, hs).to(
+        x.dtype)
     new_state = None
     if state is not None:
         new_state = {"shift_t": last, "wkv": s_last}
@@ -137,14 +189,20 @@ def rwkv_time_mix(params: Params, x: torch.Tensor, cfg,
 
 def rwkv_channel_mix(params: Params, x: torch.Tensor, cfg,
                      state: Params | None = None):
+    """x: (B, S, D) -> (out, new state or None); under `channel_split`
+    the output is this rank's part of the sum: the gate, whole on every
+    rank, multiplies each part."""
+    fs = channel_split(cfg)
     prev = state["shift_c"] if state is not None else None
     shifted, last = _token_shift(x, prev)
-    cmix = params["cmix"].to(x.dtype)
+    cmix = shd.copy_in(params["cmix"], fs).to(x.dtype)
     xk = x + (shifted - x) * cmix[0]
     xr = x + (shifted - x) * cmix[1]
-    kk = torch.square(F.relu(xk @ params["ck"].to(x.dtype)))
-    out = torch.sigmoid(xr @ params["cr"].to(x.dtype)) * (
-        kk @ params["cv"].to(x.dtype))
+    ck = shd.block(params["ck"], 1, cfg.d_ff, fs).to(x.dtype)
+    cv = shd.block(params["cv"], 0, cfg.d_ff, fs).to(x.dtype)
+    kk = torch.square(F.relu(xk @ ck))
+    out = torch.sigmoid(xr @ shd.copy_in(params["cr"], fs).to(x.dtype)) * (
+        kk @ cv)
     new_state = {"shift_c": last} if state is not None else None
     return out, new_state
 

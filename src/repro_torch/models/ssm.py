@@ -8,6 +8,16 @@ the cache's dtype) and ``{"h": (B, Din, N)}`` (the SSM state, f32).  The
 scan mixes f32 (the step size and the state) with bf16 streams (B, C and
 x), which the JAX code promotes to f32; here each bf16 operand is cast to
 f32 where it meets an f32 one, to the same values.
+
+Over the model axis (`mamba_split`, as the JAX specs shard the leaves
+over ``ff``) each rank runs its block of the ``d_in`` channels: its
+columns of both halves of ``in_proj`` (a `parallel.sharding.Parts`
+block), the conv, the step projection, A and D at its channels, the scan
+over its block of ``h``, and its rows of ``out_proj``; the output is its
+part of a sum, which the caller's `sharding.leave` takes.  ``x_proj``
+splits by rows, so its product is a partial sum, reduced over the split
+before it is cut into the step, B and C; their gradients, parts on each
+rank, are summed before B's and C's bf16 rounding rounds them.
 """
 
 from __future__ import annotations
@@ -16,11 +26,35 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers
+from repro_torch.parallel import sharding as shd
 
 Params = dict
 # Leaves the forward reads in f32 or in their own dtype, never through
 # ``.to(compute dtype)``: the step projection and bias, A_log and D.
 OWN_DTYPE_LEAVES = frozenset({"dt_proj", "dt_bias", "A_log", "D"})
+
+
+def d_inner(cfg) -> int:
+    """The inner width ``d_in = ssm_expand * d_model`` (Mamba's ``ff``)."""
+    return cfg.ssm_expand * cfg.d_model
+
+
+def mamba_split(cfg) -> shd.Split | None:
+    """The mixer's split over the model axis: ``d_in``, where the rules
+    split ``ff`` at that width."""
+    return shd.split("ff", d_inner(cfg))
+
+
+def _in_proj(x: torch.Tensor, w: torch.Tensor, d_in: int, fs):
+    """``x @ in_proj`` as (x half, gate half), each at this rank's channels
+    under ``fs``: ``w`` whole (2 d_in columns), or this rank's `Parts`
+    block (its columns of each half, end to end)."""
+    if fs is not None and w.shape[-1] == 2 * d_in:
+        c = d_in // fs.n
+        halves = w.unflatten(-1, (2, d_in)).narrow(-1, fs.index * c, c)
+        return (x @ halves[..., 0, :].to(x.dtype),
+                x @ halves[..., 1, :].to(x.dtype))
+    return (x @ w.to(x.dtype)).chunk(2, dim=-1)
 
 
 def mamba_init(generator: torch.Generator, cfg, dtype=torch.float32
@@ -92,42 +126,55 @@ def _selective_scan(delta, a, b_ssm, c_ssm, x, h0):
 
 def mamba_apply(params: Params, x: torch.Tensor, cfg,
                 cache: Params | None = None):
-    """x: (B, S, D) -> (out (B, S, D), new cache or None)."""
+    """x: (B, S, D) -> (out (B, S, D), new cache or None).  Under
+    `mamba_split` the output is this rank's part of the sum and the state
+    its channels'."""
     b, s, d = x.shape
-    d_in = cfg.ssm_expand * d
+    d_in = d_inner(cfg)
     n, r = cfg.ssm_state, cfg.ssm_dt_rank
+    fs = mamba_split(cfg)
 
-    xz = x @ params["in_proj"].to(x.dtype)                    # (B, S, 2*Din)
-    xb, z = xz.chunk(2, dim=-1)
+    def blk(name, dim):                 # this rank's channels
+        return shd.block(params[name], dim, d_in, fs)
 
+    xb, z = _in_proj(x, params["in_proj"], d_in, fs)
     tail = cache["conv"] if cache is not None else None
     xb, new_tail = _causal_depthwise_conv(
-        xb, params["conv_w"].to(x.dtype), params["conv_b"].to(x.dtype), tail)
+        xb, blk("conv_w", 1).to(x.dtype), blk("conv_b", 0).to(x.dtype), tail)
     xb = F.silu(xb)
 
-    dbl = (xb @ params["x_proj"].to(x.dtype)).float()
+    # A partial sum over the split, summed before the step, B and C are
+    # cut out of it and before B and C are rounded to bf16.  Each enters
+    # the rank's part of the scan through `copy_in` after its rounding,
+    # so the ranks' parts of its gradient are summed in f32 before the
+    # rounding's backward rounds the sum to bf16, as the unsplit scan
+    # rounds its whole sum once.
+    dbl = shd.reduce_out((xb @ blk("x_proj", 0).to(x.dtype)).float(), fs)
     dt, b_ssm, c_ssm = torch.split(dbl, [r, n, n], dim=-1)
-    pre = dt @ params["dt_proj"].float() + params["dt_bias"].float()
+    dt = shd.copy_in(dt, fs)
+    b_ssm, c_ssm = (shd.copy_in(t.to(torch.bfloat16).float(), fs)
+                    for t in (b_ssm, c_ssm))
+    pre = dt @ blk("dt_proj", 1).float() + blk("dt_bias", 0).float()
     delta = torch.logaddexp(pre, torch.zeros_like(pre))      # softplus
-    a = -torch.exp(params["A_log"])
+    a = -torch.exp(blk("A_log", 0))
 
     h0 = (cache["h"] if cache is not None
-          else torch.zeros((b, d_in, n), dtype=torch.float32,
+          else torch.zeros((b, xb.shape[-1], n), dtype=torch.float32,
                            device=x.device))
-    # delta stays f32; the B, C and x streams are bf16, as in the JAX code.
-    y, h_last = _selective_scan(delta, a, b_ssm.to(torch.bfloat16),
-                                c_ssm.to(torch.bfloat16),
+    # delta stays f32; the B, C and x streams are bf16 values, as in the
+    # JAX code.
+    y, h_last = _selective_scan(delta, a, b_ssm, c_ssm,
                                 xb.to(torch.bfloat16), h0)
-    y = (y + params["D"][None, None, :] * xb.float()).to(x.dtype)
+    y = (y + blk("D", 0)[None, None, :] * xb.float()).to(x.dtype)
     y = y * F.silu(z)
-    out = y @ params["out_proj"].to(x.dtype)
+    out = y @ blk("out_proj", 0).to(x.dtype)
     new_cache = {"conv": new_tail, "h": h_last} if cache is not None else None
     return out, new_cache
 
 
 def mamba_cache_init(cfg, batch: int, dtype=torch.bfloat16, device=None
                      ) -> Params:
-    d_in = cfg.ssm_expand * cfg.d_model
+    d_in = d_inner(cfg)
     return {
         "conv": torch.zeros((batch, cfg.ssm_conv - 1, d_in), dtype=dtype,
                             device=device),

@@ -101,20 +101,25 @@ def _layer_apply(p: Params, x, cfg: ModelConfig, l: int, positions, cache,
     """Pre-norm block ``l`` (its index within a hybrid group, 0 for the
     uniform families).  Returns ``(x, aux)``; ``cache`` (the layer's
     leaves, or None) is updated in place.  The RWKV and Mamba mixers run
-    replicated over the model axis, on the whole sequence
-    (`sharding.enter` and `leave` with no split)."""
+    on the whole sequence (`sharding.enter` gathers a sequence-split
+    stream: the scans and the token shift read every position), split
+    over the model axis where the rules split their heads or inner dim
+    (`rwkv.time_split`, `rwkv.channel_split`, `ssm.mamba_split`), each
+    rank on its blocks of the weights and states, the ranks' parts
+    summed by `sharding.leave`."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = _norm(p["ln1"], x, cfg)
     if cfg.family == "ssm":
-        h, new_t = rwkv.rwkv_time_mix(p["mixer"], shd.enter(h, None), cfg,
+        ts, cs = rwkv.time_split(cfg), rwkv.channel_split(cfg)
+        h, new_t = rwkv.rwkv_time_mix(p["mixer"], shd.enter(h, ts), cfg,
                                       cache)
-        x = x + shd.leave(h, None)
+        x = x + shd.leave(h, ts)
         h2 = _norm(p["ln2"], x, cfg)
-        h2, new_c = rwkv.rwkv_channel_mix(p["mlp"], shd.enter(h2, None),
+        h2, new_c = rwkv.rwkv_channel_mix(p["mlp"], shd.enter(h2, cs),
                                           cfg, cache)
         if cache is not None:
             _keep_inactive({**new_t, **new_c}, cache, active)
-        return x + shd.leave(h2, None), aux
+        return x + shd.leave(h2, cs), aux
 
     if cfg.is_attn_layer(l):
         h, _ = layers.attention_apply(
@@ -122,9 +127,10 @@ def _layer_apply(p: Params, x, cfg: ModelConfig, l: int, positions, cache,
             active=active, pages=pages, paged=paged, prefill=prefill,
             block_k=span, kv_split=kv_split)
     else:
-        h, new_mix = ssm.mamba_apply(p["mixer"], shd.enter(h, None), cfg,
+        ms = ssm.mamba_split(cfg)
+        h, new_mix = ssm.mamba_apply(p["mixer"], shd.enter(h, ms), cfg,
                                      cache=cache)
-        h = shd.leave(h, None)
+        h = shd.leave(h, ms)
         if cache is not None:
             _keep_inactive(new_mix, cache, active)
     x = x + h
@@ -221,35 +227,47 @@ def compute_specs(cfg: ModelConfig, rules) -> Params:
     half of `param_specs` as the forward splits it.  A dim splits where
     the rules keep its logical axis for the activation it makes
     (`sharding.kept` of ``heads`` at the query heads, ``ff`` at d_ff,
-    ``vocab``, ``experts``); ``kv_heads`` only with ``heads``; the RWKV
-    and Mamba mixers whole."""
+    ``vocab``, ``experts``); ``kv_heads`` only with ``heads``.  The
+    recurrent mixers split at their own sizes: RWKV6's time mix over its
+    ``d_model / rwkv_head_dim`` heads (whole heads a rank), its channel
+    mix over d_ff, Mamba over ``d_in = ssm_expand * d_model``, its
+    ``in_proj`` as a `sharding.Parts` of the x and gate halves; each
+    leaf they name ``embed`` or None stays whole."""
     sizes = {"heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
              "ff": cfg.d_ff, "vocab": cfg.vocab_size,
              "experts": cfg.num_experts}
     heads = shd.kept(rules, "heads", cfg.num_heads)
 
-    def entry(ax):
-        if ax not in sizes or (ax == "kv_heads" and not heads):
+    def entry(ax, at=sizes):
+        if ax not in at or (ax == "kv_heads" and not heads):
             return None
-        axes = shd.kept(rules, ax, sizes[ax])
+        axes = shd.kept(rules, ax, at[ax])
         return None if not axes else axes[0] if len(axes) == 1 else axes
 
-    def whole(tree):
-        return tree_lib.map_structure(lambda axes: (None,) * len(axes),
-                                      tree)
+    def cut(tree, at=sizes):
+        return tree_lib.map_structure(
+            lambda axes: tuple(entry(a, at) for a in axes), tree)
 
     def layer(l):
         p = _layer_specs(cfg, l)
         if cfg.family == "ssm":
-            return whole(p)
+            return {"ln1": cut(p["ln1"]), "ln2": cut(p["ln2"]),
+                    "mixer": cut(p["mixer"], {"heads": cfg.d_model
+                                              // cfg.rwkv_head_dim}),
+                    "mlp": cut(p["mlp"], {"ff": cfg.d_ff})}
+        out = cut(p)
         if not cfg.is_attn_layer(l):
-            p["mixer"] = whole(p["mixer"])
-        return p
+            out["mixer"] = cut(p["mixer"], {"ff": ssm.d_inner(cfg)})
+            e = out["mixer"]["in_proj"][1]
+            if e is not None:
+                out["mixer"]["in_proj"] = (None, shd.Parts(e))
+        return out
 
-    specs = param_specs(cfg)
-    specs["blocks"] = _uniform_or_grouped(cfg, layer)
-    return tree_lib.map_structure(
-        lambda axes: tuple(entry(a) for a in axes), specs)
+    specs = cut(param_specs(cfg))
+    specs["blocks"] = _prepend_layer_axis(
+        {str(i): layer(i) for i in range(cfg.attn_period)}
+        if cfg.family == "hybrid" else layer(0))
+    return specs
 
 
 def _layer_cache_specs(cfg: ModelConfig, l: int, paged=None,
@@ -290,33 +308,52 @@ def cache_specs(cfg: ModelConfig, paged=None, kv_dtype=None):
 
 
 def cache_block(cfg: ModelConfig, cache: Params, rules, mesh) -> Params:
-    """This rank's block of a contiguous cache laid out whole (the same on
-    every rank, or on ``meta``): each leaf cut by its `cache_specs`
-    fitted to its shape under ``rules`` (a copy), and ``"kv_split"`` set
-    where the attention rows split over ``kv_seq`` (`decode_rules`),
-    which the attention layers read.  The RWKV and Mamba states split
-    only by slot: their mixers run whole on every model rank."""
-    specs = cache_specs(cfg)
+    """This rank's block of a cache laid out whole (the same on every
+    rank, or on ``meta``): each leaf cut by its `cache_specs` fitted to
+    its shape under ``rules`` (a copy), the layout (paged: ``"pages"`` in
+    it; int8: ``"k_scale"`` in an attention layer) read from the cache
+    itself.  So a contiguous cache's K/V rows and an int8 cache's scales
+    split over ``kv_seq`` (`decode_rules`), a paged pool only over
+    ``kv_heads`` (whole under `decode_rules`) with its page table by
+    slot, the RWKV ``wkv`` state over its heads and Mamba's ``conv`` and
+    ``h`` over ``d_in``, as the mixers compute them.  ``"kv_split"`` is
+    set where a contiguous attention cache's rows split; the attention
+    layers read it."""
+    paged = "pages" in cache
+    attn = [cache["blocks"] if key is None else cache["blocks"][key]
+            for key, l, _ in _groups(cfg)
+            if cfg.family != "ssm" and cfg.is_attn_layer(l)]
+    quantized = any("k_scale" in c for c in attn)
+    specs = cache_specs(cfg, paged=True if paged else None,
+                        kv_dtype=torch.int8 if quantized else None)
 
-    def cut(t, axes):
-        if "kv_seq" not in axes:
-            axes = tuple(a if a == "batch" else None for a in axes)
+    def cut(t, axes, pool=False):
+        if pool:                 # the copy keeps the trash page past it
+            return cut(layers.with_trash_page(t, axis=1), axes).narrow(
+                1, 0, t.shape[1])
         return shd.local_shard(t, shd.fitted(rules.spec(*axes),
                                              tuple(t.shape), rules),
                                mesh).clone()
 
-    out = {"blocks": tree_lib.map_structure(cut, cache["blocks"],
-                                            specs["blocks"]),
-           "index": cache["index"],
+    blocks: Params = {}
+    for key, l, _ in _groups(cfg):
+        pool = paged and cfg.family != "ssm" and cfg.is_attn_layer(l)
+        src, sp = ((cache["blocks"], specs["blocks"]) if key is None else
+                   (cache["blocks"][key], specs["blocks"][key]))
+        blk = {n: cut(t, sp[n], pool) for n, t in src.items()}
+        if key is None:
+            blocks = blk
+        else:
+            blocks[key] = blk
+    out = {"blocks": blocks, "index": cache["index"],
            "lengths": cut(cache["lengths"], specs["lengths"])}
+    if paged:
+        out["pages"] = cut(cache["pages"], specs["pages"])
     if "decode_span" in cache:
         out["decode_span"] = cache["decode_span"]
-    for key, l, _ in _groups(cfg):
-        if cfg.family != "ssm" and cfg.is_attn_layer(l):
-            leaf = (cache["blocks"] if key is None
-                    else cache["blocks"][key])["k"]
-            out["kv_split"] = bool(shd.kept(rules, "kv_seq",
-                                            leaf.shape[2]))
+    if attn and not paged:
+        out["kv_split"] = bool(shd.kept(rules, "kv_seq",
+                                        attn[0]["k"].shape[2]))
     return out
 
 

@@ -19,7 +19,9 @@ the mapping, `fitted`'s rule):
 - `copy_in` (identity forward, all-reduce of the gradient backward) at
   the entry of a region whose tensors are split, and on a replicated
   weight such a region uses on its part of the work;
-- `reduce_out` (all-reduce forward, identity backward) at its exit;
+- `reduce_out` (all-reduce forward, identity backward) at its exit, and
+  `copy_in` of it where the sum feeds the split region again (RWKV6's
+  norm over every rank's heads);
 - `split_dim` (this rank's block forward, all-gather backward) and
   `gather_dim` (all-gather forward; backward a reduce-scatter, or this
   rank's block where the gathered tensor's gradient is already whole)
@@ -30,7 +32,9 @@ the mapping, `fitted`'s rule):
 `enter` and `leave` pick among them at a region's edges.  So every tensor
 replicated over the model axis carries its whole gradient on every rank,
 and every split one its block's.  `compute_block` gives a rank the block
-of a stored weight that its layer computes with.
+of a stored weight that its layer computes with (a `Parts` block where
+the weight is parts laid end to end, each split), and `block_of` maps a
+computed block back to a stored one.
 """
 
 from __future__ import annotations
@@ -185,9 +189,24 @@ def active_rules() -> Rules | None:
     return _ACTIVE.get()
 
 
+@dataclasses.dataclass(frozen=True)
+class Parts:
+    """A compute-spec entry (`compute_block`) of a dim made of ``n`` equal
+    parts laid end to end, each split over the mesh-axis entry ``axes``:
+    a rank computes with its block of every part, concatenated in part
+    order.  Mamba's ``in_proj`` is one: its columns are the x half, then
+    the gate half, and its stored spec splits all of them contiguously,
+    so the stored block of a rank is not the block it computes with."""
+
+    axes: object
+    n: int = 2
+
+
 def _axes(entry) -> tuple:
     if entry is None:
         return ()
+    if isinstance(entry, Parts):
+        return _axes(entry.axes)
     return (entry,) if isinstance(entry, str) else tuple(entry)
 
 
@@ -268,7 +287,12 @@ def gather_full(local: torch.Tensor, spec, mesh) -> torch.Tensor:
         pieces = [torch.empty_like(out)
                   for _ in range(dist.get_world_size(group))]
         dist.all_gather(pieces, out.contiguous(), group=group)
-        out = torch.cat(pieces, dim=dim)
+        if isinstance(entry, Parts):     # each part's blocks in turn
+            out = torch.cat([p.unflatten(dim, (entry.n, -1))
+                             for p in pieces], dim=dim + 1).flatten(
+                                 dim, dim + 1)
+        else:
+            out = torch.cat(pieces, dim=dim)
     return out
 
 
@@ -559,6 +583,57 @@ def vocab_argmax(logits: torch.Tensor, vocab: int) -> torch.Tensor:
     return torch.gather(ids, -1, vals.argmax(dim=-1, keepdim=True))[..., 0]
 
 
+def _parts_moves(k: int, n: int, me: int, inverse: bool) -> tuple:
+    """The chunks rank ``me`` sends and receives in a `Parts` exchange of
+    ``n`` parts over ``k`` ranks: two lists of ``(peer, chunk)``, each in
+    the order `all_to_all_single` moves them (by peer, then chunk).  The
+    dim is ``n * k`` chunks end to end; chunk i is block ``i % k`` of part
+    ``i // k``, held at position ``i % n`` of stored rank ``i // n`` and at
+    position ``i // k`` of compute rank ``i % k``.  Forward moves the
+    stored blocks to the compute ones, ``inverse`` back."""
+    stored = [(i % k, i) for i in range(n * me, n * me + n)]
+    computed = [(i // n, i) for i in (p * k + me for p in range(n))]
+    send, recv = (computed, stored) if inverse else (stored, computed)
+    return sorted(send), sorted(recv)
+
+
+def _exchange_parts(x: torch.Tensor, dim: int, entry: Parts, mesh,
+                    inverse: bool = False) -> torch.Tensor:
+    """``x``'s stored block along ``dim`` (a contiguous 1/k of the dim)
+    moved to this rank's `Parts` block, or back with ``inverse``: one
+    `all_to_all_single` of the chunks over the entry's axes (a copy)."""
+    axes = _axes(entry.axes)
+    k = math.prod(axis_sizes(mesh)[a] for a in axes)
+    send, recv = _parts_moves(k, entry.n, axis_index(mesh, axes), inverse)
+    xs = x.movedim(dim, 0)
+    c = xs.shape[0] // entry.n
+
+    def position(i):                    # of chunk i in the block it is in
+        return i // k if inverse else i % entry.n
+
+    def target(i):                      # of chunk i in the block it makes
+        return i % entry.n if inverse else i // k
+
+    inp = torch.cat([xs.narrow(0, position(i) * c, c) for _, i in send])
+    out = torch.empty_like(inp)
+    dist.all_to_all_single(
+        out, inp, [c * sum(p == r for p, _ in recv) for r in range(k)],
+        [c * sum(p == r for p, _ in send) for r in range(k)],
+        group=axis_group(mesh, axes))
+    order = sorted(range(entry.n), key=lambda j: target(recv[j][1]))
+    return torch.cat([out.narrow(0, j * c, c) for j in order]).movedim(
+        0, dim)
+
+
+def _cut_parts(x: torch.Tensor, dim: int, entry: Parts, mesh
+               ) -> torch.Tensor:
+    """This rank's `Parts` block of ``x``, whole along ``dim`` (a copy)."""
+    y = x.unflatten(dim, (entry.n, -1))
+    spec = [None] * y.ndim
+    spec[dim + 1] = entry.axes
+    return local_shard(y, tuple(spec), mesh).flatten(dim, dim + 1)
+
+
 def compute_block(t, cspec, mesh) -> torch.Tensor:
     """The block of a weight its layer computes with: split along the
     mesh axes ``cspec`` names, whole along every other dim.  From a
@@ -566,13 +641,24 @@ def compute_block(t, cspec, mesh) -> torch.Tensor:
     name (FSDP's data axes, a model split its layer does not compute in),
     then cut where the storage did not split; a plain tensor (the same on
     every rank) is cut.  A plain tensor or a view of the stored block
-    where nothing moves."""
+    where nothing moves.  A `Parts` entry takes the rank's block of each
+    part: moved from the stored block by `_exchange_parts` where the
+    storage splits the dim over the same axes (the leaf is never gathered
+    whole), else cut."""
     from torch.distributed.tensor import DTensor
     if isinstance(t, DTensor):
         local, stored = t.to_local(), spec_of(t)
     else:
         local, stored = t, (None,) * t.ndim
     want = list(cspec) + [None] * (t.ndim - len(cspec))
+    for d, e in enumerate(want):
+        if isinstance(e, Parts):        # the other dims, then the parts
+            moved = bool(_axes(stored[d])) and _axes(stored[d]) == _axes(e)
+            base = list(want)
+            base[d] = stored[d] if moved else None
+            out = compute_block(t, tuple(base), mesh)
+            return (_exchange_parts(out, d, e, mesh) if moved
+                    else _cut_parts(out, d, e, mesh))
     differ = [_axes(a) != _axes(b) for a, b in zip(stored, want)]
     out = local
     if any(differ[d] and stored[d] is not None for d in range(t.ndim)):
@@ -584,11 +670,19 @@ def compute_block(t, cspec, mesh) -> torch.Tensor:
 
 def block_of(x: torch.Tensor, cspec, target, mesh) -> torch.Tensor:
     """``x``, laid out as `compute_block` lays out under ``cspec``, cut
-    to its block under the spec ``target`` (a view)."""
+    to its block under the spec ``target`` (a view; a copy where a `Parts`
+    dim moves back to its stored block, over the same axes)."""
     have = list(cspec) + [None] * (x.ndim - len(cspec))
+    target = list(target) + [None] * (x.ndim - len(target))
+    for d, e in enumerate(have):
+        if isinstance(e, Parts):
+            if _axes(e) != _axes(target[d]):
+                raise ValueError(f"dim {d}: computed as {e}, stored over "
+                                 f"{target[d]}")
+            x = _exchange_parts(x, d, e, mesh, inverse=True)
+            have[d] = target[d]
     cut = []
-    for d, (a, b) in enumerate(zip(have, list(target) + [None] * (
-            x.ndim - len(target)))):
+    for d, (a, b) in enumerate(zip(have, target)):
         if _axes(a) == _axes(b):
             cut.append(None)
         elif a is None:

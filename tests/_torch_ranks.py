@@ -342,10 +342,13 @@ def job_tp_layers(rank, world, args):
 
 
 def job_tp_decode(rank, world, args):
-    """Per case (``cfg``, whole ``params``, whole f32 ``cache`` with
-    its ``lengths``, first ``tokens``): ``args["steps"]`` greedy decode
-    steps on a (1, world) mesh under `decode_rules`, the cache split by
-    sequence (`transformer.cache_block`).  Returns the tokens."""
+    """Per case (``cfg``, whole ``params``, a whole cache with its
+    ``lengths``, its ``paged`` spec or None, first ``tokens``):
+    ``args["steps"]`` greedy decode steps on a (1, world) mesh under
+    `decode_rules` on this rank's block of the cache
+    (`transformer.cache_block`: a contiguous attention cache split by
+    sequence, a paged pool whole, the recurrent states over heads or
+    ``d_in``).  Returns the tokens and whether the rows split."""
     from repro_torch.configs.shapes import ShapeSpec
     from repro_torch.convert import disable_tf32
     from repro_torch.launch import mesh as mesh_lib
@@ -359,14 +362,15 @@ def job_tp_decode(rank, world, args):
         b = cache["lengths"].shape[0]
         rules = specs.rules_for(mesh, ShapeSpec("d", "decode", 1, b))
         mine = transformer.cache_block(cfg, cache, rules, mesh)
-        step = steps.make_serve_step(cfg, torch.float32, mesh=mesh,
+        step = steps.make_serve_step(cfg, torch.float32,
+                                     paged=case.get("paged"), mesh=mesh,
                                      rules=rules)
         tok, seen = case["tokens"], []
         for _ in range(args["steps"]):
             tok, mine = step(case["params"], mine, tok)
             seen.append(tok)
         out[case["name"]] = {"tokens": torch.cat(seen, 1),
-                             "kv_split": mine["kv_split"]}
+                             "kv_split": bool(mine.get("kv_split"))}
     return out
 
 
@@ -400,6 +404,172 @@ def job_tp_ring_bf16(rank, world, args):
                                             kv_split=True)
         out[s] = {"y": y, "cache": seg}
     return out
+
+
+def job_recurrent_layers(rank, world, args):
+    """RWKV6's time and channel mixes and Mamba on a (1, world) mesh under
+    the single-pod rules, each case of ``args["cases"]`` (``cfg``,
+    ``kind``, hybrid sub-layer ``sub``, the layer's whole ``params``,
+    ``x``, cotangent ``cot``, the whole decode ``state`` of the mixer and
+    its step input ``x_step``): forward and the gradients of
+    ``sum(y * cot)`` on this rank's blocks (`transformer.compute_specs`),
+    gathered whole, then one decode step from this rank's block of the
+    state, the new state gathered whole; for Mamba also ``in_proj``'s
+    block from a DTensor stored as the JAX specs store it, and back
+    (`sharding.compute_block`, `sharding.block_of`).  Per model of
+    ``args["caches"]`` (``cfg``, a whole cache): `transformer.cache_block`
+    of it under `decode_rules`, and each leaf's compute spec."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.convert import disable_tf32
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import specs
+    from repro_torch.models import rwkv, ssm, transformer
+    from repro_torch.parallel import sharding as shd
+    disable_tf32()
+    mesh = mesh_lib.make_host_mesh(1, world, device_type="cpu")
+    rules = specs.rules_for(mesh)
+    out = {"cache_block": {}, "compute_specs": {}}
+    for name, (cfg, cache) in args["caches"].items():
+        drules = specs.rules_for(mesh, ShapeSpec(
+            "d", "decode", 1, cache["lengths"].shape[0]))
+        out["cache_block"][name] = transformer.cache_block(cfg, cache,
+                                                           drules, mesh)
+        out["compute_specs"][name] = transformer.compute_specs(cfg, rules)
+    for case in args["cases"]:
+        cfg, kind = case["cfg"], case["kind"]
+        cs = transformer.compute_specs(cfg, rules)["blocks"]
+        st = transformer.cache_specs(cfg)["blocks"]
+        if cfg.family == "hybrid":
+            cs, st = cs[str(case["sub"])], st[str(case["sub"])]
+        cspec = tree_lib.map_structure(
+            lambda c: c[1:], cs["mlp" if kind == "channel" else "mixer"])
+        st_spec = {k: shd.fitted(rules.spec(*st[k][1:]), tuple(v.shape),
+                                 rules) for k, v in case["state"].items()}
+        fn, split = {
+            "time": (rwkv.rwkv_time_mix, rwkv.time_split),
+            "channel": (rwkv.rwkv_channel_mix, rwkv.channel_split),
+            "mamba": (ssm.mamba_apply, ssm.mamba_split)}[kind]
+        res = {}
+        with mesh_lib.set_mesh(mesh), shd.use_rules(rules):
+            s = split(cfg)
+            blk = tree_lib.map_structure(
+                lambda t, c: shd.compute_block(t, c, mesh).clone()
+                .requires_grad_(), case["params"], cspec)
+            x = case["x"].clone().requires_grad_()
+            y = shd.leave(fn(blk, shd.enter(x, s), cfg)[0], s)
+            y.backward(case["cot"])
+            res["y"], res["dx"] = y.detach(), x.grad
+            res["grads"] = tree_lib.map_structure(
+                lambda t, c: shd.gather_full(t.grad, c, mesh), blk, cspec)
+            mine = {k: shd.local_shard(v, st_spec[k], mesh).clone()
+                    for k, v in case["state"].items()}
+            with torch.no_grad():
+                ys, new = fn(blk, shd.enter(case["x_step"], s), cfg, mine)
+                res["y_step"] = shd.leave(ys, s)
+            res["state"] = {k: shd.gather_full(v, st_spec[k], mesh)
+                            for k, v in new.items()}
+            if kind == "mamba":
+                w = case["params"]["in_proj"]
+                stored = shd.fitted(rules.spec("embed", "ff"),
+                                    tuple(w.shape), rules)
+                dt = shd.distribute(w, stored, mesh)
+                got = shd.compute_block(dt, cspec["in_proj"], mesh)
+                res["in_proj"] = {
+                    "block": got,
+                    "plain": shd.compute_block(w, cspec["in_proj"], mesh),
+                    "back": torch.equal(shd.block_of(
+                        got, cspec["in_proj"], stored, mesh), dt.to_local()),
+                    "whole": torch.equal(shd.gather_full(
+                        got, cspec["in_proj"], mesh), w)}
+        out[case["name"]] = res
+    return out
+
+
+def job_chip_tp(rank, world, args):
+    """`chip_smoke.py`'s new ``tensor_parallel`` parts on the CPU at SMOKE
+    width, on a (1, world) mesh: `tp_decode_layouts` (Qwen3-14B SMOKE),
+    `tp_rwkv` (RWKV6 SMOKE at ``args["shape"]`` and a
+    ``args["prefill"]``-token prefill) and `mamba_parallel` (Jamba SMOKE).
+    Returns each part's record."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    import repro_torch.configs as configs
+    from repro_torch.convert import disable_tf32
+    from repro_torch.kernels.attention import decode, decode_int8
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import specs
+    from repro_torch.models import transformer
+    from repro_torch.optim import adamw
+    disable_tf32()
+    mesh = mesh_lib.make_host_mesh(1, world, device_type="cpu")
+    rules = specs.rules_for(mesh)
+    mods = (decode, decode_int8)
+
+    def peak(res):
+        return res
+
+    def free():
+        pass
+
+    qcfg = configs.get_smoke("qwen3_14b")
+    out = chip_smoke.tp_decode_layouts(
+        torch, mods, qcfg,
+        transformer.init(qcfg, torch.Generator().manual_seed(0)), mesh,
+        "cpu", peak, free)
+    opt = adamw.AdamWConfig(peak_lr=1e-4, warmup_steps=1, total_steps=10)
+    out.update(chip_smoke.tp_rwkv(
+        torch, mods, configs.get_smoke("rwkv6_7b"), opt, mesh, rules, "cpu",
+        peak, free, shape=args["shape"], prefill=args["prefill"]))
+    out["mamba"] = chip_smoke.mamba_parallel(
+        torch, configs, mesh, rules, "cpu",
+        cfg=configs.get_smoke("jamba_1_5_large_398b"))
+    return out
+
+
+class _RoundGrad(torch.autograd.Function):
+    """Identity forward; the gradient rounded to bf16 backward."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(torch.bfloat16).float()
+
+
+def job_chip_mamba(rank, world, args):
+    """`chip_smoke.mamba_parallel` alone on a (1, world) mesh: at Jamba
+    SMOKE width on the CPU, or with ``args["device"]`` "cuda" at the
+    phase's own width on ``cuda:0``.  With ``args["round_on_each_rank"]``
+    Mamba's scan takes the fault of rounding each rank's part of the
+    gradients that enter it to bf16 before the ranks' sum (the unsplit
+    scan rounds the whole sum once).  Returns the part's record."""
+    sys.path.insert(0, str(ROOT))
+    import types
+
+    import chip_smoke
+    import repro_torch.configs as configs
+    from repro_torch.convert import disable_tf32
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import specs
+    from repro_torch.models import ssm
+    from repro_torch.parallel import sharding as shd
+    disable_tf32()
+    if args.get("round_on_each_rank"):
+        def copy_in(x, s):
+            return x if s is None else _RoundGrad.apply(shd.copy_in(x, s))
+        ssm.shd = types.SimpleNamespace(**{**vars(shd), "copy_in": copy_in})
+    dev = args.get("device", "cpu")
+    if dev == "cuda":
+        torch.cuda.set_device(0)
+    mesh = mesh_lib.make_host_mesh(1, world, device_type=dev,
+                                   backend="gloo")
+    return chip_smoke.mamba_parallel(
+        torch, configs, mesh, specs.rules_for(mesh), dev,
+        cfg=(None if dev == "cuda"
+             else configs.get_smoke("jamba_1_5_large_398b")))
 
 
 def _main(job, rank, world, d):

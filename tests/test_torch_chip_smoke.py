@@ -1,6 +1,7 @@
 """`chip_smoke.py` on a host without a card: its per-row tolerance check
 and its refusal to run.  The script itself drives the card."""
 
+import json
 import pathlib
 import subprocess
 import sys
@@ -697,6 +698,57 @@ def test_moe_expert_parallel_on_a_smoke_model(two_threads):
     assert res["send_stage_dropped"] == 0
     assert res["expert_stage_dropped"] > 0
     assert sum(res["items_per_expert"]) == res["items"] == 4 * 16 * 2
+
+
+def test_tensor_parallel_parts_on_smoke_models(tmp_path):
+    """The ``tensor_parallel`` phase's decode layouts, RWKV6 and Mamba
+    parts on two gloo ranks on the CPU at SMOKE width: Qwen3-14B's f32
+    and int8 caches split by sequence and its paged bf16 and int8 pools
+    whole (every paged call on a strided view of the cache's own pool;
+    the CPU's plain versions launch no kernel, where the card's phase
+    holds each part to its kernel once a layer a step), RWKV6's train step,
+    prefill and decode, and Mamba's forward, gradients and decode state,
+    each as the phase gates it on the card."""
+    import _torch_ranks
+    res = _torch_ranks.spawn("chip_tp", 2, tmp_path,
+                             {"shape": (2, 16), "prefill": 24}, timeout=240)
+    for rank in res:
+        for part, rec in rank.items():
+            assert rec["ok"], (part, rec)
+        layouts = ("qwen3_decode", "qwen3_decode_int8",
+                   "qwen3_decode_paged_bf16", "qwen3_decode_paged_int8")
+        assert [rank[p]["kv_split"] for p in layouts] == \
+            [True, True, False, False]
+        assert all(rank[p]["launches"] == {} for p in layouts)
+        assert rank["qwen3_decode_paged_int8"]["pool_views"]["calls"] == \
+            2 * chip_smoke.TP_DECODE_STEPS
+        assert rank["mamba"]["split"] == 2
+        assert rank["mamba"]["rank_d_in"] == 64
+
+
+@pytest.mark.parametrize("device", [
+    "cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
+def test_mamba_parallel_fails_gradients_rounded_on_each_rank(tmp_path,
+                                                             device):
+    """`mamba_parallel`'s limits pass the sound split and fail one that
+    rounds each rank's part of the gradients entering the scan to bf16
+    before the ranks' sum: at SMOKE width on the CPU (where the fault
+    shows on x_proj's own error), at Jamba-1.5-Large's width on a card.
+    Prints both splits' errors."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import _torch_ranks
+    keys = ("grad_rel_err", "dx_rel_err", "grad_rel_err_by_leaf", "ok")
+    res = {}
+    for fault in (False, True):
+        res[fault] = _torch_ranks.spawn(
+            "chip_mamba", 2, tmp_path,
+            {"device": device, "round_on_each_rank": fault}, timeout=240)
+        print(json.dumps({"device": device, "round_on_each_rank": fault,
+                          "ranks": [{k: r[k] for k in keys}
+                                    for r in res[fault]]}))
+    assert all(r["ok"] for r in res[False]), res[False]
+    assert not any(r["ok"] for r in res[True]), res[True]
 
 
 def test_train_resume_cut_on_a_smoke_model(two_threads, tmp_path):

@@ -198,6 +198,38 @@ def _int8(k, v):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["paged_decode_attention",
+                                    "paged_quantized_decode_attention"])
+def test_paged_kernels_read_a_strided_pool_view(cuda, kernel):
+    """B2 and B4 read a rank's KV heads of a whole pool (heads 4..7 of 8,
+    20 query heads, as a model axis of 2 narrows it) in place through its
+    strides: against the plain version on the same view, and bitwise the
+    kernel's output on a contiguous copy of the view.  q is f32, as the
+    f32 split decode passes it, holding values of a bf16 pool's type (B2
+    meets the keys in it)."""
+    k, v, pages = _pool(14, SPLIT_LENGTHS, 16, 8, 128, cuda)
+    if kernel == "paged_decode_attention":
+        fn, ref = decode.paged_gqa_decode_attention, decode.paged_decode_ref
+        pool = (k.to(torch.bfloat16), v.to(torch.bfloat16))
+    else:
+        fn = decode_int8.paged_quantized_gqa_decode_attention
+        ref = decode_int8.paged_quantized_decode_ref
+        pool = _int8(k, v)
+    view = tuple(t.narrow(2, 4, 4) for t in pool)
+    assert not any(t.is_contiguous() for t in view)
+    q = torch.randn((len(SPLIT_LENGTHS), 20, 128), device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(15))
+    q = q.to(pool[0].dtype).float() if pool[0].is_floating_point() else q
+    lv = torch.tensor(SPLIT_LENGTHS, dtype=torch.int32, device=cuda)
+    out = fn(q, *view, pages, length=lv)
+    copy = fn(q, *(t.contiguous() for t in view), pages, length=lv)
+    want = ref(q, *view, pages, length=lv)
+    torch.cuda.synchronize()
+    _assert_rows_close(out, want, True)
+    torch.testing.assert_close(out, copy, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("q_dt", list(DTYPES))
 @pytest.mark.parametrize("dh, g", [(16, 5), (128, 5), (128, 16), (96, 1)])
 def test_quantized_kernel_matches_quantized_decode_ref(cuda, dh, g, q_dt):
@@ -321,6 +353,38 @@ def test_kernels_match_their_refs_at_split_edges(cuda, kernel, q_dt, kv_dt):
     assert sum(_launch_counts()) == before + 1
     _assert_rows_close(out, want, q_dt == "f32")
     assert not out[0].any(), "length 0 must give zeros"
+
+
+STATS_KERNELS = ("decode_attention", "quantized_decode_attention")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dt, kv_dt", SPLIT_DTYPES)
+@pytest.mark.parametrize("kernel", STATS_KERNELS)
+def test_kernel_statistics_match_their_refs_at_split_edges(cuda, kernel,
+                                                           q_dt, kv_dt):
+    """B1 and B3 with ``return_stats`` at the split edges: the output, m
+    and l against the plain version's (m and l within 1e-4 of their
+    largest |value|; a row of length 0 the empty partial, m = -1e30 and
+    l = 0), one launch; and the output bitwise the call's without
+    statistics."""
+    fn, ref, args, lv = _decode_case(kernel, SPLIT_LENGTHS, SPLIT_ROWS, cuda,
+                                     q_dt=q_dt, kv_dt=kv_dt)
+    plain = fn(*args, length=lv)
+    before = sum(_launch_counts())
+    out, m, l = fn(*args, length=lv, return_stats=True)
+    torch.cuda.synchronize()
+    assert sum(_launch_counts()) == before + 1
+    want, wm, wl = ref(*args, length=lv, return_stats=True)
+    assert torch.equal(out, plain)
+    _assert_rows_close(out, want, q_dt == "f32")
+    assert m.shape == l.shape == out.shape[:2]
+    assert m.dtype == l.dtype == torch.float32
+    assert bool((m[0] == decode.NEG_INF).all()) and not bool(l[0].any())
+    live = slice(1, None)
+    for got, exp in ((m[live], wm[live]), (l[live], wl[live])):
+        top = float(exp.abs().max())
+        assert float((got - exp).abs().max()) <= 1e-4 * top
 
 
 @pytest.mark.cuda

@@ -178,3 +178,42 @@ def test_split_then_combine_matches_jax_quantized_decode_ref(dh, g):
         length=jnp.asarray(SPLIT_LENGTHS))
     np.testing.assert_allclose(_np(out_t), _np(out_j), rtol=1e-5, atol=1e-5)
     assert not _np(out_t)[0].any(), "length 0 must give zeros"
+
+
+@pytest.mark.parametrize("g", [1, 4])
+def test_quantized_decode_statistics_combine_into_the_unsplit_row(g):
+    """B3's plain version with ``return_stats``: its output equals the call
+    without them and JAX's `quantized_decode_ref`; its (out, m, l) over
+    two halves of the keys, combined by `decode.combine_partials` from
+    ``out * l``, equal the row over all of them within 1e-5, lengths in
+    the first half, across it, 0 and the whole cache; the whole row's
+    statistics are the halves' combined."""
+    rng = np.random.default_rng(4)
+    b, rows, hkv, dh = 4, 64, 2, 16
+    kq, ks = _codes(rng, (b, rows, hkv, dh))
+    vq, vs = _codes(rng, (b, rows, hkv, dh))
+    _, q = _q(rng, b, hkv * g, dh, "f32")
+    t = [torch.from_numpy(a) for a in (kq, ks, vq, vs)]
+    length = torch.tensor([0, 20, 33, rows], dtype=torch.int32)
+    whole, m, l = tint8.quantized_gqa_decode_attention(
+        q, *t, length=length, return_stats=True)
+    assert torch.equal(whole, tint8.quantized_gqa_decode_attention(
+        q, *t, length=length))
+    want = _np(jint8.quantized_decode_ref(
+        jnp.asarray(q.numpy()), jnp.asarray(kq), jnp.asarray(ks),
+        jnp.asarray(vq), jnp.asarray(vs), length=jnp.asarray(length.numpy())))
+    np.testing.assert_allclose(whole.numpy(), want, rtol=0, atol=1e-5)
+    assert bool((m[0] == tdecode.NEG_INF).all()) and not bool(l[0].any())
+    half = rows // 2
+    parts = [tint8.quantized_gqa_decode_attention(
+        q, *(a[:, i:i + half] for a in t),
+        length=torch.clamp(length - i, 0, half), return_stats=True)
+        for i in (0, half)]
+    out = tdecode.combine_partials(
+        torch.stack([p[1] for p in parts]), torch.stack([p[2] for p in parts]),
+        torch.stack([p[0] * p[2][..., None] for p in parts]))
+    assert float((out - whole).abs().max()) <= 1e-5 * float(
+        whole.abs().max())
+    mx = torch.maximum(parts[0][1], parts[1][1])
+    lsum = sum(p[2] * torch.exp(p[1] - mx) for p in parts)
+    assert torch.allclose(mx, m) and torch.allclose(lsum, l, rtol=1e-5)

@@ -430,6 +430,46 @@ def test_rank_flops_on_a_data_2_model_4_mesh_are_an_eighth(no_group, kind):
     assert flops[1] == pytest.approx(flops[0] / 8, rel=1e-2)
 
 
+def _whole_matmul_flops(cfg, tokens: int) -> tuple[float, int]:
+    """The forward matmul FLOPs of a step over ``tokens`` that a model
+    rank of a (2, 4) mesh does not split four ways, and the ways it
+    splits them: RWKV6's gate ``cr`` and the first half of its decay LoRA
+    (whole on every model rank, 1), Jamba's K and V projections (the one
+    KV head of two the rank's query head reads, 2)."""
+    d = cfg.d_model
+    if cfg.family == "ssm":
+        return cfg.num_layers * 2.0 * tokens * d * (d + cfg.rwkv_lora_dim), 1
+    attn = sum(cfg.is_attn_layer(l) for l in range(cfg.num_layers))
+    return attn * 2 * 2.0 * tokens * d * cfg.num_kv_heads * cfg.head_dim, 2
+
+
+@pytest.mark.parametrize("arch", ["rwkv6_7b", "jamba_1_5_large_398b"])
+@pytest.mark.parametrize("kind", ["train", "prefill"])
+def test_recurrent_rank_flops_on_a_data_2_model_4_mesh_by_hand(
+        no_group, arch, kind):
+    """RWKV6 and Jamba SMOKE split their mixers over the model axis: rank
+    0's counted FLOPs on a fake (2, 4) mesh equal the one-rank count of
+    the global batch with every matmul split eight ways, but those the
+    model ranks compute whole (RWKV6's ``cr`` and the first half of its
+    decay LoRA) or halved (Jamba's K and V projections), which divide by
+    the data axis's 2 only (by 4), within 1 %.  A train step's matmuls
+    cost three times their forward."""
+    cfg = configs.get_smoke(arch)
+    shape = ShapeSpec("t", kind, 64, 8)
+    flops = []
+    for mesh_shape in ((1, 1), (2, 4)):
+        mesh = make_mesh(mesh_shape, ("data", "model"), device_type="meta")
+        fn, args = dryrun._rank_step(cfg, shape, mesh,
+                                     specs.rules_for(mesh, shape))
+        flops.append(hlo_stats.cost_analysis_stats(
+            hlo_stats.count_step(fn, *args))[0])
+    whole, ways = _whole_matmul_flops(cfg, 64 * 8)
+    whole *= 3 if kind == "train" else 1
+    hand = (flops[0] - whole) / 8 + whole / (2 * ways)
+    assert flops[1] == pytest.approx(hand, rel=1e-2)
+    assert flops[1] < flops[0] / 6
+
+
 def test_a_foreign_not_implemented_error_is_an_error(no_group, tmp_path,
                                                      monkeypatch):
     """Only `sharding.NotInPort` makes a cell ``skipped``: an operator

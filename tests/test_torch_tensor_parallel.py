@@ -13,17 +13,22 @@ subprocess, started before the ranks and read after them).
   `rules_for(mesh)` with the state placed by `specs.state_shardings`
   (the forward in f32 on both sides): loss within 1e-5 relative,
   gradients within 1e-5 of the step's largest |gradient|, the gradient
-  norm within 1e-5 relative, for Qwen3-14B, H2O-Danube (window) and
+  norm within 1e-5 relative, for Qwen3-14B, H2O-Danube (window),
   Phi-3.5-MoE SMOKE (the experts and the router trained over the model
-  axis), Qwen3-14B under `sequence_parallel`, and Qwen3-14B with int8
-  moments (updated on each rank's blocks); the state after the step
-  bitwise `adamw.update` of those gradients at the step's norm.
+  axis), RWKV6 SMOKE (its time mix over its heads, its channel mix over
+  d_ff) and Jamba SMOKE (Mamba over d_in, its experts over the model
+  axis), Qwen3-14B and RWKV6 under `sequence_parallel`, and Qwen3-14B
+  with int8 moments (updated on each rank's blocks); the state after the
+  step bitwise `adamw.update` of those gradients at the step's norm.
 - (c) The prefill step's greedy tokens on that mesh equal JAX's.
-- (d) 8 greedy decode steps under `decode_rules` on (1, 2), the cache
-  split by sequence, equal JAX's `make_serve_step` over `decode_specs`'
-  shardings: slots whose lengths cross the segment boundary, one of
-  length 0, and Danube's ring; and Danube's ring of bf16 rows split by
-  sequence against the unsplit ring, layer by layer.
+- (d) 8 greedy decode steps under `decode_rules` on (1, 2) equal JAX's
+  `make_serve_step` over its caches placed by
+  `transformer.cache_specs(cfg, paged, kv_dtype)`: a contiguous f32
+  cache split by sequence (slots whose lengths cross the segment
+  boundary, one of length 0), Danube's ring, RWKV6's and Jamba's states
+  over heads and d_in, Qwen3-14B's int8 cache split by sequence and its
+  paged bf16 and int8 pools whole; and Danube's ring of bf16 rows split
+  by sequence against the unsplit ring, layer by layer.
 - (e) B1's plain version returns statistics that `combine_partials`
   turns back into the unsplit row.
 """
@@ -46,6 +51,7 @@ from repro_torch.launch import specs  # noqa: E402
 from repro_torch.models import layers, transformer  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.parallel.loss import fused_cross_entropy  # noqa: E402
+from repro_torch.runtime.paging import PageSpec  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REL = 1e-5
@@ -55,9 +61,23 @@ TRAIN = (("qwen3_14b", "qwen3_14b", False, "float32"),
          ("h2o_danube_1_8b", "h2o_danube_1_8b", False, "float32"),
          ("phi3_5_moe_42b", "phi3_5_moe_42b", False, "float32"),
          ("qwen3_14b_sp", "qwen3_14b", True, "float32"),
-         ("qwen3_14b_int8", "qwen3_14b", False, "int8"))
-DECODE = (("qwen3_14b", 32, (0, 13, 15, 20)),
-          ("h2o_danube_1_8b", 32, (0, 3, 5, 9)))
+         ("qwen3_14b_int8", "qwen3_14b", False, "int8"),
+         ("rwkv6_7b", "rwkv6_7b", False, "float32"),
+         ("rwkv6_7b_sp", "rwkv6_7b", True, "float32"),
+         ("jamba_1_5_large_398b", "jamba_1_5_large_398b", False, "float32"))
+# (name, arch, rows, lengths, cache layout): "f32" contiguous, "int8"
+# contiguous, "paged_bf16" and "paged_int8" pools of PAGE-token pages
+DECODE = (("qwen3_14b", "qwen3_14b", 32, (0, 13, 15, 20), "f32"),
+          ("h2o_danube_1_8b", "h2o_danube_1_8b", 32, (0, 3, 5, 9), "f32"),
+          ("rwkv6_7b", "rwkv6_7b", 32, (0, 3, 5, 9), "f32"),
+          ("jamba_1_5_large_398b", "jamba_1_5_large_398b", 32,
+           (0, 13, 15, 20), "f32"),
+          ("qwen3_14b_int8", "qwen3_14b", 32, (0, 13, 15, 20), "int8"),
+          ("qwen3_14b_paged_bf16", "qwen3_14b", 32, (0, 13, 15, 20),
+           "paged_bf16"),
+          ("qwen3_14b_paged_int8", "qwen3_14b", 32, (0, 13, 15, 20),
+           "paged_int8"))
+PAGE = 4
 STEPS = 8
 
 REFERENCE = r"""
@@ -74,6 +94,7 @@ from repro.models import transformer
 from repro.optim import adamw
 from repro.parallel import sharding as shd
 from repro.parallel.loss import fused_cross_entropy
+from repro.runtime.paging import PageSpec
 
 transformer.forward = functools.partial(transformer.forward,
                                         compute_dtype=jnp.float32)
@@ -130,37 +151,56 @@ for name, arch, sp, moments in TRAIN:
 mesh = jax.sharding.Mesh(np.array(jax.devices()[:2]).reshape(1, 2),
                          ("data", "model"), **axis_types_kwargs(2))
 rng = np.random.default_rng(3)
-for arch, rows, lengths in DECODE:
+DTYPES = {"f32": jnp.float32, "int8": jnp.int8, "paged_bf16": jnp.bfloat16,
+          "paged_int8": jnp.int8}
+for name, arch, rows, lengths, layout in DECODE:
     cfg = configs.get_smoke(arch)
     params = transformer.init(cfg, jax.random.PRNGKey(1))
     b = len(lengths)
     shape = ShapeSpec("d", "decode", rows, b)
     rules = specs.rules_for(mesh, shape)
     _, sh = specs.decode_specs(cfg, shape, mesh, rules)
-    cache = transformer.cache_init(cfg, b, rows, dtype=jnp.float32)
-    blocks = {k: rng.standard_normal(v.shape).astype(np.float32)
-              for k, v in cache["blocks"].items()}
+    paged = (PageSpec(%(page)d, b * rows // %(page)d, rows // %(page)d)
+             if layout.startswith("paged") else None)
+    dtype = DTYPES[layout]
+    cache = transformer.cache_init(cfg, b, rows, dtype=dtype, paged=paged)
+    leaves = [(rng.integers(-127, 128, v.shape) if v.dtype == jnp.int8
+               else rng.standard_normal(v.shape)).astype(
+                   jnp.bfloat16 if v.dtype == jnp.bfloat16 else v.dtype)
+              for v in jax.tree.leaves(cache["blocks"])]
     lens = np.asarray(lengths, np.int32)
-    cache = {"blocks": {k: jnp.asarray(v) for k, v in blocks.items()},
+    cache = {"blocks": jax.tree.unflatten(
+                 jax.tree.structure(cache["blocks"]),
+                 [jnp.asarray(v) for v in leaves]),
              "index": jnp.asarray(int(lens.max()), jnp.int32),
              "lengths": jnp.asarray(lens)}
+    if paged is not None:
+        cache["pages"] = jnp.asarray(rng.permutation(paged.num_pages)
+                                     .reshape(b, -1).astype(np.int32))
+        out[name + "/pages"] = np.asarray(cache["pages"])
+    c_sh = jax.tree.map(
+        lambda ps: NamedSharding(mesh, ps), specs.fit_pspecs(
+            specs.logical_to_pspec(transformer.cache_specs(
+                cfg, paged=paged, kv_dtype=dtype), rules), cache, rules),
+        is_leaf=lambda x: isinstance(x, P))
     tok0 = rng.integers(0, cfg.vocab_size, (b, 1)).astype(np.int32)
     with set_mesh(mesh), shd.use_rules(rules):
         p = jax.device_put(params, sh["params"])
-        c = jax.device_put(cache, sh["cache"])
-        step = jax.jit(steps.make_serve_step(cfg))
+        c = jax.device_put(cache, c_sh)
+        step = jax.jit(steps.make_serve_step(cfg, paged=paged))
         tok, seen = jax.device_put(jnp.asarray(tok0), sh["tokens"]), []
         for _ in range(%(steps)d):
             tok, c = step(p, c, tok)
             seen.append(np.asarray(tok))
-    out[arch + "/decode"] = np.concatenate(seen, 1)
-    out[arch + "/tok0"] = tok0
-    for k, v in blocks.items():
-        out[f"{arch}/cache_{k}"] = v
+    out[name + "/decode"] = np.concatenate(seen, 1)
+    out[name + "/tok0"] = tok0
+    for i, v in enumerate(leaves):
+        out[f"{name}/cache{i}"] = (v.view(np.uint16)
+                                   if v.dtype == jnp.bfloat16 else v)
     for i, leaf in enumerate(jax.tree.leaves(params)):
-        out[f"{arch}/dparam{i}"] = np.asarray(leaf)
+        out[f"{name}/dparam{i}"] = np.asarray(leaf)
 np.savez(sys.argv[1], **out)
-""" % {"train": TRAIN, "decode": DECODE, "steps": STEPS}
+""" % {"train": TRAIN, "decode": DECODE, "steps": STEPS, "page": PAGE}
 
 
 @pytest.fixture(autouse=True)
@@ -219,18 +259,28 @@ def runs(tmp_path_factory):
                       "params": _params(cfg, [npz[f"{ref}/param{i}"]
                                               for i in range(n)])})
     dec = []
-    for arch, rows, lengths in DECODE:
+    for name, arch, rows, lengths, layout in DECODE:
         cfg = tconfigs.get_smoke(arch)
         n = len(tree_lib.leaves(specs.abstract_params(cfg, torch.float32)))
-        cache = transformer.cache_init(cfg, len(lengths), rows,
-                                       dtype=torch.float32, device="cpu")
-        for k in cache["blocks"]:
-            cache["blocks"][k] = torch.from_numpy(npz[f"{arch}/cache_{k}"])
+        b = len(lengths)
+        paged = (PageSpec(PAGE, b * rows // PAGE, rows // PAGE)
+                 if layout.startswith("paged") else None)
+        dtype = {"f32": torch.float32, "paged_bf16": torch.bfloat16}.get(
+            layout, torch.int8)
+        cache = transformer.cache_init(cfg, b, rows, dtype=dtype,
+                                       device="cpu", paged=paged)
+        for i, leaf in enumerate(tree_lib.leaves(cache["blocks"])):
+            a = torch.from_numpy(np.array(npz[f"{name}/cache{i}"]))
+            leaf.copy_(a.view(torch.bfloat16) if leaf.dtype == torch.bfloat16
+                       else a)       # in place: a pool keeps its trash page
+        if paged is not None:
+            cache["pages"] = torch.from_numpy(npz[f"{name}/pages"])
         cache["lengths"] = torch.tensor(lengths, dtype=torch.int32)
         cache["index"] = torch.tensor(max(lengths), dtype=torch.int32)
-        dec.append({"name": arch, "cfg": cfg, "cache": cache,
-                    "tokens": torch.from_numpy(npz[f"{arch}/tok0"]),
-                    "params": _params(cfg, [npz[f"{arch}/dparam{i}"]
+        dec.append({"name": name, "cfg": cfg, "cache": cache,
+                    "paged": paged,
+                    "tokens": torch.from_numpy(npz[f"{name}/tok0"]),
+                    "params": _params(cfg, [npz[f"{name}/dparam{i}"]
                                             for i in range(n)])})
     train = _torch_ranks.spawn("tp_train", 4, tmp, {"cases": cases},
                                timeout=180)
@@ -383,9 +433,16 @@ def test_prefill_tokens_on_data_2_model_2_equal_jax(runs, name):
 
 @pytest.mark.parametrize("arch", [d[0] for d in DECODE])
 def test_decode_over_a_sequence_split_cache_equals_jax(runs, arch):
+    """Under `decode_rules`: a contiguous attention cache (f32 or int8)
+    split by sequence, a paged pool whole on each rank, the RWKV and
+    Mamba states split over heads and ``d_in``; 8 greedy tokens equal
+    JAX's."""
     want = runs["npz"][arch + "/decode"]
+    _, real, _, _, layout = next(d for d in DECODE if d[0] == arch)
+    contiguous_attention = (not layout.startswith("paged")
+                            and real != "rwkv6_7b")
     for r in runs["decode"]:
-        assert r[arch]["kv_split"]
+        assert r[arch]["kv_split"] == contiguous_attention
         assert np.array_equal(r[arch]["tokens"].numpy(), want), arch
 
 
