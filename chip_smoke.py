@@ -59,13 +59,16 @@ Phases, each printed as one JSON line:
    (causal, Hq 40, Hkv 8, dh 128: the TMA/wgmma kernel) at 32,768 and
    4,096 tokens, Danube's (window 4096, Hq 32, Hkv 8, dh 80: the mma.sync
    kernel) at 32,768, a non-causal ragged case, window cases with Sq > Sk
-   at dh 80 and 128, and an f32 case; each with its design and tile, its
+   at dh 80 and 128, an f32 case and Phi-3-mini's 4k prefill (Hq = Hkv
+   = 32, dh 96: mma.sync); each with its design and tile, its
    time, its bound from the pairs the mask keeps, the plain version's
    time and PyTorch SDPA's.
-6. ``prefill`` and ``prefill_danube``: `steps.make_prefill_step` at the
-   full published width and depth of Qwen3-14B and H2O-Danube-1.8B
-   (random bf16 weights from a seeded generator) on 1 x 32,768 tokens,
-   ``prefill_32k``'s length (its global batch of 32 is cut to 1): host ms
+6. ``prefill``, ``prefill_danube`` and ``prefill_phi3_mini``:
+   `steps.make_prefill_step` at the full published width and depth of
+   Qwen3-14B, H2O-Danube-1.8B and Phi-3-mini-3.8B (random bf16 weights
+   from a seeded generator) on 1 x 32,768 tokens, ``prefill_32k``'s
+   length (its global batch of 32 is cut to 1; Phi-3-mini-4k to its
+   4,096-token context, B5 launched 3 x 32 times in the check): host ms
    per forward, prompt tokens/s, flash launches (one per layer per
    forward, no decode kernel), peak memory and device time by kernel
    from `torch.profiler` over one traced forward.
@@ -75,9 +78,9 @@ Phases, each printed as one JSON line:
    (`attention_core`) agree within 1e-4 in f32; in bf16 the prefill path
    is no farther from the f32 logits than the full forward plus the bf16
    logit bound, within that bound on the first 2 layers and within the
-   depth's derived bound (`bf16_logit_rel`) on the first 8 and at full
-   depth, and the greedy tokens agree (or the top-2 gap is below the
-   bound).
+   depth's derived bound (`bf16_logit_rel`) on the first 8 (and 40,
+   where the model is deeper) and at full depth, and the greedy tokens
+   agree (or the top-2 gap is below the bound).
 7. ``serve``, ``serve_paged``, ``serve_int8``, ``serve_paged_int8``:
    `repro_torch.launch.serve` at Qwen3-14B's full published width (random
    bf16 weights from a seeded generator) serves 6 requests through each
@@ -132,7 +135,8 @@ Phases, each printed as one JSON line:
    ring, 20 more one at a time, f32, against the cache-free windowed
    forward, 1e-4 of the largest |logit|); ``serve_moe`` and
    ``serve_moe_paged`` (Phi-3.5-MoE at full width, 16 of 32 layers: B1,
-   B2) and ``moe_paged_vs_contiguous`` (the paged run's streams equal a
+   B2) and ``moe_paged_vs_contiguous`` (`paged_run_vs_contiguous`: the
+   paged run's streams equal a
    contiguous server's with its weights at the same, default, span);
    every serve run under the CLI's sharding rules (`serve.serving_rules`:
    a (1, 1) mesh over a one-rank NCCL group), so MoE layers take
@@ -153,6 +157,24 @@ Phases, each printed as one JSON line:
    ``prefill_hubert`` (HuBERT-XLarge, 2 x 1,000 frames, B5 non-causal at
    head_dim 80) and ``prefill_internvl2`` (InternVL2-2B, 1,024 patches and
    512 tokens, B5 causal at 128), each gated as ``prefill_vs_forward``.
+   The last dense configurations (ROADMAP F1, F3; `dense_phases`), each
+   serve run through `family_serve` at full width and depth:
+   ``serve_phi3_mini``, ``_paged``, ``_int8`` (at the tuner's batch,
+   ``--batch 0``: its pick and predicted step beside the measured p50)
+   and ``_paged_int8`` (Phi-3-mini-3.8B, plain MHA at head_dim 96: B1-B4
+   at g 1), ``phi3_mini_vs_teacher_forcing`` (64 tokens through B1 in
+   f32, 1e-4 of the largest |logit|, B1 once per layer a step),
+   ``phi3_mini_paged_vs_contiguous``; ``serve_internvl2`` (InternVL2-2B's
+   token stream, B1 at g 2); ``qwen2_5_32b_memory`` (with every earlier
+   weight and cache freed, the card's free memory against Qwen2.5-32B's
+   65.5 GB of bf16 weights, its cache and a reserve: the depth that fits,
+   cut only where all 64 layers do not), ``serve_qwen2_5_32b`` (f32, B1)
+   and ``serve_qwen2_5_32b_paged_bf16`` (B2), each with its peak memory,
+   and ``prefill_qwen2_5_32b`` (`prefill_vs_forward` on those weights at
+   4,096 tokens: the bf16 bound at 2, 8, 40 and 64 layers).  Phi-3-mini's
+   prefill is ``prefill_phi3_mini`` (step 6, 1 x 4,096 tokens, its
+   context; B5 on mma.sync at head_dim 96), and ``kernel_cases`` holds
+   B1-B4 at Phi-3-mini's serve shape and B1 at InternVL2's.
 8. ``paged_vs_contiguous``: one set of full-width weights serves the same
    4 requests through a contiguous and a paged f32 cache, both at the
    kernels' default span; the greedy token streams must be equal.
@@ -275,6 +297,7 @@ import math
 import pathlib
 import subprocess
 import sys
+import threading
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -359,6 +382,9 @@ DESIGNS = {
     "ell_spmv_blocked": "stage-or-gather: x staged when one slab, "
                         "else gathered directly",
 }
+# The kernels of the paper's slice (their sources: every one but the
+# attention kernels'), first launched by `paper_phases`.
+PAPER_KERNELS = ("blocked_matmul", "ell_spmv", "ell_spmv_blocked")
 # Where each kernel's source is and which Pallas kernel it replaces.
 KERNELS = {
     "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
@@ -412,12 +438,19 @@ FLASH_CASES = [
     ("qwen3_4k_f32", 1, 4096, 4096, 40, 8, 128, True, None, "f32"),
     # one rank's heads of Qwen3-14B's prefill on a model axis of 2
     (TP_FLASH_CASE, 1, 8192, 8192, 20, 4, 128, True, None, "bf16"),
+    # Phi-3-mini-3.8B's prefill at its 4k context: MHA at head_dim 96, the
+    # mma.sync design
+    ("phi3_mini_prefill_4k", 1, 4096, 4096, 32, 32, 96, True, None, "bf16"),
 ]
-# (phase, arch, prefill_vs_forward's length: past Danube's 4096 window)
-PREFILL_PHASES = [("prefill", "qwen3_14b", 4096),
-                  ("prefill_danube", "h2o_danube_1_8b", 6144)]
+# (phase, arch, prompt tokens: prefill_32k's 32,768, or the model's own
+# context where shorter, prefill_vs_forward's length: past Danube's 4096
+# window)
+PREFILL_PHASES = [("prefill", "qwen3_14b", 32768, 4096),
+                  ("prefill_danube", "h2o_danube_1_8b", 32768, 6144),
+                  ("prefill_phi3_mini", "phi3_mini_3_8b", 4096, 4096)]
 PREFILL_TIMED = 2                    # untraced forwards after a warm-up
 MID_DEPTH = 8                        # a depth between it and the full
+DEEP_DEPTH = 40                      # Qwen3-14B's depth, read on deeper models
 # One definition of the bf16 logit bound serves the server's near-tie
 # rule, `prefill_vs_forward` and `_near_tie`: 3e-2 of max |logit| at the
 # SMOKE depth of 2 layers, and `bf16_logit_rel(layers)` derived from it.
@@ -507,10 +540,21 @@ def split_plan(decode, lengths, rows: int, hkv: int) -> dict:
                                           for n in lengths)}
 
 
+def decode_sdpa(torch, q, k, v, lv, scale):
+    """PyTorch SDPA over a contiguous (B, rows, Hkv, dh) cache's first
+    ``lv`` rows of each slot: one query a slot, in the cache's dtype.
+    Plain MHA (Hq == Hkv) needs no GQA, so every backend may take it."""
+    import torch.nn.functional as F
+    mask = (torch.arange(k.shape[1], device=k.device)[None, :]
+            < lv[:, None])[:, None, None, :]
+    return F.scaled_dot_product_attention(
+        q.to(k.dtype)[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+        attn_mask=mask, scale=scale, enable_gqa=q.shape[1] != k.shape[2])
+
+
 def kernel_case(torch, decode, flush, *, name, lengths, q_dtype, kv_dtype,
                 cache_len, hq=40, hkv=8, dh=128, seed=0):
     """One shape: error of the kernel against `decode_ref`, and times."""
-    import torch.nn.functional as F
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
     b = len(lengths)
@@ -530,11 +574,7 @@ def kernel_case(torch, decode, flush, *, name, lengths, q_dtype, kv_dtype,
     zeros_ok = all(not out[i].any() for i in zero_rows)
 
     def library():
-        mask = (torch.arange(cache_len, device=dev)[None, :]
-                < lv[:, None])[:, None, None, :]
-        return F.scaled_dot_product_attention(
-            q.to(kv_dtype)[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
-            attn_mask=mask, scale=scale, enable_gqa=True)
+        return decode_sdpa(torch, q, k, v, lv, scale)
 
     def kernel():
         return decode.gqa_decode_attention(q, k, v, length=lv, scale=scale)
@@ -680,7 +720,9 @@ def new_kernel_case(torch, mods, flush, *, kernel, name, lengths, q_dtype,
                     seed=0, kv_heads=None):
     """One shape of the paged, int8 or paged int8 kernel: its error against
     its plain version, times and bound.  The paged kernel's output must
-    also be bitwise that of the contiguous kernel over the same rows.
+    also be bitwise that of the contiguous kernel over the same rows, and
+    SDPA is timed over those rows gathered (``sdpa_same_rows_ms``: no
+    PyTorch call attends through a page table, so no library time).
     ``kv_heads`` (first, count): the kernel reads the strided view of
     those of the cache's ``hkv`` heads (``narrow`` on the head axis, as
     a rank's query heads read a pool that `decode_rules` keeps whole),
@@ -731,14 +773,17 @@ def new_kernel_case(torch, mods, flush, *, kernel, name, lengths, q_dtype,
     torch.cuda.synchronize()
     err, err_over_tol = row_errors(torch, out, ref, q_dtype == torch.float32)
     zeros_ok = all(not out[i].any() for i, n in enumerate(lengths) if n == 0)
-    bitwise = None
+    bitwise = sdpa_ms = None
     if kernel == "paged_decode_attention":
-        contiguous = decode.gqa_decode_attention(
-            q, decode.gather_pages(cache[0], pages).contiguous(),
-            decode.gather_pages(cache[1], pages).contiguous(), length=lv,
-            scale=scale)
+        rows_kv = [decode.gather_pages(c, pages).contiguous()
+                   for c in cache]
+        contiguous = decode.gqa_decode_attention(q, *rows_kv, length=lv,
+                                                 scale=scale)
         torch.cuda.synchronize()
         bitwise = bool(torch.equal(out, contiguous))
+        sdpa_ms = median_ms(torch, lambda: decode_sdpa(
+            torch, q, *rows_kv, lv, scale), 11, flush)
+        del rows_kv
     ms = median_ms(torch, lambda: fn(q, *args, length=lv, scale=scale), 21,
                    flush)
     kernel_ms = decode_kernel_ms(
@@ -770,7 +815,8 @@ def new_kernel_case(torch, mods, flush, *, kernel, name, lengths, q_dtype,
             "max_err_over_tol": err_over_tol, "zero_rows_ok": zeros_ok,
             "bitwise_contiguous": bitwise, "ok": ok,
             "ms": ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-            "library_ms": None, "bound_ms": max(t_bytes, t_ops),
+            "library_ms": None, "sdpa_same_rows_ms": sdpa_ms,
+            "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": nbytes, "operations": ops,
             **split_plan(decode, lengths,
@@ -1681,17 +1727,21 @@ def _by_kernel(torch, prof):
 
 
 def prefill_phase(torch, shapes, steps, transformer, mods, cfg, params,
-                  seed=3):
-    """`make_prefill_step` on 1 x ``prefill_32k`` tokens at full width:
-    a warm-up forward (its last logits must be finite), ``PREFILL_TIMED``
+                  seq_len, seed=3):
+    """`make_prefill_step` on 1 x ``seq_len`` tokens at full width
+    (``prefill_32k``'s length, or a model's shorter context): a warm-up
+    forward (its last logits must be finite), ``PREFILL_TIMED``
     untraced steps on the host clock with every launch count set to 0 just
     before them, then one step traced by `torch.profiler`."""
     from torch.profiler import ProfilerActivity, profile
     shape = shapes.SHAPES["prefill_32k"]
     runs, why = shapes.applicable(cfg, shape)
     check(runs, f"{cfg.name} does not run prefill_32k: {why}")
+    reduced = {"global_batch": [shape.global_batch, 1]}
+    if seq_len != shape.seq_len:
+        reduced["seq_len"] = [shape.seq_len, seq_len]
     dev = torch.device("cuda")
-    tokens = torch.randint(0, cfg.vocab_size, (1, shape.seq_len), device=dev,
+    tokens = torch.randint(0, cfg.vocab_size, (1, seq_len), device=dev,
                            generator=torch.Generator(device=dev)
                            .manual_seed(seed))
     batch = {"tokens": tokens}
@@ -1724,10 +1774,10 @@ def prefill_phase(torch, shapes, steps, transformer, mods, cfg, params,
     median = sorted(host_ms)[len(host_ms) // 2]
     tok = nxt.tolist()
     res = {"arch": cfg.name, "layers": cfg.num_layers,
-           "shape": shape.name, "batch": 1, "seq_len": shape.seq_len,
-           "reduced": {"global_batch": [shape.global_batch, 1]},
+           "shape": shape.name, "batch": 1, "seq_len": seq_len,
+           "reduced": reduced,
            "host_ms": host_ms, "host_median_ms": median,
-           "prompt_tok_per_s": shape.seq_len / (median / 1e3),
+           "prompt_tok_per_s": seq_len / (median / 1e3),
            "flash_launches": launches,
            "flash_launches_per_forward": launches / PREFILL_TIMED,
            "other_kernel_launches": counts,
@@ -1765,10 +1815,10 @@ def prefill_vs_forward(torch, steps, transformer, mods, cfg, params, seq_len,
     forward's unless the latter's top-2 gap is below the bound.  The
     bf16-to-bf16 difference is held to that bound on the first
     ``SHALLOW`` layers of the same weights, and to the depth's derived
-    bound (`bf16_logit_rel`) on the first ``MID_DEPTH`` layers and at
-    full depth; ``depths`` records at each of the three depths both bf16
-    paths' distances from each other and from the f32 forward, beside the
-    derived bound.  Runs where
+    bound (`bf16_logit_rel`) on the first ``MID_DEPTH`` and
+    ``DEEP_DEPTH`` layers (where the model is deeper) and at full depth;
+    ``depths`` records at each depth both bf16 paths' distances from each
+    other and from the f32 forward, beside the derived bound.  Runs where
     ``params`` lie, on one seeded prompt of ``seq_len`` tokens or on
     ``inputs`` (a frontend's features, tokens too or not, a batch of
     sequences): every sequence's last logits and greedy token are
@@ -1800,7 +1850,8 @@ def prefill_vs_forward(torch, steps, transformer, mods, cfg, params, seq_len,
     depths = []
     t0 = time.time()
     for n in sorted({min(d, cfg.num_layers)
-                     for d in (SHALLOW, MID_DEPTH, cfg.num_layers)}):
+                     for d in (SHALLOW, MID_DEPTH, DEEP_DEPTH,
+                               cfg.num_layers)}):
         if n < cfg.num_layers:
             d_cfg, d_params = first_layers(cfg, params, n)
             d_prefill = transformer.forward(d_cfg, d_params, batch,
@@ -1882,8 +1933,8 @@ def first_layers(cfg, params, n: int):
 # the Jamba hybrid, the frame and patch frontends
 # --------------------------------------------------------------------------
 
-def _serve_argv(arch, prompt, gen, *extra):
-    return ["--arch", arch, "--batch", "4", "--requests", "6",
+def _serve_argv(arch, prompt, gen, *extra, batch=4):
+    return ["--arch", arch, "--batch", str(batch), "--requests", "6",
             "--prompt-len", str(prompt), "--gen", str(gen), *extra]
 
 
@@ -1905,9 +1956,52 @@ RWKV_TF_TOKENS = 64
 # GB of expert weights in bf16, more than one card.
 JAMBA_ARGV = ["--arch", "jamba_1_5_large_398b", "--smoke", "--requests",
               "6"]
-# The serve runs whose decode shapes `family_kernel_cases` holds B1 (B2
-# where paged) to its plain version at.
-FAMILY_DECODE = [MOE_ARGV, MOE_PAGED_ARGV, QWEN3_MOE_ARGV, JAMBA_ARGV]
+# The last dense configurations (ROADMAP F1, F3), at full width and depth
+# through the CLI, 6 requests of 600 + 16 tokens each.  Phi-3-mini-3.8B is
+# plain MHA (32 query and 32 KV heads, g 1) at head_dim 96: one run per
+# cache layout, the int8 one at the tuner's batch (--batch 0).
+PAGES_16 = ["--paged", "--page-size", "16"]
+PHI3_ARGV = _serve_argv("phi3_mini_3_8b", 600, 16, "--kv-dtype", "f32")
+PHI3_PAGED_ARGV = PHI3_ARGV + PAGES_16
+PHI3_INT8_ARGV = _serve_argv("phi3_mini_3_8b", 600, 16, "--kv-dtype", "int8",
+                             batch=0)
+PHI3_PAGED_INT8_ARGV = _serve_argv("phi3_mini_3_8b", 600, 16, *PAGES_16,
+                                   "--kv-dtype", "int8")
+PHI3_TF_TOKENS = 64
+# InternVL2-2B's token stream: B1 at g 2, head_dim 128.
+INTERNVL2_ARGV = _serve_argv("internvl2_2b", 600, 16, "--kv-dtype", "f32")
+# Qwen2.5-32B: a QKV bias, 64 layers and about 65.5 GB of bf16 weights,
+# an f32 cache and a paged bf16 one.  Its depth is cut only where the
+# weights, the cache and ``QWEN25_RESERVE`` do not fit the card's free
+# memory (`fitting_depth`); the reserve holds the f32 forward of
+# `prefill_vs_forward` at ``QWEN25_PREFILL`` tokens, which took 12.0 GB
+# over the weights on an H100 80GB HBM3: the head cast to f32 (3.1 GB),
+# the f32 logits and their copies (2.5 GB each) and a layer's f32 weight
+# copies (2.0 GB; the attention runs in query chunks of 512 past 2,048
+# tokens).
+QWEN25_ARGV = _serve_argv("qwen2_5_32b", 600, 16, "--kv-dtype", "f32")
+QWEN25_PAGED_ARGV = _serve_argv("qwen2_5_32b", 600, 16, *PAGES_16,
+                                "--kv-dtype", "bf16")
+QWEN25_PREFILL = 4096
+QWEN25_RESERVE = 12.5e9
+# (phase, argv, the decode kernel of its attention layers)
+DENSE_SERVE = [
+    ("serve_phi3_mini", PHI3_ARGV, "decode_attention"),
+    ("serve_phi3_mini_paged", PHI3_PAGED_ARGV, "paged_decode_attention"),
+    ("serve_phi3_mini_int8", PHI3_INT8_ARGV, "quantized_decode_attention"),
+    ("serve_phi3_mini_paged_int8", PHI3_PAGED_INT8_ARGV,
+     "paged_quantized_decode_attention"),
+    ("serve_internvl2", INTERNVL2_ARGV, "decode_attention"),
+    ("serve_qwen2_5_32b", QWEN25_ARGV, "decode_attention"),
+    ("serve_qwen2_5_32b_paged_bf16", QWEN25_PAGED_ARGV,
+     "paged_decode_attention"),
+]
+# The serve runs whose decode shapes `family_kernel_cases` holds their
+# layout's kernel (B1-B4) to its plain version at; Qwen2.5-32B's is the
+# Qwen3-14B serve shape of `kernel_cases`.
+FAMILY_DECODE = [MOE_ARGV, MOE_PAGED_ARGV, QWEN3_MOE_ARGV, JAMBA_ARGV,
+                 PHI3_ARGV, PHI3_PAGED_ARGV, PHI3_INT8_ARGV,
+                 PHI3_PAGED_INT8_ARGV, INTERNVL2_ARGV]
 # (phase, arch, frames, or (patches, tokens), batch)
 FRONTEND_PHASES = [("prefill_hubert", "hubert_xlarge", (1000, None), 2),
                    ("prefill_internvl2", "internvl2_2b", (1024, 512), 1)]
@@ -1925,12 +2019,23 @@ def _flag(argv, flag, default):
     return argv[argv.index(flag) + 1] if flag in argv else default
 
 
+def _arch_cfg(configs, argv):
+    """The config a serve ``argv`` runs: its arch's SMOKE one with
+    ``--smoke``."""
+    arch = _flag(argv, "--arch", None)
+    return (configs.get_smoke if "--smoke" in argv else configs.get)(arch)
+
+
+def _peak_gb(torch):
+    return (round(torch.cuda.max_memory_allocated() / 1e9, 3)
+            if torch.cuda.is_available() else None)
+
+
 def family_decode_shape(configs, argv):
     """``(Hq, Hkv, dh, lengths, rows)`` of the decode kernel in the serve
     run of ``argv``: the arch's heads, four slots spread over the decode
     lengths from prompt + 1 to prompt + gen, the run's cache rows."""
-    arch = _flag(argv, "--arch", None)
-    cfg = (configs.get_smoke if "--smoke" in argv else configs.get)(arch)
+    cfg = _arch_cfg(configs, argv)
     prompt = int(_flag(argv, "--prompt-len", 16))
     gen = int(_flag(argv, "--gen", 12))
     lengths = [prompt + 1, prompt + gen // 2, prompt + 3 * gen // 4,
@@ -1940,25 +2045,37 @@ def family_decode_shape(configs, argv):
 
 
 def family_kernel_cases(torch, configs, mods, flush):
-    """B1 at the decode shape of each family serve run that launches it
-    (Phi-3.5-MoE: g 4; Qwen3-MoE: g 16; Jamba SMOKE: g 2, dh 16) and B2
-    at Phi-3.5-MoE's paged one (pages of 16): bf16 q over an f32 and a
-    bf16 cache, each held to its plain version at `row_errors`'
-    tolerance, B2 also bitwise to B1 over the same rows."""
+    """The kernel of each family serve run's cache layout at its decode
+    shape, bf16 q: B1 (Phi-3.5-MoE: g 4; Qwen3-MoE: g 16; Jamba SMOKE: g
+    2, dh 16; Phi-3-mini: g 1, dh 96; InternVL2: g 2) and B2 (pages of 16:
+    Phi-3.5-MoE, Phi-3-mini) over an f32 and a bf16 cache, B3 and B4 over
+    an int8 one (Phi-3-mini), each held to its plain version at
+    `row_errors`' tolerance, B2 also bitwise to B1 over the same rows."""
     decode = mods[0]
     cases = []
     for argv in FAMILY_DECODE:
         hq, hkv, dh, lengths, rows = family_decode_shape(configs, argv)
+        paged = "--paged" in argv
+        page_size = int(_flag(argv, "--page-size", 16)) if paged else None
         name = (_flag(argv, "--arch", None)
-                + ("_smoke" if "--smoke" in argv else "") + "_serve")
+                + ("_smoke" if "--smoke" in argv else "") + "_serve"
+                + ("_paged" if paged else ""))
+        if _flag(argv, "--kv-dtype", "f32") == "int8":
+            cases.append(new_kernel_case(
+                torch, mods, flush,
+                kernel=("paged_quantized_decode_attention" if paged
+                        else "quantized_decode_attention"),
+                name=name + "_int8", lengths=lengths, q_dtype=torch.bfloat16,
+                kv_dtype=torch.int8, rows=rows, page_size=page_size, hq=hq,
+                hkv=hkv, dh=dh))
+            continue
         for kv_dtype in (torch.float32, torch.bfloat16):
-            if "--paged" in argv:
+            if paged:
                 cases.append(new_kernel_case(
                     torch, mods, flush, kernel="paged_decode_attention",
-                    name=name + "_paged", lengths=lengths,
+                    name=name, lengths=lengths,
                     q_dtype=torch.bfloat16, kv_dtype=kv_dtype, rows=rows,
-                    page_size=int(_flag(argv, "--page-size", 16)), hq=hq,
-                    hkv=hkv, dh=dh))
+                    page_size=page_size, hq=hq, hkv=hkv, dh=dh))
             else:
                 cases.append({"kernel": "decode_attention", **kernel_case(
                     torch, decode, flush, name=name, lengths=lengths,
@@ -2027,10 +2144,11 @@ def family_serve(torch, serve, configs, check_serve, mods, *, phase, argv,
     request completed; ``kernel`` (the decode kernel its attention layers
     run, or None where decode stays on the plain path: the ring buffer,
     RWKV) must have launched once per attention layer per decode forward
-    and no other kernel at all.  Returns the streams, the summary and the
-    server's weights (for the checks that reuse them)."""
-    arch = _flag(argv, "--arch", None)
-    own = (configs.get_smoke if "--smoke" in argv else configs.get)(arch)
+    and no other kernel at all.  The batch must come from the tuner's
+    sweep where the CLI runs at ``--batch 0``, whose predicted step is
+    printed beside the measured per-token p50.  Returns the streams, the
+    summary and the server's weights (for the checks that reuse them)."""
+    own = _arch_cfg(configs, argv)
     if torch.cuda.is_available():
         torch.cuda.reset_peak_memory_stats()
     if depth is None:
@@ -2048,6 +2166,8 @@ def family_serve(torch, serve, configs, check_serve, mods, *, phase, argv,
     problems = check_serve.check(log, requests=requests)
     launches = counts.pop(kernel) if kernel else 0
     streams = {rid: toks for rid, (_, toks) in run["requests"].items()}
+    plan = check_serve._json_lines(log)[0]["serving_plan"]
+    per_token = summary.get("per_token_ms") or {}
     out = {"argv": argv, "arch": cfg.name, "family": cfg.family,
            "layers": cfg.num_layers, "attention_layers": attn,
            "depth_cut": None if depth is None else [own.num_layers, depth],
@@ -2055,6 +2175,12 @@ def family_serve(torch, serve, configs, check_serve, mods, *, phase, argv,
            "rules": "serve.serving_rules: a (1, 1) mesh, specs.rules_for",
            "rc": run["rc"], "host_wall_s": round(run["seconds"], 3),
            "card": card, "batch": summary.get("batch"),
+           "batch_source": plan["source"],
+           "predicted_step_us": plan.get("predicted_step_us"),
+           "predicted_over_measured_p50": (
+               plan["predicted_step_us"] / 1e3 / per_token["p50"]
+               if plan.get("predicted_step_us") and per_token.get("p50")
+               else None),
            "cache_rows": (int(server.cache["blocks"]["k"].shape[2])
                           if "k" in server.cache["blocks"] else None),
            "decode_forwards": summary.get("decode_forwards"),
@@ -2065,10 +2191,12 @@ def family_serve(torch, serve, configs, check_serve, mods, *, phase, argv,
            "ttft_ms": summary.get("ttft_ms"),
            "outcomes": summary.get("outcomes"),
            "check_serve_problems": problems,
-           "peak_memory_gb": round(torch.cuda.max_memory_allocated() / 1e9,
-                                   3) if torch.cuda.is_available() else None}
+           "peak_memory_gb": _peak_gb(torch)}
     emit(phase, **out)
     check(run["rc"] == 0 and not problems, f"{phase} run failed: {problems}")
+    swept = depth is None and int(_flag(argv, "--batch", 0)) == 0
+    check(plan["source"] == ("autotune" if swept else "flag"),
+          f"{phase}: the batch is not the one its argv asks for: {plan}")
     check(summary["outcomes"]["completed"] == requests,
           f"{phase}: not every request completed: {summary['outcomes']}")
     check(summary["decode_forwards"] > 0
@@ -2255,7 +2383,7 @@ def moe_expert_parallel(torch, configs, smi, device="cuda", cfg=None,
     return res
 
 
-def moe_paged_vs_contiguous(torch, serve, lifecycle, cfg, params, argv,
+def paged_run_vs_contiguous(torch, serve, lifecycle, cfg, params, argv,
                             paged_streams) -> dict:
     """The paged CLI run's streams against a contiguous server with its
     weights at the kernels' default span, as the paged run decodes: the
@@ -2403,7 +2531,7 @@ def family_phases(torch, serve, configs, check_serve, steps, transformer,
                        kernel="paged_decode_attention", depth=MOE_LAYERS,
                        card=card)
     launches["serve_moe_paged"] = moe["kernel_launches"]
-    pvc = moe_paged_vs_contiguous(torch, serve, lifecycle, moe["cfg"],
+    pvc = paged_run_vs_contiguous(torch, serve, lifecycle, moe["cfg"],
                                   moe["params"], MOE_PAGED_ARGV,
                                   moe["streams"])
     emit("moe_paged_vs_contiguous", card=card, **pvc)
@@ -2488,6 +2616,148 @@ def family_phases(torch, serve, configs, check_serve, steps, transformer,
             "paged_decode_attention": {"serve_moe_paged":
                                        launches["serve_moe_paged"]},
             "flash_attention": flash}
+
+
+def state_bytes(torch, tree) -> int:
+    """Bytes of the tensors of a nested dict (meta tensors count too)."""
+    from repro_torch import tree as tree_lib
+    return sum(t.numel() * t.element_size() for t in tree_lib.leaves(tree)
+               if isinstance(t, torch.Tensor))
+
+
+def param_bytes(torch, cfg) -> int:
+    """Bytes of ``transformer.init(cfg, ..., dtype=bf16)``'s tree, the
+    serving CLI's weights, from its meta copy (`specs.abstract_params`):
+    the leaves the init keeps in f32 at 4 bytes."""
+    from repro_torch.launch import specs
+    return state_bytes(torch, specs.abstract_params(cfg, torch.bfloat16))
+
+
+def fitting_depth(torch, cfg, free_bytes, *, batch, rows,
+                  reserve=QWEN25_RESERVE):
+    """The most layers of ``cfg`` whose bf16 weights (`param_bytes`), an
+    f32 cache of ``batch`` slots of ``rows`` rows and ``reserve`` bytes
+    fit in ``free_bytes``; None when all of them do (no cut)."""
+    from repro_torch.models import transformer
+
+    def need(n):
+        c = dataclasses.replace(cfg, num_layers=n)
+        cache = transformer.cache_init(c, batch, rows, dtype=torch.float32,
+                                       device="meta")
+        return param_bytes(torch, c) + state_bytes(torch, cache)
+    per_layer = need(2) - need(1)
+    n = int((free_bytes - reserve - (need(1) - per_layer)) // per_layer)
+    check(n >= 1, f"{cfg.name}: not one layer fits in {free_bytes} bytes")
+    return None if n >= cfg.num_layers else n
+
+
+
+def dense_phases(torch, serve, configs, check_serve, steps, transformer,
+                 lifecycle, mods, card, device="cuda") -> dict:
+    """The last dense configurations (ROADMAP F1, F3), each serve run of
+    ``DENSE_SERVE`` through `family_serve` (the CLI at full width and
+    depth; Qwen2.5-32B cut only where it does not fit):
+    ``serve_phi3_mini*`` (Phi-3-mini-3.8B in every cache layout: B1-B4 at
+    g 1, head_dim 96) with ``phi3_mini_vs_teacher_forcing`` (64 tokens
+    one at a time through B1 in f32 against the cache-free forward, B1
+    launched once per layer a step and nothing else) and
+    ``phi3_mini_paged_vs_contiguous`` (the paged f32 run's streams equal
+    a contiguous server's with its weights at the default span);
+    ``serve_internvl2`` (InternVL2-2B's token stream, B1 at g 2); then,
+    once every earlier phase's weights and caches are freed,
+    ``qwen2_5_32b_memory`` (the card's free memory against the weights,
+    the cache and ``QWEN25_RESERVE``, and the depth that fits),
+    ``serve_qwen2_5_32b*`` (f32 contiguous, B1; paged bf16, B2) and
+    ``prefill_qwen2_5_32b`` (`prefill_vs_forward` on the paged run's
+    weights at ``QWEN25_PREFILL`` tokens: the bf16 logit bound at 2, 8,
+    40 and 64 layers).  Returns each kernel's launches by phase."""
+    launches: dict = {}
+    depth = None                  # Qwen2.5-32B's cut, the last runs' own
+    for phase, argv, kernel in DENSE_SERVE:
+        if phase == "serve_qwen2_5_32b":
+            depth = qwen25_memory(torch, _arch_cfg(configs, argv), device,
+                                  card)
+        res = family_serve(torch, serve, configs, check_serve, mods,
+                           phase=phase, argv=argv, kernel=kernel,
+                           depth=depth, card=card)
+        launches.setdefault(kernel, {})[phase] = res["kernel_launches"]
+        if phase == "serve_phi3_mini":
+            if torch.cuda.is_available():
+                torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts(mods)
+            t0 = time.time()
+            tf = decode_vs_forward(torch, transformer, res["cfg"],
+                                   res["params"], tokens=PHI3_TF_TOKENS,
+                                   device=device)
+            counts = launch_counts(mods)
+            b1 = counts.pop("decode_attention")
+            want = PHI3_TF_TOKENS * res["attention_layers"]
+            emit("phi3_mini_vs_teacher_forcing", card=card,
+                 decode_launches=b1, other_kernel_launches=counts,
+                 host_wall_s=round(time.time() - t0, 3),
+                 peak_memory_gb=_peak_gb(torch), **tf)
+            check(tf["ok"] and b1 == want and not any(counts.values()),
+                  f"Phi-3-mini decode != teacher forcing, or {b1} B1 "
+                  f"launches for {want} layer steps, others {counts}: {tf}")
+            launches[kernel]["phi3_mini_vs_teacher_forcing"] = b1
+        elif phase == "serve_phi3_mini_paged":
+            if torch.cuda.is_available():
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.time()
+            pvc = paged_run_vs_contiguous(torch, serve, lifecycle,
+                                          res["cfg"], res["params"], argv,
+                                          res["streams"])
+            emit("phi3_mini_paged_vs_contiguous", card=card,
+                 host_wall_s=round(time.time() - t0, 3),
+                 peak_memory_gb=_peak_gb(torch), **pvc)
+            check(pvc["ok"], f"Phi-3-mini paged and contiguous streams "
+                             f"differ: {pvc}")
+        elif phase == "serve_qwen2_5_32b_paged_bf16":
+            if torch.cuda.is_available():
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.time()
+            pvf = prefill_vs_forward(torch, steps, transformer, mods,
+                                     res["cfg"], res["params"],
+                                     QWEN25_PREFILL)
+            emit("prefill_qwen2_5_32b", card=card, depth_cut=res["depth_cut"],
+                 host_wall_s=round(time.time() - t0, 3),
+                 peak_memory_gb=_peak_gb(torch), **pvf)
+            check(pvf["ok"], f"prefill_qwen2_5_32b failed: {pvf}")
+            launches.setdefault("flash_attention", {})[
+                "prefill_qwen2_5_32b"] = pvf["flash_launches_prefill"]
+        del res
+        gc.collect()
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+    return launches
+
+
+def qwen25_memory(torch, cfg, device, card):
+    """Before Qwen2.5-32B's first init: the card's free memory
+    (`torch.cuda.mem_get_info`, every earlier phase's weights and caches
+    freed: under 1 GiB allocated) against its bf16 weights, the f32 cache
+    of its serve runs and ``QWEN25_RESERVE``; returns the depth
+    `fitting_depth` cuts it to (None: all its layers).  On the CPU
+    nothing is cut."""
+    rows = SERVE_LEN
+    weights = param_bytes(torch, cfg)
+    from repro_torch.models import transformer
+    cache = state_bytes(torch, transformer.cache_init(
+        cfg, 4, rows, dtype=torch.float32, device="meta"))
+    free = total = allocated = depth = None
+    if torch.device(device).type == "cuda":
+        gc.collect()
+        torch.cuda.empty_cache()
+        free, total = torch.cuda.mem_get_info()
+        allocated = torch.cuda.memory_allocated()
+        depth = fitting_depth(torch, cfg, free, batch=4, rows=rows)
+    emit("qwen2_5_32b_memory", card=card, free_bytes=free,
+         total_bytes=total, allocated_bytes=allocated, weight_bytes=weights,
+         cache_bytes=cache, reserve_bytes=QWEN25_RESERVE,
+         depth_cut=None if depth is None else [cfg.num_layers, depth])
+    check(allocated is None or allocated < 2 ** 30,
+          f"{allocated} bytes of earlier phases still on the card")
+    return depth
 
 
 # --------------------------------------------------------------------------
@@ -4715,13 +4985,31 @@ def main() -> int:
          torch=torch.__version__, cuda=torch.version.cuda,
          python=sys.version.split()[0])
 
+    # B1-B5's sources build in seconds and B6-B8's in minutes: those go on
+    # building in a thread of their own (its nvcc processes run to their
+    # end even if a phase fails) while the attention phases run, and are
+    # joined before the first phase that launches them.
     t0 = time.time()
-    built = _build.build()
+    late = set(_build.sources()) - {pathlib.Path(src).stem for k, (src, _)
+                                    in KERNELS.items()
+                                    if k not in PAPER_KERNELS}
+    late_built: dict = {}
+
+    def build_late():
+        try:
+            late_built.update(_build.build(sorted(late)))
+        except Exception as e:           # re-raised by the join's check
+            late_built["error"] = e
+    late_thread = threading.Thread(target=build_late)
+    late_thread.start()
+    built = _build.build(sorted(set(_build.sources()) - late))
     sources = {pathlib.Path(src).stem for src, _ in KERNELS.values()}
     emit("build", seconds=round(time.time() - t0, 3),
          libraries=sorted(p.name for p in built.values()),
+         building_meanwhile=sorted(late),
          kernels=list(KERNELS), flags=" ".join(_build.NVCC_FLAGS))
-    check(sources <= set(built), f"not built: {sources - set(built)}")
+    check(sources - late <= set(built),
+          f"not built: {sources - late - set(built)}")
 
     # Tensor and expert parallelism over the model axis: two ranks, while
     # this process holds nothing on the card.
@@ -4815,13 +5103,13 @@ def main() -> int:
     cases += fcases
 
     prefill_launches, counts = {}, {}
-    for phase, arch, check_len in PREFILL_PHASES:
+    for phase, arch, seq_len, check_len in PREFILL_PHASES:
         cfg = configs.get(arch)
         params = transformer.init(
             cfg, torch.Generator(device="cuda").manual_seed(0),
             dtype=torch.bfloat16)
         res = prefill_phase(torch, shapes, steps, transformer, mods, cfg,
-                            params)
+                            params, seq_len)
         emit(phase, **res)
         check(res["ok"], f"{phase} failed: {res}")
         prefill_launches[phase] = res["flash_launches"]
@@ -4875,6 +5163,12 @@ def main() -> int:
     # The other families: the ring buffer, MoE, RWKV6, Jamba, frontends.
     family_launches = family_phases(torch, serve, configs, check_serve,
                                     steps, transformer, lifecycle, mods, smi)
+    # The last dense configurations: Phi-3-mini-3.8B, InternVL2-2B's token
+    # stream and Qwen2.5-32B at full width.
+    dense = dense_phases(torch, serve, configs, check_serve, steps,
+                         transformer, lifecycle, mods, smi)
+    for name, by_phase in dense.items():
+        family_launches.setdefault(name, {}).update(by_phase)
 
     pvc = paged_vs_contiguous(torch, configs, serve, paging, lifecycle)
     emit("paged_vs_contiguous", **pvc)
@@ -4886,6 +5180,12 @@ def main() -> int:
     check(step["decode_attention_ms_per_step"] > 0,
           "decode_step found no device time of the decode kernel")
 
+    late_thread.join()
+    emit("build_late", seconds=round(time.time() - t0, 3),
+         libraries=sorted(p.name for k, p in late_built.items()
+                          if k != "error"))
+    check("error" not in late_built and late <= set(late_built),
+          f"B6-B8 did not build: {late_built.get('error')}")
     paper_cases, paper_launches, (t1, t2) = paper_phases(torch, mods)
     cases += paper_cases
     launches.update(paper_launches)

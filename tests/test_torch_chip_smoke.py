@@ -361,18 +361,93 @@ def test_family_serve_on_a_smoke_model(counting, tmp_path, monkeypatch, arch,
 
 
 def test_family_decode_shapes_are_the_serve_phases():
-    """The shapes `family_kernel_cases` holds B1 and B2 at are those of the
+    """The shapes `family_kernel_cases` holds B1-B4 at are those of the
     family serve runs: Phi-3.5-MoE at the Qwen3-14B serve lengths and rows
     with g 4 (paged: pages of 16), Qwen3-MoE with g 16, Jamba SMOKE at the
-    CLI's default prompt and generation."""
+    CLI's default prompt and generation, Phi-3-mini at g 1 and head_dim
+    96 in its four cache layouts, InternVL2 at g 2."""
     import repro_torch.configs as configs
     shapes = [chip_smoke.family_decode_shape(configs, argv)
               for argv in chip_smoke.FAMILY_DECODE]
-    phi = (32, 8, 128, chip_smoke.SERVE_LENGTHS, chip_smoke.SERVE_LEN)
+    serve = (chip_smoke.SERVE_LENGTHS, chip_smoke.SERVE_LEN)
+    phi = (32, 8, 128, *serve)
+    phi3 = (32, 32, 96, *serve)
     assert shapes == [phi, phi, (64, 4, 128, [129, 132, 134, 136], 144),
-                      (4, 2, 16, [17, 22, 25, 28], 36)]
+                      (4, 2, 16, [17, 22, 25, 28], 36),
+                      phi3, phi3, phi3, phi3, (16, 8, 128, *serve)]
     assert "--paged" in chip_smoke.FAMILY_DECODE[1]
     assert chip_smoke.FAMILY_DECODE[1][-2:] == ["--page-size", "16"]
+    layouts = [("--paged" in a, chip_smoke._flag(a, "--kv-dtype", "f32"))
+               for a in chip_smoke.FAMILY_DECODE[4:8]]
+    assert layouts == [(False, "f32"), (True, "f32"), (False, "int8"),
+                       (True, "int8")]
+    assert chip_smoke.FAMILY_DECODE[8] == chip_smoke.INTERNVL2_ARGV
+
+
+def _smoke_serve(argv):
+    """A card serve run's argv at SMOKE size on the CPU: prompts of 12
+    tokens, 4 generated."""
+    out = list(argv)
+    out[out.index("--prompt-len") + 1] = "12"
+    out[out.index("--gen") + 1] = "4"
+    return out + SMOKE_CLI
+
+
+def test_dense_phases_on_smoke_models(counting, tmp_path, monkeypatch,
+                                      capsys):
+    """`dense_phases` with every serve run's flags at SMOKE size on the
+    CPU: each phase runs in order and passes its checks; the layouts'
+    kernels are counted once per layer a decode forward, B1 in the
+    teacher forcing once per layer a step, the flash entry 3 x layers in
+    Qwen2.5's `prefill_vs_forward`, and the int8 run takes the tuner's
+    batch."""
+    import repro_torch.configs as configs
+    from repro_torch.kernels.attention import kernel as flash
+    from repro_torch.kernels.attention import ops
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import transformer
+    from repro_torch.runtime import lifecycle
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE", str(tmp_path / "t"))
+    sys.path.insert(0, str(REPO / "tools"))
+    import check_serve
+    real = ops.mha_attention
+
+    def counting_flash(*a, **kw):
+        flash.launches += 1
+        return real(*a, **kw)
+    monkeypatch.setattr(ops, "mha_attention", counting_flash)
+    monkeypatch.setattr(chip_smoke, "DENSE_SERVE", [
+        (p, _smoke_serve(a), k) for p, a, k in chip_smoke.DENSE_SERVE])
+    monkeypatch.setattr(chip_smoke, "PHI3_TF_TOKENS", 12)
+    monkeypatch.setattr(chip_smoke, "QWEN25_PREFILL", 40)
+    launches = chip_smoke.dense_phases(
+        torch, serve, configs, check_serve, steps, transformer, lifecycle,
+        _smoke_mods(), card=None, device="cpu")
+    lines = [json.loads(line) for line in capsys.readouterr().out.splitlines()
+             if line.startswith('{"phase"')]
+    phases = [r["phase"] for r in lines]
+    assert phases == [
+        "serve_phi3_mini", "phi3_mini_vs_teacher_forcing",
+        "serve_phi3_mini_paged", "phi3_mini_paged_vs_contiguous",
+        "serve_phi3_mini_int8", "serve_phi3_mini_paged_int8",
+        "serve_internvl2", "qwen2_5_32b_memory", "serve_qwen2_5_32b",
+        "serve_qwen2_5_32b_paged_bf16", "prefill_qwen2_5_32b"]
+    by = {r["phase"]: r for r in lines}
+    assert by["serve_phi3_mini_int8"]["batch_source"] == "autotune"
+    assert by["serve_phi3_mini_int8"]["predicted_step_us"] > 0
+    assert by["serve_phi3_mini"]["batch_source"] == "flag"
+    assert by["qwen2_5_32b_memory"]["depth_cut"] is None
+    assert by["qwen2_5_32b_memory"]["weight_bytes"] == chip_smoke.param_bytes(
+        torch, configs.get_smoke("qwen2_5_32b"))
+    layers = configs.get_smoke("phi3_mini_3_8b").num_layers
+    assert launches["decode_attention"]["phi3_mini_vs_teacher_forcing"] \
+        == 12 * layers
+    for name in ("quantized_decode_attention",
+                 "paged_quantized_decode_attention"):
+        assert all(n > 0 for n in launches[name].values())
+    assert set(launches["paged_decode_attention"]) == {
+        "serve_phi3_mini_paged", "serve_qwen2_5_32b_paged_bf16"}
+    assert launches["flash_attention"] == {"prefill_qwen2_5_32b": 3 * 2}
 
 
 @pytest.mark.parametrize("arch, tokens, prefill", [
@@ -410,7 +485,7 @@ def test_moe_paged_vs_contiguous_on_a_smoke_model(counting, tmp_path,
     run = chip_smoke.family_serve(
         torch, serve, configs, check_serve, _smoke_mods(), phase="r",
         argv=argv, kernel="paged_decode_attention")
-    res = chip_smoke.moe_paged_vs_contiguous(
+    res = chip_smoke.paged_run_vs_contiguous(
         torch, serve, lifecycle, run["cfg"], run["params"], argv,
         run["streams"])
     assert res["ok"]
@@ -489,6 +564,7 @@ def test_bf16_logit_bound_grows_with_depth_from_the_2_layer_bound():
     assert rel(8) == pytest.approx(3e-2 * (17 / 5) ** 0.5)
     assert rel(24) == pytest.approx(0.0939, abs=1e-4)
     assert rel(40) == pytest.approx(0.1207, abs=1e-4)
+    assert rel(64) == pytest.approx(0.152, abs=5e-4)   # Qwen2.5-32B
     assert all(rel(n) < rel(n + 1) for n in range(1, 100))
 
 
@@ -892,3 +968,94 @@ def test_dryrun_cells_on_the_cpu(tmp_path):
         assert cell["status"] == "ok" and "roofline" in cell
     assert res["csv"][0].startswith("roofline.qwen3_14b.decode_32k.single,")
     assert "| qwen3_moe_235b | train_4k |" in res["table"]
+
+
+def test_prefill_vs_forward_reads_40_layers_on_a_deeper_model(two_threads,
+                                                              monkeypatch):
+    """On a model deeper than ``DEEP_DEPTH`` (Qwen2.5-32B's SMOKE config
+    at 42 layers) the bf16 bound is read at 2, 8, 40 and all layers."""
+    import dataclasses
+
+    import repro_torch.configs as configs
+    from repro_torch.kernels.attention import decode_int8
+    from repro_torch.kernels.attention import kernel as flash
+    from repro_torch.kernels.attention import ops
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer
+    from repro_torch.runtime import quantize
+    cfg = dataclasses.replace(configs.get_smoke("qwen2_5_32b"), num_layers=42)
+    params = transformer.init(cfg, torch.Generator().manual_seed(0),
+                              dtype=torch.bfloat16)
+    real = ops.mha_attention
+
+    def counting(*a, **kw):
+        flash.launches += 1
+        return real(*a, **kw)
+
+    monkeypatch.setattr(ops, "mha_attention", counting)
+    res = chip_smoke.prefill_vs_forward(
+        torch, steps, transformer, (decode, decode_int8, quantize, flash),
+        cfg, params, 24)
+    assert res["ok"], res
+    assert [d["layers"] for d in res["depths"]] == [2, 8, 40, 42]
+
+
+def _bf16_bytes(torch, tree):
+    from repro_torch import tree as tree_lib
+    return sum(t.numel() * t.element_size() for t in tree_lib.leaves(tree))
+
+
+@pytest.mark.parametrize("arch", ["qwen2_5_32b", "phi3_mini_3_8b",
+                                  "internvl2_2b", "jamba_1_5_large_398b"])
+def test_param_bytes_are_the_init_trees(arch):
+    """`param_bytes` at SMOKE width is exactly the bytes of
+    `transformer.init`'s bf16 tree (its f32 leaves at 4 bytes)."""
+    import repro_torch.configs as configs
+    from repro_torch.models import transformer
+    cfg = configs.get_smoke(arch)
+    tree = transformer.init(cfg, torch.Generator().manual_seed(0),
+                            dtype=torch.bfloat16)
+    assert chip_smoke.param_bytes(torch, cfg) == _bf16_bytes(torch, tree)
+
+
+def test_param_bytes_at_full_width():
+    """Qwen2.5-32B's bf16 tree by hand (65.5 GB: 64 layers of 487.6 M
+    parameters, an untied embedding and head of 152,064 x 5,120, f32
+    norms) and one period of 8 Jamba-1.5-Large layers (about 90 GB, more
+    than one card)."""
+    import dataclasses
+
+    import repro_torch.configs as configs
+    cfg = configs.get("qwen2_5_32b")
+    d, ff, kv = cfg.d_model, cfg.d_ff, cfg.kv_dim
+    layer = 2 * (2 * d * d + 2 * d * kv + d + 2 * kv + 3 * d * ff) + 4 * 2 * d
+    want = 64 * layer + 2 * 2 * cfg.vocab_size * d + 4 * d
+    assert chip_smoke.param_bytes(torch, cfg) == want
+    assert want == pytest.approx(65.5e9, rel=1e-3)
+    jamba = configs.get("jamba_1_5_large_398b")
+    period = dataclasses.replace(jamba, num_layers=jamba.attn_period)
+    assert 85e9 < chip_smoke.param_bytes(torch, period) < 95e9
+
+
+def test_fitting_depth_cuts_only_what_does_not_fit():
+    """Qwen2.5-32B's 64 layers, an f32 cache of the serve runs and the
+    reserve fit in an 80 GB card's free memory (no cut); in 40 GB the
+    depth is the deepest whose bytes fit."""
+    import dataclasses
+
+    import repro_torch.configs as configs
+    from repro_torch.models import transformer
+    cfg = configs.get("qwen2_5_32b")
+
+    def need(n):
+        c = dataclasses.replace(cfg, num_layers=n)
+        cache = transformer.cache_init(c, 4, chip_smoke.SERVE_LEN,
+                                       dtype=torch.float32, device="meta")
+        return (chip_smoke.param_bytes(torch, c)
+                + chip_smoke.state_bytes(torch, cache)
+                + chip_smoke.QWEN25_RESERVE)
+    assert chip_smoke.fitting_depth(torch, cfg, 84e9, batch=4,
+                                    rows=chip_smoke.SERVE_LEN) is None
+    n = chip_smoke.fitting_depth(torch, cfg, 40e9, batch=4,
+                                 rows=chip_smoke.SERVE_LEN)
+    assert need(n) <= 40e9 < need(n + 1)

@@ -613,7 +613,8 @@ def _flash_inputs(seed, b, sq, sk, hq, hkv, dh, dt, device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", list(DTYPES))
-@pytest.mark.parametrize("dh, g", [(128, 5), (80, 4), (128, 1), (16, 5)])
+@pytest.mark.parametrize("dh, g", [(128, 5), (80, 4), (128, 1), (16, 5), (96, 1),
+                                   (96, 4)])
 @pytest.mark.parametrize("mask", list(FLASH_MASKS))
 def test_flash_kernel_matches_attention_ref(cuda, mask, dh, g, dt):
     sq, sk, causal, window = FLASH_MASKS[mask]

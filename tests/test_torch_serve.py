@@ -102,9 +102,21 @@ def _own_tune_cache(monkeypatch, tmp_path):
                        str(tmp_path / "torch_autotune.json"))
 
 
+def _random_biases(params, seed=5):
+    """``params`` with its QKV biases drawn N(0, 1): both inits leave them
+    zero, which would hide a bias the port drops or misplaces."""
+    rng = np.random.default_rng(seed)
+    mixer = dict(params["blocks"]["mixer"])
+    for name in ("bq", "bk", "bv"):
+        mixer[name] = jnp.asarray(rng.standard_normal(mixer[name].shape),
+                                  mixer[name].dtype)
+    return {**params, "blocks": {**params["blocks"], "mixer": mixer}}
+
+
 def _servers(jcfg, tcfg, batch, max_len, layout="f32", pool_pages=0):
     """A JAX and a port server with the same parameters and KV cache:
-    ``layout`` f32, int8, paged (f32) or paged_int8, pages of 4 tokens."""
+    ``layout`` f32, int8, paged (f32) or paged_int8, pages of 4 tokens; a
+    model with a QKV bias gets random biases (`_random_biases`)."""
     int8 = layout.endswith("int8")
     jspec = tspec = None
     if layout.startswith("paged"):
@@ -113,6 +125,8 @@ def _servers(jcfg, tcfg, batch, max_len, layout="f32", pool_pages=0):
     js = jserve.Server(jcfg, batch, max_len, autotune_kernels=False,
                        paged=jspec,
                        kv_dtype=jnp.int8 if int8 else jnp.float32)
+    if jcfg.qkv_bias:
+        js.params = _random_biases(js.params)
     ts = tserve.Server(tcfg, batch, max_len, device="cpu",
                        params=params_from_numpy(
                            jax.tree.map(np.asarray, js.params)),
@@ -255,7 +269,47 @@ def test_serve_loop_layouts_and_policies_match_jax(layout, policy):
     and a paged int8 cache: outcomes, the scheduler's rejections, the
     pool's peak and end state, and the token streams equal the JAX
     loop's."""
-    jcfg, tcfg = _cfgs()
+    _loop_matches_jax(*_cfgs(), layout, policy)
+
+
+@pytest.mark.parametrize("layout", ["f32", "paged", "int8", "paged_int8"])
+@pytest.mark.parametrize("arch", ["phi3_mini_3_8b", "qwen2_5_32b"])
+def test_dense_arch_serve_loop_layouts_match_jax(arch, layout):
+    """Phi-3-mini (plain MHA) and Qwen2.5-32B (a QKV bias, random here)
+    at their SMOKE configs, the whole loop under ``fcfs`` with each cache
+    layout: outcomes, rejections, the pool's counters and the token
+    streams equal the JAX loop's."""
+    import repro.configs as jconfigs
+    _loop_matches_jax(jconfigs.get_smoke(arch), tconfigs.get_smoke(arch),
+                      layout, "fcfs")
+
+
+@pytest.mark.parametrize("arch", ["phi3_mini_3_8b", "qwen2_5_32b"])
+def test_dense_arch_forward_matches_jax(arch):
+    """The SMOKE configs' f32 forward, Qwen2.5's with random QKV biases,
+    within 1e-5 of JAX's largest |logit|: at SMOKE width a greedy stream
+    barely feels the attention, so this is where a bias the port drops
+    or misplaces shows."""
+    import repro.configs as jconfigs
+    from repro_torch.models import transformer as ttf
+    jcfg, tcfg = jconfigs.get_smoke(arch), tconfigs.get_smoke(arch)
+    jp = jtf.init(jcfg, jax.random.PRNGKey(1))
+    if jcfg.qkv_bias:
+        jp = _random_biases(jp)
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp))
+    toks = np.asarray(jax.random.randint(jax.random.PRNGKey(2), (2, 12), 0,
+                                         jcfg.vocab_size), np.int32)
+    want = np.asarray(jtf.forward(jcfg, jp, {"tokens": jnp.asarray(toks)},
+                                  compute_dtype=jnp.float32)[0])
+    got = ttf.forward(tcfg, tp, {"tokens": torch.from_numpy(toks)},
+                      compute_dtype=torch.float32)[0].numpy()
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())
+
+
+def _loop_matches_jax(jcfg, tcfg, layout, policy):
+    """`SCHED_SPEC`'s requests through both loops at batch 2 (a pool of
+    8 pages of 4 where paged), held to each other."""
     reqs = _requests(jcfg.vocab_size, SCHED_SPEC)
     max_len = max(p + g for p, g in SCHED_SPEC) + 4
     paged = layout.startswith("paged")
@@ -369,6 +423,8 @@ def test_server_weights_keep_the_init_dtypes(arch):
     ["--arch", "rwkv6_7b"],
     ["--arch", "jamba_1_5_large_398b"],
     ["--arch", "internvl2_2b"],
+    ["--arch", "phi3_mini_3_8b"],
+    ["--arch", "qwen2_5_32b"],
 ], ids=lambda a: "-".join(x.lstrip("-") for x in a[1:]))
 def test_cli_serves_every_family(argv):
     """The CLI at its defaults (``--batch 0``: the tuner's sweep) on each
