@@ -100,7 +100,7 @@ from repro_torch.launch.mesh import make_host_mesh, set_mesh
 from repro_torch.launch.scheduler import POLICIES, Scheduler
 from repro_torch.models import transformer
 from repro_torch.parallel import sharding as shd
-from repro_torch.runtime import faults, loadgen, paging
+from repro_torch.runtime import faults, loadgen, paging, trace
 from repro_torch.runtime import journal as journal_mod
 from repro_torch.runtime import snapshot as snapshot_mod
 from repro_torch.runtime.fault_tolerance import DecodeWatchdog
@@ -247,26 +247,43 @@ class Server:
         self.last_tok = np.zeros((batch, 1), np.int32)
         self.poison = np.zeros(batch, bool)            # chaos logits-NaN arm
         self.decode_forwards = 0                       # forwards with S == 1
+        # every forward's positions by kind: batch x width, and the active
+        self.positions_computed = {"admit": 0, "decode": 0}
+        self.positions_carried = {"admit": 0, "decode": 0}
         self.near_ties: list[dict] = []                # accepted at restore
 
     def _step(self, tokens: np.ndarray, active: np.ndarray,
-              poison: np.ndarray | None = None, logits: bool = False):
+              poison: np.ndarray | None = None, logits: bool = False, *,
+              kind: str = "admit", sync_pages: bool = False):
         """One guarded forward; returns host ``(next (B, 1), ok (B,))``,
         and with ``logits`` the final-position logits (B, V) as f32 on the
         host.  The poison mask is copied to the device before the caller
-        clears it."""
+        clears it; with ``sync_pages`` the allocator's table too.  Counts
+        the forward's positions under ``kind`` (``admit`` or ``decode``):
+        batch x width computed, the active ones carried."""
         dev = self.device
-        mask = None if poison is None else torch.tensor(poison, device=dev)
-        out = self.serve_step(
-            self.params, self.cache, torch.as_tensor(tokens, device=dev),
-            torch.as_tensor(active, device=dev), mask,
-            return_logits=logits)
+        with trace.span("step.prepare"):
+            if sync_pages:
+                self._sync_pages()
+            mask = (None if poison is None
+                    else torch.tensor(poison, device=dev))
+            tok_d = torch.as_tensor(tokens, device=dev)
+            act_d = torch.as_tensor(active, device=dev)
+        with trace.span("step.enqueue"):
+            out = self.serve_step(self.params, self.cache, tok_d, act_d,
+                                  mask, return_logits=logits)
         nxt, ok, self.cache = out[:3]
         if tokens.shape[1] == 1:
             self.decode_forwards += 1
-        res = (nxt.cpu().numpy(), ok.cpu().numpy())
-        if logits:
-            res += (out[3].float().cpu().numpy(),)
+        with trace.span("step.wait"):
+            res = (nxt.cpu().numpy(), ok.cpu().numpy())
+            if logits:
+                res += (out[3].float().cpu().numpy(),)
+        computed = tokens.size
+        carried = int(np.count_nonzero(active)) * (
+            tokens.shape[1] if np.ndim(active) == 1 else 1)
+        self.positions_computed[kind] += computed
+        self.positions_carried[kind] += carried
         return res
 
     def prefill(self, slot: int, req_id: int, prompt, gen_len: int) -> bool:
@@ -287,21 +304,22 @@ class Server:
             # attends only the prompt's last `window` tokens: more in one
             # forward would alias ring rows.
             prompt = prompt[-self.cfg.sliding_window:]
-        self._fresh_slot(slot, req_id, prompt.size)
-        if self.allocator is not None:
-            self._sync_pages()
-        if hook and self.injector is not None:
-            self.injector.prefill_hook(slot, req_id)   # may raise
-        toks = np.zeros((self.batch, prompt.size), np.int32)
-        toks[slot] = prompt
-        active = np.zeros((self.batch,), bool)
-        active[slot] = True
-        out = self._step(toks, active, logits=logits)
-        nxt, ok = out[:2]
-        self.last_tok[slot, 0] = nxt[slot, 0]
-        self.slot_len[slot] = 0
-        self.slot_target[slot] = gen_len
-        self.slot_req[slot] = req_id
+        with trace.span("serve.admit", rids=[req_id], width=prompt.size,
+                        positions=prompt.size):
+            self._fresh_slot(slot, req_id, prompt.size)
+            if hook and self.injector is not None:
+                self.injector.prefill_hook(slot, req_id)   # may raise
+            toks = np.zeros((self.batch, prompt.size), np.int32)
+            toks[slot] = prompt
+            active = np.zeros((self.batch,), bool)
+            active[slot] = True
+            out = self._step(toks, active, logits=logits,
+                             sync_pages=self.allocator is not None)
+            nxt, ok = out[:2]
+            self.last_tok[slot, 0] = nxt[slot, 0]
+            self.slot_len[slot] = 0
+            self.slot_target[slot] = gen_len
+            self.slot_req[slot] = req_id
         return bool(ok[slot]), (out[2][slot] if logits else None)
 
     def can_chunk(self) -> bool:
@@ -321,38 +339,42 @@ class Server:
         Returns ``(ok_admit, nxt, rode, done, bad)``: per-admitted-slot
         finite-logits verdicts, the tokens, the riding slots, and the
         riding slots that finished / went non-finite this step."""
-        width = max(int(np.asarray(p).size) for _, _, p, _ in admits)
+        sizes = [int(np.asarray(p).size) for _, _, p, _ in admits]
         rode = [s for s in range(self.batch) if self.slot_req[s] >= 0]
-        for slot, rid, prompt, _ in admits:
-            self._fresh_slot(slot, rid, np.asarray(prompt).size)
-        if self.allocator is not None:
-            self._grow(rode)                   # riding slots write one row
-            self._sync_pages()
-        tokens = np.zeros((self.batch, width), np.int32)
-        act = np.zeros((self.batch, width), bool)
-        for s in rode:
-            tokens[s, 0] = self.last_tok[s, 0]
-            act[s, 0] = True
-        for slot, _, prompt, _ in admits:
-            p = np.asarray(prompt, np.int32)
-            tokens[slot, :p.size] = p
-            act[slot, :p.size] = True
-        nxt, ok = self._step(tokens, act, self.poison)
-        self.poison[:] = False
-        ok_admit = {}
-        for slot, rid, _, gen_len in admits:
-            self.last_tok[slot, 0] = nxt[slot, 0]
-            self.slot_len[slot] = 0
-            self.slot_target[slot] = gen_len
-            self.slot_req[slot] = rid
-            ok_admit[slot] = bool(ok[slot])
-        adv = [s for s in rode if ok[s]]
-        for s in adv:
-            self.last_tok[s, 0] = nxt[s, 0]
-            self.slot_len[s] += 1
-        done = [s for s in adv if self.slot_len[s] >= self.slot_target[s]]
-        bad = [s for s in rode if not ok[s]]
-        return ok_admit, nxt, rode, done, bad
+        width = max(sizes)
+        with trace.span("serve.admit", rids=[rid for _, rid, _, _ in admits],
+                        width=width, positions=sum(sizes) + len(rode)):
+            for slot, rid, prompt, _ in admits:
+                self._fresh_slot(slot, rid, np.asarray(prompt).size)
+            if self.allocator is not None:
+                self._grow(rode)               # riding slots write one row
+            tokens = np.zeros((self.batch, width), np.int32)
+            act = np.zeros((self.batch, width), bool)
+            for s in rode:
+                tokens[s, 0] = self.last_tok[s, 0]
+                act[s, 0] = True
+            for slot, _, prompt, _ in admits:
+                p = np.asarray(prompt, np.int32)
+                tokens[slot, :p.size] = p
+                act[slot, :p.size] = True
+            nxt, ok = self._step(tokens, act, self.poison,
+                                 sync_pages=self.allocator is not None)
+            self.poison[:] = False
+            ok_admit = {}
+            for slot, rid, _, gen_len in admits:
+                self.last_tok[slot, 0] = nxt[slot, 0]
+                self.slot_len[slot] = 0
+                self.slot_target[slot] = gen_len
+                self.slot_req[slot] = rid
+                ok_admit[slot] = bool(ok[slot])
+            adv = [s for s in rode if ok[s]]
+            for s in adv:
+                self.last_tok[s, 0] = nxt[s, 0]
+                self.slot_len[s] += 1
+            done = [s for s in adv
+                    if self.slot_len[s] >= self.slot_target[s]]
+            bad = [s for s in rode if not ok[s]]
+            return ok_admit, nxt, rode, done, bad
 
     def restore_slot(self, slot: int, rid: int, prompt, tokens,
                      gen_len: int) -> None:
@@ -530,9 +552,10 @@ class Server:
         if inject and self.injector is not None:
             self.injector.apply_decode_faults(self, step)   # may raise
         active = self.slot_req >= 0
-        if self.allocator is not None and self._grow(np.flatnonzero(active)):
-            self._sync_pages()
-        nxt, ok = self._step(self.last_tok, active, self.poison)
+        grew = (self.allocator is not None
+                and self._grow(np.flatnonzero(active)))
+        nxt, ok = self._step(self.last_tok, active, self.poison,
+                             kind="decode", sync_pages=grew)
         self.poison[:] = False
         adv = active & ok
         self.last_tok = np.where(adv[:, None], nxt, self.last_tok)
@@ -568,6 +591,13 @@ def serve_loop(server: Server, lc: Lifecycle, *, watchdog=None,
     run's first step.  An injected `faults.KernelDispatchFault` re-plans
     the decode kernel and runs the step again on it (module docstring);
     an injected `faults.CrashFault` propagates out of the loop.
+
+    Each decode call runs in a ``serve.decode`` span (`runtime.trace`),
+    whose length the watchdog observes: the whole call with any re-plan
+    (the server's admissions run in ``serve.admit`` spans).  The stats'
+    ``positions_computed`` and ``positions_carried`` hold the loop's
+    forwards' positions by kind, ``admit`` and ``decode`` (batch x width,
+    and the active ones): the difference is padding.
     """
     step = start_step
     last_snap = start_step
@@ -581,6 +611,8 @@ def serve_loop(server: Server, lc: Lifecycle, *, watchdog=None,
     first_new_token_s = None
     t_start = time.monotonic()
     tick = getattr(lc.clock, "on_step", None)
+    computed0 = dict(server.positions_computed)
+    carried0 = dict(server.positions_carried)
 
     def note_kv() -> None:
         nonlocal kv_pages_peak, kv_peak
@@ -713,29 +745,31 @@ def serve_loop(server: Server, lc: Lifecycle, *, watchdog=None,
             nxt, rode, done, bad = chunk
             advanced = [s for s in rode if s not in bad]
         else:
-            t0 = time.monotonic()
-            try:
-                nxt, done, bad = server.decode_step(step)
-            except faults.KernelDispatchFault:
-                # No plain path on a card: re-plan the decode kernel and
-                # run the untouched step again on it.
-                kernel_replans += 1
-                server.replan_decode()
-                nxt, done, bad = server.decode_step(step, inject=False)
-            except paging.PageOOM:
-                # pool overcommitted mid-decode: evict the slot with the
-                # fewest generated tokens (lowest slot on a tie) and retry
-                kv_ooms += 1
-                victim = min((s for s in range(server.batch)
-                              if server.slot_req[s] >= 0),
-                             key=lambda s: (int(server.slot_len[s]), s))
-                vreq = lc.requests[int(server.slot_req[victim])]
-                server.release_slot(victim)
-                lc.evict(vreq, step, reason="kv_oom")
-                step += 1
-                continue
+            with trace.measure("serve.decode", step=step, slots=int(
+                    (server.slot_req >= 0).sum())) as decode:
+                try:
+                    nxt, done, bad = server.decode_step(step)
+                except faults.KernelDispatchFault:
+                    # No plain path on a card: re-plan the decode kernel
+                    # and run the untouched step again on it.
+                    kernel_replans += 1
+                    server.replan_decode()
+                    nxt, done, bad = server.decode_step(step, inject=False)
+                except paging.PageOOM:
+                    # pool overcommitted mid-decode: evict the slot with
+                    # the fewest generated tokens (lowest slot on a tie)
+                    # and retry
+                    kv_ooms += 1
+                    victim = min((s for s in range(server.batch)
+                                  if server.slot_req[s] >= 0),
+                                 key=lambda s: (int(server.slot_len[s]), s))
+                    vreq = lc.requests[int(server.slot_req[victim])]
+                    server.release_slot(victim)
+                    lc.evict(vreq, step, reason="kv_oom")
+                    step += 1
+                    continue
             if watchdog is not None:
-                watchdog.observe(step, time.monotonic() - t0)
+                watchdog.observe(step, decode.seconds)
             advanced = [s for s in range(server.batch)
                         if server.slot_req[s] >= 0 and s not in bad]
         note_kv()
@@ -764,6 +798,10 @@ def serve_loop(server: Server, lc: Lifecycle, *, watchdog=None,
              "kv_pages_peak": kv_pages_peak, "kv_peak": kv_peak,
              "kv_ooms": kv_ooms,
              "chunked_prefills": chunked_prefills,
+             "positions_computed": {k: v - computed0[k] for k, v in
+                                    server.positions_computed.items()},
+             "positions_carried": {k: v - carried0[k] for k, v in
+                                   server.positions_carried.items()},
              "snapshots_saved": 0 if snapshots is None else snapshots.saved}
     if snapshots is not None:
         stats["snapshot_bytes"] = snapshots.bytes_written
@@ -1073,6 +1111,8 @@ def _summary(server: Server, lc: Lifecycle, stats: dict, wall: float, *,
         "snapshots_saved": stats["snapshots_saved"],
         "max_concurrent": stats["max_concurrent"],
         "chunked_prefills": stats["chunked_prefills"],
+        "positions_computed": stats["positions_computed"],
+        "positions_carried": stats["positions_carried"],
         "ttft_ms": lc.ttft_percentiles(),
         "per_token_ms": lc.per_token_percentiles(),
         "request_outcomes": lc.outcome_trace(),

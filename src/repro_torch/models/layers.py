@@ -25,7 +25,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.attention import decode, decode_int8, ops
 from repro_torch.parallel import sharding as shd
-from repro_torch.runtime import quantize
+from repro_torch.runtime import quantize, trace
 
 Params = dict
 DEFAULT_INIT_SCALE = 0.02
@@ -316,6 +316,10 @@ def attention_apply(params: Params, x: torch.Tensor, cfg,
     reduced over the segments.  A paged pool never splits by sequence:
     it stays whole under `decode_rules`, and each rank's query heads
     attend it through the strided view of the KV heads they read.
+
+    The attention itself, after any cache write and up to its output
+    before ``wo``, runs in a ``model.attn`` span (`runtime.trace`),
+    whichever path computes it.
     """
     dh = cfg.head_dim
     hs = shd.split("heads", cfg.num_heads)
@@ -372,14 +376,16 @@ def attention_apply(params: Params, x: torch.Tensor, cfg,
     wo = shd.block(params["wo"], 0, cfg.q_dim, hs).to(x.dtype)
 
     if cache is None:
-        if prefill:
-            out = ops.mha_attention(q, k, v, causal=cfg.causal,
-                                    window=cfg.sliding_window)
-        else:
-            out = attention_core(q, k, v, positions, positions,
-                                 causal=cfg.causal, scale=scale,
-                                 window=cfg.sliding_window, chunk_q=chunk_q,
-                                 remat_chunks=cfg.remat == "full")
+        with trace.span("model.attn"):
+            if prefill:
+                out = ops.mha_attention(q, k, v, causal=cfg.causal,
+                                        window=cfg.sliding_window)
+            else:
+                out = attention_core(q, k, v, positions, positions,
+                                     causal=cfg.causal, scale=scale,
+                                     window=cfg.sliding_window,
+                                     chunk_q=chunk_q,
+                                     remat_chunks=cfg.remat == "full")
         out = out.reshape(b, s, -1).to(x.dtype)
         return shd.leave(out @ wo, hs), cache
 
@@ -401,8 +407,9 @@ def attention_apply(params: Params, x: torch.Tensor, cfg,
     new_len = lengths + act2d.sum(dim=1, dtype=torch.int32)
 
     if seg is not None:
-        out = _segment_attention(cfg, q, cache, new, t_abs, act2d, new_len,
-                                 pos_b, seg, hs, scale, block_k)
+        with trace.span("model.attn"):
+            out = _segment_attention(cfg, q, cache, new, t_abs, act2d,
+                                     new_len, pos_b, seg, hs, scale, block_k)
         return shd.leave(out.to(x.dtype) @ wo, hs), cache
 
     if paged_cache:
@@ -425,34 +432,38 @@ def attention_apply(params: Params, x: torch.Tensor, cfg,
             _write_cache(c, new[name], t_abs, ok)
     view = cache if pick is None else {
         n: c.narrow(2, *pick) for n, c in cache.items()}
-
-    if s == 1 and cfg.causal and not cfg.sliding_window:
-        kernel = {(False, False): decode.gqa_decode_attention,
-                  (True, False): decode.paged_gqa_decode_attention,
-                  (False, True): decode_int8.quantized_gqa_decode_attention,
-                  (True, True):
-                      decode_int8.paged_quantized_gqa_decode_attention,
-                  }[paged_cache, quantized]
-        names = ("k", "k_scale", "v", "v_scale") if quantized else ("k", "v")
-        tables = (pages,) if paged_cache else ()
-        out = kernel(q[:, 0], *(view[n] for n in names), *tables,
-                     length=new_len, scale=scale,
-                     block_k=block_k)[:, None]
-    else:
-        rows = ({n: decode.gather_pages(c, pages) for n, c in view.items()}
-                if paged_cache else view)
-        kr, vr = rows["k"], rows["v"]
-        if quantized:
-            kr = quantize.dequantize_rows(kr, rows["k_scale"])
-            vr = quantize.dequantize_rows(vr, rows["v_scale"])
-        slots = torch.arange(kr.shape[1], dtype=torch.int32, device=x.device)
-        if cfg.sliding_window:        # contiguous only: the cache's init
-            k_pos, k_valid = _ring_positions(slots, kr.shape[1], new_len)
+    with trace.span("model.attn"):
+        if s == 1 and cfg.causal and not cfg.sliding_window:
+            kernel = {(False, False): decode.gqa_decode_attention,
+                      (True, False): decode.paged_gqa_decode_attention,
+                      (False, True):
+                          decode_int8.quantized_gqa_decode_attention,
+                      (True, True):
+                          decode_int8.paged_quantized_gqa_decode_attention,
+                      }[paged_cache, quantized]
+            names = (("k", "k_scale", "v", "v_scale") if quantized
+                     else ("k", "v"))
+            tables = (pages,) if paged_cache else ()
+            out = kernel(q[:, 0], *(view[n] for n in names), *tables,
+                         length=new_len, scale=scale,
+                         block_k=block_k)[:, None]
         else:
-            k_pos, k_valid = slots, slots[None, :] < new_len[:, None]
-        out = attention_core(q, kr, vr, pos_b, k_pos, causal=cfg.causal,
-                             scale=scale, window=cfg.sliding_window,
-                             k_valid=k_valid, chunk_q=chunk_q)
+            rows = ({n: decode.gather_pages(c, pages)
+                     for n, c in view.items()} if paged_cache else view)
+            kr, vr = rows["k"], rows["v"]
+            if quantized:
+                kr = quantize.dequantize_rows(kr, rows["k_scale"])
+                vr = quantize.dequantize_rows(vr, rows["v_scale"])
+            slots = torch.arange(kr.shape[1], dtype=torch.int32,
+                                 device=x.device)
+            if cfg.sliding_window:        # contiguous only: the cache's init
+                k_pos, k_valid = _ring_positions(slots, kr.shape[1],
+                                                 new_len)
+            else:
+                k_pos, k_valid = slots, slots[None, :] < new_len[:, None]
+            out = attention_core(q, kr, vr, pos_b, k_pos, causal=cfg.causal,
+                                 scale=scale, window=cfg.sliding_window,
+                                 k_valid=k_valid, chunk_q=chunk_q)
     out = out.reshape(b, s, -1).to(x.dtype)
     return shd.leave(out @ wo, hs), cache
 
