@@ -12,9 +12,14 @@ or the flag's.  The server tunes its kernel plans once when it is built
 decode runs the span of its ``attn_decode`` plan, handed down with the
 cache, and the watchdog holds each decode step to the plans' predicted
 step time.  The server packs up to the batch's sequences;
-a burst of arrivals is prefilled as one chunked forward (every admitted
-prompt plus each in-flight slot's next token, under a (B, S) ``active``
-mask), a single arrival by a masked one-slot prefill.  Each decode step
+an admission computes only the rows it carries: a single arrival is one
+(1, S) forward over a view of its slot's cache rows
+(`transformer.cache_rows`), a burst one forward per run of adjacent
+admitted slots (its prompts left-aligned under an (n, S) ``active``
+mask) and one decode column for the in-flight slots.  A model with an
+MoE layer admits through (B, S) forwards instead, its one arrival under
+a one-hot mask, its burst with the in-flight slots' tokens at column 0:
+its expert capacity counts every row of a forward.  Each decode step
 then runs every occupied slot at its own cache depth; the single-token
 attention goes through the CUDA decode kernel of the cache's layout on a
 card.  Finished slots are zeroed and refilled.  Every family the JAX
@@ -207,7 +212,11 @@ class Server:
     the cache to the page-pool layout; the host `PageAllocator` is the
     truth and `_sync_pages` copies its table to the device cache.
     ``injector`` (a `runtime.faults.FaultInjector`) arms the chaos hooks
-    of `prefill` and `decode_step`."""
+    of `prefill` and `decode_step`.
+
+    ``narrow_admissions``: an admission forward runs on the admitted
+    slots' rows alone (module docstring), unless a layer of the model is
+    an MoE layer, whose capacity counts every row of the batch."""
 
     def __init__(self, cfg, batch: int, max_len: int, *, params=None,
                  kv_dtype=torch.float32, device="cuda", paged=None,
@@ -251,17 +260,29 @@ class Server:
         self.positions_computed = {"admit": 0, "decode": 0}
         self.positions_carried = {"admit": 0, "decode": 0}
         self.near_ties: list[dict] = []                # accepted at restore
+        self.narrow_admissions = not any(cfg.is_moe_layer(l)
+                                         for l in range(cfg.num_layers))
 
     def _step(self, tokens: np.ndarray, active: np.ndarray,
               poison: np.ndarray | None = None, logits: bool = False, *,
-              kind: str = "admit", sync_pages: bool = False):
-        """One guarded forward; returns host ``(next (B, 1), ok (B,))``,
-        and with ``logits`` the final-position logits (B, V) as f32 on the
-        host.  The poison mask is copied to the device before the caller
-        clears it; with ``sync_pages`` the allocator's table too.  Counts
-        the forward's positions under ``kind`` (``admit`` or ``decode``):
-        batch x width computed, the active ones carried."""
+              kind: str = "admit", sync_pages: bool = False,
+              rows: tuple[int, int] | None = None):
+        """One guarded forward of ``tokens`` (B, S) under ``active`` ((B,)
+        or (B, S)); returns host ``(next (B, 1), ok (B,))``, and with
+        ``logits`` the final-position logits (B, V) as f32 on the host.
+        The poison mask is copied to the device before the caller clears
+        it; with ``sync_pages`` the allocator's table too.  ``rows``
+        ``(start, stop)`` runs the forward on those slots alone, over
+        `transformer.cache_rows` of the cache, and writes the view's new
+        lengths back; the other rows of the inputs are not read, and
+        their results are 0 (not ok).  Counts the forward's positions
+        under ``kind`` (``admit`` or ``decode``): rows x width computed,
+        the active ones carried."""
         dev = self.device
+        lo, hi = (0, self.batch) if rows is None else rows
+        tokens, active = tokens[lo:hi], active[lo:hi]
+        if poison is not None:
+            poison = poison[lo:hi]
         with trace.span("step.prepare"):
             if sync_pages:
                 self._sync_pages()
@@ -269,26 +290,38 @@ class Server:
                     else torch.tensor(poison, device=dev))
             tok_d = torch.as_tensor(tokens, device=dev)
             act_d = torch.as_tensor(active, device=dev)
+        cache = (self.cache if rows is None else
+                 transformer.cache_rows(self.cache, lo, hi, paged=self.paged))
         with trace.span("step.enqueue"):
-            out = self.serve_step(self.params, self.cache, tok_d, act_d,
+            out = self.serve_step(self.params, cache, tok_d, act_d,
                                   mask, return_logits=logits)
-        nxt, ok, self.cache = out[:3]
+        nxt, ok, new = out[:3]
+        if rows is None:
+            self.cache = new
+        else:
+            self.cache["lengths"][lo:hi] = new["lengths"]
+            self.cache["index"] = new["index"]
         if tokens.shape[1] == 1:
             self.decode_forwards += 1
         with trace.span("step.wait"):
-            res = (nxt.cpu().numpy(), ok.cpu().numpy())
+            res = [nxt.cpu().numpy(), ok.cpu().numpy()]
             if logits:
-                res += (out[3].float().cpu().numpy(),)
+                res.append(out[3].float().cpu().numpy())
+        if rows is not None:
+            for i, a in enumerate(res):
+                res[i] = np.zeros((self.batch, *a.shape[1:]), a.dtype)
+                res[i][lo:hi] = a
         computed = tokens.size
         carried = int(np.count_nonzero(active)) * (
             tokens.shape[1] if np.ndim(active) == 1 else 1)
         self.positions_computed[kind] += computed
         self.positions_carried[kind] += carried
-        return res
+        return tuple(res)
 
     def prefill(self, slot: int, req_id: int, prompt, gen_len: int) -> bool:
-        """Masked batched prefill of one slot: the whole prompt in one
-        forward whose ``active`` mask is the slot's one-hot, after zeroing
+        """Prefill of one slot: the whole prompt in one forward over the
+        slot's cache rows alone (with ``narrow_admissions``; else over the
+        batch under the slot's one-hot ``active`` mask), after zeroing
         the slot (and, paged, covering the prompt with pages).  Returns
         True iff its first-token logits were finite; raises
         `paging.PageOOM` when the pool cannot cover the prompt, and in
@@ -314,7 +347,9 @@ class Server:
             active = np.zeros((self.batch,), bool)
             active[slot] = True
             out = self._step(toks, active, logits=logits,
-                             sync_pages=self.allocator is not None)
+                             sync_pages=self.allocator is not None,
+                             rows=((slot, slot + 1) if self.narrow_admissions
+                                   else None))
             nxt, ok = out[:2]
             self.last_tok[slot, 0] = nxt[slot, 0]
             self.slot_len[slot] = 0
@@ -323,7 +358,7 @@ class Server:
         return bool(ok[slot]), (out[2][slot] if logits else None)
 
     def can_chunk(self) -> bool:
-        """Chunked prefill needs the (B, S) active-mask path, which only
+        """Chunked prefill needs the 2-D active-mask path, which only
         the attention families have (a per-slot valid-prefix scatter; a
         recurrent state would run over a packed row's padding); the ring
         buffer and the chaos injector's ordinal-keyed prefill faults stay
@@ -332,33 +367,54 @@ class Server:
                 and not self.cfg.sliding_window and self.injector is None)
 
     def admit_chunk(self, admits):
-        """Chunked prefill: every admitted prompt, left-aligned under a
-        (B, S) active mask, plus each in-flight slot's next token at column
-        0, in ONE forward.  ``admits`` is ``[(slot, rid, prompt, gen_len)]``.
+        """Chunked prefill of every admitted prompt, each in-flight slot
+        advancing one token beside them.  ``admits`` is ``[(slot, rid,
+        prompt, gen_len)]``.  With ``narrow_admissions`` each maximal run
+        of adjacent admitted slots is one forward over its cache rows, its
+        prompts left-aligned under an (n, S) active mask, and the riding
+        slots then take one (B, 1) decode column; else ONE (B, S) forward
+        holds the prompts and each riding slot's token at column 0.
 
         Returns ``(ok_admit, nxt, rode, done, bad)``: per-admitted-slot
         finite-logits verdicts, the tokens, the riding slots, and the
         riding slots that finished / went non-finite this step."""
-        sizes = [int(np.asarray(p).size) for _, _, p, _ in admits]
+        size = {slot: int(np.asarray(p).size) for slot, _, p, _ in admits}
         rode = [s for s in range(self.batch) if self.slot_req[s] >= 0]
-        width = max(sizes)
+        width = max(size.values())
         with trace.span("serve.admit", rids=[rid for _, rid, _, _ in admits],
-                        width=width, positions=sum(sizes) + len(rode)):
-            for slot, rid, prompt, _ in admits:
-                self._fresh_slot(slot, rid, np.asarray(prompt).size)
+                        width=width, positions=sum(size.values()) + len(rode)):
+            for slot, rid, _, _ in admits:
+                self._fresh_slot(slot, rid, size[slot])
             if self.allocator is not None:
                 self._grow(rode)               # riding slots write one row
             tokens = np.zeros((self.batch, width), np.int32)
             act = np.zeros((self.batch, width), bool)
-            for s in rode:
-                tokens[s, 0] = self.last_tok[s, 0]
-                act[s, 0] = True
             for slot, _, prompt, _ in admits:
                 p = np.asarray(prompt, np.int32)
                 tokens[slot, :p.size] = p
                 act[slot, :p.size] = True
-            nxt, ok = self._step(tokens, act, self.poison,
-                                 sync_pages=self.allocator is not None)
+            sync = self.allocator is not None
+            if self.narrow_admissions:
+                nxt = np.zeros((self.batch, 1), np.int32)
+                ok = np.zeros((self.batch,), bool)
+                for lo, hi in _runs(sorted(size)):
+                    w = max(size[s] for s in range(lo, hi))
+                    out = self._step(tokens[:, :w], act[:, :w],
+                                     sync_pages=sync, rows=(lo, hi))
+                    nxt[lo:hi], ok[lo:hi] = out[0][lo:hi], out[1][lo:hi]
+                    sync = False
+                if rode:
+                    column = np.zeros((self.batch,), bool)
+                    column[rode] = True
+                    out = self._step(self.last_tok, column, self.poison,
+                                     kind="decode", sync_pages=sync)
+                    nxt[rode], ok[rode] = out[0][rode], out[1][rode]
+            else:
+                for s in rode:
+                    tokens[s, 0] = self.last_tok[s, 0]
+                    act[s, 0] = True
+                nxt, ok = self._step(tokens, act, self.poison,
+                                     sync_pages=sync)
             self.poison[:] = False
             ok_admit = {}
             for slot, rid, _, gen_len in admits:
@@ -566,6 +622,18 @@ class Server:
         return nxt, done, bad
 
 
+def _runs(slots):
+    """Maximal runs of consecutive ints in sorted ``slots``, as
+    ``(start, stop)`` pairs."""
+    runs = []
+    for s in slots:
+        if runs and runs[-1][1] == s:
+            runs[-1][1] = s + 1
+        else:
+            runs.append([s, s + 1])
+    return [tuple(r) for r in runs]
+
+
 def serve_loop(server: Server, lc: Lifecycle, *, watchdog=None,
                max_steps: int = 100_000, source=None, journal=None,
                snapshots=None, start_step: int = 0,
@@ -596,8 +664,9 @@ def serve_loop(server: Server, lc: Lifecycle, *, watchdog=None,
     whose length the watchdog observes: the whole call with any re-plan
     (the server's admissions run in ``serve.admit`` spans).  The stats'
     ``positions_computed`` and ``positions_carried`` hold the loop's
-    forwards' positions by kind, ``admit`` and ``decode`` (batch x width,
-    and the active ones): the difference is padding.
+    forwards' positions by kind, ``admit`` and ``decode`` (rows x width
+    of each forward as it ran, and the active ones): the difference is
+    padding.
     """
     step = start_step
     last_snap = start_step

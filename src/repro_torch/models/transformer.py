@@ -466,6 +466,29 @@ def _is_pool_leaf(a: torch.Tensor, paged) -> bool:
             and a.shape[2] == paged.page_size)
 
 
+def cache_rows(cache: Params, start: int, stop: int, paged=None) -> Params:
+    """The cache of slots ``start`` to ``stop`` alone, as views: every
+    batch-major leaf (K/V rows and int8 scales, a ring, RWKV and Mamba
+    states), ``lengths`` and the page table cut on their batch axis; page
+    pools (`_is_pool_leaf`), ``index``, ``decode_span`` and ``kv_split``
+    whole.  A forward over the view writes its rows into ``cache``'s
+    tensors in place; the ``lengths`` and ``index`` it returns are new
+    tensors, which the caller writes back."""
+    def cut(a):
+        if paged is not None and _is_pool_leaf(a, paged):
+            return a
+        return a[:, start:stop]
+    out = {"blocks": tree_lib.map_structure(cut, cache["blocks"]),
+           "index": cache["index"],
+           "lengths": cache["lengths"][start:stop]}
+    if "pages" in cache:
+        out["pages"] = cache["pages"][start:stop]
+    for key in ("decode_span", "kv_split"):
+        if key in cache:
+            out[key] = cache[key]
+    return out
+
+
 def cache_reset_slot(cache: Params, slot: int, paged=None) -> Params:
     """Zero one slot's rows in every layer's cache leaves (KV rows, Mamba
     conv tails and states, RWKV shifts and states) and reset its length

@@ -137,12 +137,13 @@ BATCH, MAX_LEN = 3, 40
 # third finishes
 MIX = [(5, 3), (7, 6), (4, 2), (6, 4)]
 # Worked by hand from serve_loop's order: step 0 admits r0-r2 as one
-# chunk (3 x 7 computed, 5 + 7 + 4 carried) and decodes nothing; steps
-# 1-2 decode three slots; r2 is done after step 2, so step 3 prefills r3
-# alone (3 x 6, 6) and decodes r0, r1, r3; r0 is done, steps 4-6 decode
-# r1 and r3 until both are done.
+# chunk, a run of all three slots (3 x 7 computed, 5 + 7 + 4 carried),
+# and decodes nothing; steps 1-2 decode three slots; r2 is done after
+# step 2, so step 3 prefills r3 alone on its own row (6 computed, 6
+# carried) and decodes r0, r1, r3; r0 is done, steps 4-6 decode r1 and
+# r3 until both are done.
 DECODES = 6
-COMPUTED = {"admit": 3 * 7 + 3 * 6, "decode": DECODES * BATCH}
+COMPUTED = {"admit": 3 * 7 + 6, "decode": DECODES * BATCH}
 CARRIED = {"admit": 5 + 7 + 4 + 6, "decode": 3 + 3 + 3 + 2 + 2 + 2}
 
 
